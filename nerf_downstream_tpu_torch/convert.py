@@ -1,0 +1,100 @@
+"""Carry Res16UNet weights between the reference's flax variable trees and
+the port's ``state_dict``.
+
+The reference stores ``{"params": ..., "batch_stats": ...}`` as nested
+dicts; its BatchNorms are auto-named ``MaskedBatchNorm_<i>`` in creation
+order. Conv kernels keep the reference layout ``[K, Cin, Cout]`` with
+x-fastest offsets, so no tensor is transposed. Trees are read as nested
+dicts of numpy arrays (or anything ``np.asarray`` accepts).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+# conv-norm-act units of Res16UNet, in the order the reference creates
+# their BatchNorms (MaskedBatchNorm_0 .. _9)
+UNITS = ("conv0a", "conv0b", "conv1", "conv2", "conv3", "conv4",
+         "convtr4", "convtr5", "convtr6", "convtr7")
+_BN_LEAF = {
+    "weight": ("params", "scale"),
+    "bias": ("params", "bias"),
+    "running_mean": ("batch_stats", "mean"),
+    "running_var": ("batch_stats", "var"),
+}
+_BLOCK_NORM = {"norm1": "MaskedBatchNorm_0", "norm2": "MaskedBatchNorm_1",
+               "norm": "MaskedBatchNorm_2"}
+
+
+def flax_path(key: str) -> tuple[str, ...]:
+    """(collection, module..., leaf) of a port ``state_dict`` key."""
+    p = key.split(".")
+    if p[0] in UNITS:
+        if p[1] == "conv":
+            return ("params", f"{p[0]}_conv", p[2])
+        coll, leaf = _BN_LEAF[p[2]]
+        return (coll, f"MaskedBatchNorm_{UNITS.index(p[0])}", leaf)
+    if p[0].startswith("block"):
+        fb = f"{p[0]}_{p[1]}"
+        rest = p[2:]
+        if rest[0] == "downsample":  # downsample.{conv,norm}.<leaf>
+            if rest[1] == "conv":
+                return ("params", fb, "downsample_conv", rest[2])
+            rest = rest[1:]
+        if rest[0] in ("conv1", "conv2"):
+            return ("params", fb, rest[0], rest[1])
+        coll, leaf = _BN_LEAF[rest[1]]
+        return (coll, fb, _BLOCK_NORM[rest[0]], leaf)
+    if p[0] == "final":
+        return ("params", "final", p[1])
+    raise KeyError(f"no flax counterpart for {key!r}")
+
+
+def flax_to_state_dict(model: torch.nn.Module,
+                       variables: dict) -> dict[str, torch.Tensor]:
+    """``state_dict`` of ``model`` filled from the reference's
+    ``{"params", "batch_stats"}`` trees."""
+    out = {}
+    for key, ref in model.state_dict().items():
+        node = variables
+        for name in flax_path(key):
+            node = node[name]
+        arr = np.asarray(node, dtype=np.float32)
+        if arr.shape != tuple(ref.shape):
+            raise ValueError(f"{key}: flax shape {arr.shape} != "
+                             f"{tuple(ref.shape)}")
+        out[key] = torch.from_numpy(arr.copy())
+    return out
+
+
+def load_flax_variables(model: torch.nn.Module, variables: dict):
+    """Load the reference's variable trees into ``model`` (strict)."""
+    model.load_state_dict(flax_to_state_dict(model, variables), strict=True)
+    return model
+
+
+def init_flax_variables(model: torch.nn.Module, seed: int) -> dict:
+    """Random variables for ``model`` in the reference's tree layout, from
+    ``seed``: He-normal conv kernels (fan-in K * Cin), BatchNorm scale,
+    bias and running statistics drawn near identity so every BN does work.
+    """
+    rng = np.random.default_rng(seed)
+    tree: dict = {}
+    for key, ref in model.state_dict().items():
+        path = flax_path(key)
+        shape = tuple(ref.shape)
+        leaf = path[-1]
+        if leaf == "kernel":
+            arr = rng.normal(size=shape) * np.sqrt(2.0 / (shape[0] * shape[1]))
+        elif leaf == "scale":
+            arr = rng.uniform(0.5, 1.5, shape)
+        elif leaf == "var":
+            arr = rng.uniform(0.5, 2.0, shape)
+        else:  # bias, mean
+            arr = rng.normal(size=shape) * 0.1
+        node = tree
+        for name in path[:-1]:
+            node = node.setdefault(name, {})
+        node[leaf] = arr.astype(np.float32)
+    return tree

@@ -1,0 +1,387 @@
+"""Windowed sparse convolution over key-sorted coordinate sets
+(counterpart of ``nerf_downstream_tpu/ops/window_conv.py``, forward).
+
+Every level's coordinates are stored in packed-key order, and the map
+"row of coord + d" for a fixed offset d preserves that order. So the
+neighbours of a tile of T output rows lie in one contiguous coverage
+window of the input table, ``[starts[g, t], starts[g, t] + blocks *
+window)``, shared by the offsets of a group (offsets with the same
+(dx, dy), which differ only in the fastest key). A plan stores the window
+starts and each entry's rank inside its window; the conv gathers and
+multiplies by those ranks.
+
+Plan side: ``build_plan_direct`` finds window starts from tile-boundary
+lower bounds and the in-window ranks with K1 (``window_match``). With an
+escape cap, the few entries whose neighbour falls outside the window (and
+entries whose partner in the transpose plan would) go to a short entry
+list instead of poisoning the output. ``transpose_plan`` relabels a
+same-set plan into its transpose.
+
+Apply side: ``window_conv_apply`` runs K2 (``window_gather_matmul``) and
+adds the escape entries with ``index_add_``. Both kernels take their plain
+PyTorch versions on CPU tensors and launch on CUDA tensors.
+
+Guards: a plan that could not place every entry (``n_escaped > 0``)
+NaN-poisons the conv output (fail loud, never a silent truncation).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from nerf_downstream_tpu_torch.ops.kernels import (
+    window_gather_matmul,
+    window_match,
+)
+from nerf_downstream_tpu_torch.sparse import packing
+
+_U32 = 0xFFFFFFFF
+# escape search: candidate tiles per equality chunk (bounds the
+# [chunk, M, T, slice] compare tensor)
+_ESC_CHUNK = 16
+
+
+@dataclasses.dataclass(frozen=True)
+class WindowPlan:
+    """Tiled window layout of one kernel map.
+
+    starts int32[G, nT]; idx int32[G, nT, M, tile] (tile-major, -1 = no
+    neighbour); n_escaped int32 scalar (> 0 poisons); the escape list
+    esc_k/esc_i/esc_j int32[E] (-1 = padding; esc_k indexes the
+    perm-ordered [G * M] weights) and esc_stats int32[3] = [candidate
+    tiles, demoted-entry tiles, escape entries]; perm: the kernel-offset
+    order of the G x M slots.
+    """
+
+    starts: torch.Tensor
+    idx: torch.Tensor
+    n_escaped: torch.Tensor
+    esc_k: torch.Tensor | None = None
+    esc_i: torch.Tensor | None = None
+    esc_j: torch.Tensor | None = None
+    esc_stats: torch.Tensor | None = None
+    perm: tuple = ()
+    tile: int = 256
+    window: int = 512
+    blocks: int = 2
+
+
+def group_offsets(offsets: np.ndarray) -> tuple[tuple[int, ...], ...]:
+    """Partition offset indices into equal-size groups sharing (dx, dy)."""
+    keys: dict[tuple[int, int], list[int]] = {}
+    for i, (dx, dy, _dz) in enumerate(np.asarray(offsets)):
+        keys.setdefault((int(dx), int(dy)), []).append(i)
+    groups = tuple(tuple(v) for v in keys.values())
+    if len({len(g) for g in groups}) != 1:
+        raise ValueError(f"non-uniform offset groups: {groups}")
+    return groups
+
+
+def _i32(v: int) -> int:
+    v = int(v) & _U32
+    return v - (1 << 32) if v >= (1 << 31) else v
+
+
+def _top_indices(flags: torch.Tensor, k: int) -> torch.Tensor:
+    """Indices of the k largest flags, ties in ascending index order —
+    the order the reference's ``lax.top_k`` returns (``torch.topk`` does
+    not fix an order on ties)."""
+    return torch.sort(flags.to(torch.int32), descending=True,
+                      stable=True).indices[:k]
+
+
+def build_plan_direct(
+    coords: torch.Tensor,
+    mask: torch.Tensor,
+    offsets: np.ndarray,
+    tile: int = 256,
+    window: int = 512,
+    transpose: bool = False,
+    out_coords: torch.Tensor | None = None,
+    out_mask: torch.Tensor | None = None,
+    blocks: int = 2,
+    escape_cap: int = 0,
+    escape_tiles: int = 64,
+) -> WindowPlan:
+    """Window plan straight from sorted packed keys (no kernel map).
+
+    ``coords``/``mask`` are the table (input) set; cross-set maps pass the
+    query (output) set as ``out_coords``/``out_mask``. ``escape_cap > 0``
+    (same-set symmetric plans only) enables the escape list.
+    """
+    if out_coords is None:
+        out_coords, out_mask = coords, mask
+    dev = coords.device
+    n = out_coords.shape[0]
+    k = len(offsets)
+    hi, lo = packing.pack(coords, mask)
+    o_hi, o_lo = (
+        (hi, lo) if out_coords is coords
+        else packing.pack(out_coords, out_mask)
+    )
+    n_valid_in = mask.sum(dtype=torch.int32)
+    n_valid_out = out_mask.sum(dtype=torch.int32)
+    offs = np.asarray(offsets)
+    if transpose:
+        offs = -offs
+    while n % tile and tile > 8:  # small capacities
+        tile //= 2
+    if n % tile:
+        raise ValueError(f"capacity {n} not divisible by window tile {tile}")
+    nt = n // tile
+    groups = group_offsets(offsets)
+    perm = tuple(i for g in groups for i in g)
+    g_count, m = len(groups), len(groups[0])
+    deltas = [packing.offset_delta(offs[i]) for i in range(k)]
+    perm_t = torch.as_tensor(perm, device=dev)
+
+    # tile-boundary bounds: K x nT lower bounds of the shifted first keys
+    b_hi, b_lo = o_hi[::tile], o_lo[::tile]
+    b_valid = torch.arange(nt, device=dev) * tile < n_valid_out
+    qb = [packing.shift_keys(b_hi, b_lo, dh, dl, mask=b_valid)
+          for dh, dl in deltas]
+    bnd = packing.lower_bound_hier(
+        hi, lo, torch.stack([q[0] for q in qb]).reshape(-1),
+        torch.stack([q[1] for q in qb]).reshape(-1),
+    ).reshape(k, nt)
+    bnd = torch.where(b_valid[None, :], bnd, n_valid_in)
+    bnd = torch.cat([bnd, n_valid_in.expand(k, 1)], 1).to(torch.int32)
+    bnd_g = bnd[perm_t].reshape(g_count, m, nt + 1)
+    smin = bnd_g[:, :, :-1].amin(1)
+    emax = bnd_g[:, :, 1:].amax(1)
+    starts = torch.cummax(smin, 1).values.clamp(min=0)
+    starts = (torch.div(starts, window, rounding_mode="floor") * window).to(
+        torch.int32).contiguous()
+    n_escaped = ((emax - starts) > blocks * window).sum(dtype=torch.int32)
+
+    # in-window ranks: K1 shifts each query key by its (g, m) 64-bit delta
+    d64 = [((dh << 32) + dl) & ((1 << 64) - 1) for dh, dl in deltas]
+    dw = [[d64[perm[g * m + j]] for j in range(m)] for g in range(g_count)]
+    deltas_gm = torch.tensor(
+        [[[_i32(d >> 32), _i32(d)] for d in row] for row in dw],
+        dtype=torch.int32, device=dev,
+    )
+    idx = window_match(hi, lo, o_hi, o_lo, out_mask.contiguous(), deltas_gm,
+                       starts, tile, window, blocks)
+
+    esc_k = esc_i = esc_j = esc_stats = None
+    if escape_cap > 0:
+        if out_coords is not coords:
+            raise ValueError(
+                "escape_cap applies to same-set plans only (cross-set plans "
+                "must size their coverage)"
+            )
+        nperm = negation_perm(offsets)
+        if nperm is None:
+            raise ValueError("the escape list needs a symmetric offset set")
+        gp = torch.as_tensor(nperm[0], device=dev)
+        cov = blocks * window
+
+        def ar(size):
+            return torch.arange(size, device=dev)
+
+        # mutuality: pair (k, i -> j) lives in the transpose plan at
+        # (k_neg, j) with window starts[g_neg, j // tile]; an in-window j
+        # spans at most R = cov // tile + 2 partner tiles from the own
+        # window's first tile, so the partner start is an R-way select
+        r_vals = cov // tile + 2
+        base = torch.div(starts, tile, rounding_mode="floor")
+        ps = starts[gp]
+        idx_r = (base[:, :, None] + ar(r_vals)).clamp(0, nt - 1)
+        s_r = torch.gather(ps, 1, idx_r.reshape(g_count, -1)).reshape(
+            g_count, nt, r_vals)
+        valid0 = idx >= 0
+        j_abs4 = torch.where(valid0, starts[:, :, None, None] + idx, 0)
+        r_idx4 = (torch.div(j_abs4, tile, rounding_mode="floor")
+                  - base[:, :, None, None])
+        inv_start4 = torch.full_like(j_abs4, 1 << 30)
+        for r in range(r_vals):
+            inv_start4 = torch.where(r_idx4 == r, s_r[:, :, None, None, r],
+                                     inv_start4)
+        own_i4 = ar(n).reshape(1, nt, 1, tile)
+        in_b4 = (own_i4 >= inv_start4) & (own_i4 < inv_start4 + cov)
+        demote4 = valid0 & ~in_b4
+        idx = torch.where(demote4, -1, idx)
+
+        # part A: entries beyond the window, found by matching the
+        # candidate tiles' shifted keys against a [cov + 3 cov) key slice
+        slice_w = 4 * cov
+        span = emax - starts
+        esc_gt = span > cov
+        n_gt = esc_gt.sum(dtype=torch.int32)
+        n_far = (span > slice_w).sum(dtype=torch.int32)
+        te = min(escape_tiles, g_count * nt)
+        cand = _top_indices(esc_gt.reshape(-1), te)
+        cg, ct = cand // nt, cand % nt
+        rows = ct[:, None] * tile + ar(tile)
+        mm = ar(m)
+        pad = torch.full((slice_w,), -1, dtype=torch.int32, device=dev)
+        hi_pad, lo_pad = torch.cat([hi, pad]), torch.cat([lo, pad])
+        st_c = starts[cg, ct].to(torch.int64)
+        d_c = packing.to_u32(deltas_gm)[cg]  # [TE, M, 2]
+        q64 = packing.shifted_key64(  # [TE, M, T]
+            o_hi[rows][:, None, :], o_lo[rows][:, None, :],
+            out_mask[rows][:, None, :], d_c[:, :, 0, None], d_c[:, :, 1, None],
+        )
+        srows = st_c[:, None] + ar(slice_w)
+        s64 = packing.key64(hi_pad[srows], lo_pad[srows])  # [TE, S]
+        iota_s = ar(slice_w).to(torch.int32)
+        j_loc = torch.empty((te, m, tile), dtype=torch.int32, device=dev)
+        for c0 in range(0, te, _ESC_CHUNK):
+            c1 = min(te, c0 + _ESC_CHUNK)
+            eq = s64[c0:c1, None, None, :] == q64[c0:c1, :, :, None]
+            j_loc[c0:c1] = torch.where(eq, iota_s, -1).amax(-1)
+        a_flag = j_loc >= cov
+        a_k = (cg[:, None, None] * m + mm[None, :, None]).expand(te, m, tile)
+        a_i = rows[:, None, :].expand(te, m, tile)
+        a_j = st_c[:, None, None] + j_loc
+
+        # part B: in-window entries demoted by the mutuality check
+        dem_t = demote4.any(3).any(2)  # [G, nT]
+        n_dt = dem_t.sum(dtype=torch.int32)
+        cand2 = _top_indices(dem_t.reshape(-1), te)
+        cg2, ct2 = cand2 // nt, cand2 % nt
+        rows2 = ct2[:, None] * tile + ar(tile)
+        b_flag = demote4[cg2, ct2]  # [TE, M, T]
+        b_j = j_abs4[cg2, ct2]
+        b_k = (cg2[:, None, None] * m + mm[None, :, None]).expand(te, m, tile)
+        b_i = rows2[:, None, :].expand(te, m, tile)
+
+        all_flag = torch.cat([a_flag.reshape(-1), b_flag.reshape(-1)])
+        all_k = torch.cat([a_k.reshape(-1), b_k.reshape(-1)])
+        all_i = torch.cat([a_i.reshape(-1), b_i.reshape(-1)])
+        all_j = torch.cat([a_j.reshape(-1), b_j.reshape(-1).to(torch.int64)])
+        n_esc = all_flag.sum(dtype=torch.int32)
+        e_cap = min(escape_cap, all_flag.shape[0])
+        pick = _top_indices(all_flag, e_cap)
+        ok = all_flag[pick]
+        esc_k = torch.where(ok, all_k[pick], -1).to(torch.int32)
+        esc_i = torch.where(ok, all_i[pick], -1).to(torch.int32)
+        esc_j = torch.where(ok, all_j[pick], -1).to(torch.int32)
+        overflow = (n_gt > te) | (n_dt > te) | (n_esc > e_cap) | (n_far > 0)
+        n_escaped = overflow.to(torch.int32)
+        esc_stats = torch.stack([n_gt, n_dt, n_esc])
+
+    return WindowPlan(
+        starts=starts, idx=idx.contiguous(), n_escaped=n_escaped,
+        esc_k=esc_k, esc_i=esc_i, esc_j=esc_j, esc_stats=esc_stats,
+        perm=perm, tile=tile, window=window, blocks=blocks,
+    )
+
+
+def negation_perm(offsets: np.ndarray) -> tuple | None:
+    """(group_perm, member_perm) relabeling a same-set plan into its
+    transpose for a symmetric offset set (every d has -d); None when the
+    set is not symmetric or holds duplicates."""
+    offs = np.asarray(offsets)
+    groups = group_offsets(offs)
+    if len({tuple(int(v) for v in o) for o in offs}) != len(offs):
+        return None
+    pos: dict[tuple, tuple[int, int]] = {}
+    for g, idxs in enumerate(groups):
+        for mm, i in enumerate(idxs):
+            pos[tuple(int(v) for v in offs[i])] = (g, mm)
+    g_perm = np.empty(len(groups), np.int64)
+    m_perm = np.empty((len(groups), len(groups[0])), np.int64)
+    for g, idxs in enumerate(groups):
+        for mm, i in enumerate(idxs):
+            neg = tuple(-int(v) for v in offs[i])
+            if neg not in pos:
+                return None
+            g_perm[g], m_perm[g, mm] = pos[neg]
+    return g_perm, m_perm
+
+
+def transpose_plan(plan: WindowPlan, offsets: np.ndarray) -> WindowPlan | None:
+    """The transpose (negated-offset) plan of a SAME-SET plan by static
+    relabeling: group g takes group g_perm[g]'s windows and member m takes
+    member m_perm[g, m]'s ranks; an escape entry (k, i, j) becomes
+    (k_neg, j, i). None for an asymmetric offset set."""
+    perm = negation_perm(offsets)
+    if perm is None:
+        return None
+    g_perm, m_perm = perm
+    dev = plan.starts.device
+    esc_k = esc_i = esc_j = None
+    m = m_perm.shape[1]
+    if plan.esc_k is not None:
+        lut = torch.as_tensor(
+            (g_perm[:, None] * m + m_perm).reshape(-1), dtype=torch.int32,
+            device=dev,
+        )
+        ok = plan.esc_k >= 0
+        esc_k = torch.where(ok, lut[plan.esc_k.clamp(min=0).long()], -1).to(
+            torch.int32)
+        esc_i, esc_j = plan.esc_j, plan.esc_i
+    idx_t = torch.stack([
+        torch.stack([plan.idx[int(g_perm[g]), :, int(m_perm[g, mm]), :]
+                     for mm in range(m)], 1)
+        for g in range(g_perm.shape[0])
+    ])
+    return dataclasses.replace(
+        plan,
+        starts=plan.starts[torch.as_tensor(g_perm, device=dev)].contiguous(),
+        idx=idx_t.contiguous(),
+        esc_k=esc_k, esc_i=esc_i, esc_j=esc_j,
+    )
+
+
+def _esc_scatter(out, feats, esc_k, esc_i, esc_j, w_gm):
+    """Escape side path: out[esc_i] += feats[esc_j] @ w_gm[esc_k], in f32
+    and added in the output type (plain PyTorch: the reference runs this
+    as XLA ops too, never as a kernel)."""
+    valid = esc_j >= 0
+    gf = torch.where(valid[:, None], feats[esc_j.clamp(min=0).long()], 0)
+    k_count, c, cout = w_gm.shape
+    onehot = (esc_k[:, None] == torch.arange(k_count, device=esc_k.device))
+    sel = onehot[:, :, None].to(torch.float32) * gf[:, None, :].to(
+        torch.float32)
+    contrib = sel.reshape(-1, k_count * c) @ w_gm.reshape(
+        k_count * c, cout).to(torch.float32)
+    upd = torch.where(valid[:, None], contrib, 0.0).to(out.dtype)
+    return out.index_add_(0, esc_i.clamp(min=0).long(), upd)
+
+
+def window_conv_apply(
+    feats: torch.Tensor,
+    plan: WindowPlan,
+    inv_plan: WindowPlan | None,
+    weights: torch.Tensor,
+    bias: torch.Tensor | None = None,
+    compute_dtype: torch.dtype = torch.float32,
+    input_grad: bool = True,
+) -> torch.Tensor:
+    """Sparse conv forward through a window plan: [N_out, Cout] in
+    ``compute_dtype`` (f32 accumulation inside K2, one rounding).
+
+    ``weights`` [K, Cin, Cout] in kernel-offset order. ``inv_plan`` is the
+    transpose plan the backward would gather along; the forward reads only
+    its escape guard. ``input_grad`` False (first-layer convs) declares no
+    transpose plan.
+    """
+    if input_grad and (plan.window != inv_plan.window
+                       or plan.perm != inv_plan.perm):
+        raise ValueError("plan and inverse plan were built with different "
+                         "offsets or windows")
+    n_in, cin = feats.shape
+    g_count, _, m, _ = plan.idx.shape
+    # K2 reads ranks past the table as zero rows, so unlike the reference
+    # no blocks * window padding rows are appended
+    f = feats.to(compute_dtype).contiguous()
+    perm = torch.as_tensor(plan.perm, device=feats.device)
+    w = weights.to(compute_dtype)[perm].reshape(
+        g_count, m, cin, weights.shape[-1]).contiguous()
+    out = window_gather_matmul(f, plan.starts, plan.idx, w)
+    if plan.esc_k is not None:
+        out = _esc_scatter(out, f, plan.esc_k, plan.esc_i, plan.esc_j,
+                           w.reshape(g_count * m, cin, -1))
+    bad = plan.n_escaped > 0
+    if inv_plan is not None:
+        bad = bad | (inv_plan.n_escaped > 0)
+    out = out * torch.where(bad, float("nan"), 1.0).to(out.dtype)
+    if bias is not None:
+        out = out + bias.to(out.dtype)
+    return out

@@ -1,0 +1,165 @@
+"""Per-forward coordinate context: window-plan and stride caches
+(counterpart of ``nerf_downstream_tpu/sparse/context.py``, windowed
+branch only).
+
+Every conv of a level reuses one window plan; plans, strided levels and
+their overflow counters are cached by the identity of the coordinate
+tensors. In eager PyTorch a freed tensor's ``id`` can be handed to a new
+tensor, so every cache entry holds references to its key tensors: while
+the entry lives, its ids cannot be reused. A context lives for one forward
+pass.
+
+The window knobs are explicit constructor arguments (the reference binds
+them through gin); their meaning is documented on the reference class.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from nerf_downstream_tpu_torch.sparse import kernels
+from nerf_downstream_tpu_torch.sparse.types import SparseVoxels
+
+
+def _level(stride: int) -> int:
+    return max(0, int(round(float(np.log2(max(stride, 1))))))
+
+
+class CoordinateContext:
+    def __init__(
+        self,
+        *,
+        window_tile: int = 256,
+        window_size: int = 512,
+        window_blocks: int = 2,
+        window_escape_cap=None,
+        window_escape_tiles=64,
+        window_expand_factor: int = 2,
+        level_caps: tuple | None = None,
+    ):
+        self.window_tile = window_tile
+        self.window_size = window_size
+        self.window_blocks = window_blocks
+        self.window_escape_cap = window_escape_cap
+        self.window_escape_tiles = window_escape_tiles
+        self.window_expand_factor = window_expand_factor
+        self.level_caps = level_caps
+        # key -> (key tensors kept alive, value)
+        self._window_plans: dict = {}
+        self._strided: dict = {}
+        self._level_overflow: dict = {}
+
+    @staticmethod
+    def _get(cache: dict, key):
+        hit = cache.get(key)
+        return None if hit is None else hit[1]
+
+    @staticmethod
+    def _put(cache: dict, key, refs: tuple, value):
+        cache[key] = (refs, value)
+        return value
+
+    @staticmethod
+    def _per_level(value, stride: int) -> int:
+        if value is None:
+            return 0
+        if isinstance(value, (tuple, list)):
+            return int(value[min(_level(stride), len(value) - 1)])
+        return int(value)
+
+    def escape_cap_for(self, stride: int) -> int:
+        return self._per_level(self.window_escape_cap, stride)
+
+    def escape_tiles_for(self, stride: int) -> int:
+        return self._per_level(self.window_escape_tiles, stride) or 64
+
+    def window_plan_direct(self, coords, mask, offsets, transpose=False,
+                           stride: int = 1):
+        """Window plan of a same-set stride-preserving conv. The second
+        plan of a (forward, transpose) pair over a symmetric offset set is
+        a relabeling of the first (``transpose_plan``), not a new match."""
+        from nerf_downstream_tpu_torch.ops.window_conv import (
+            build_plan_direct,
+            negation_perm,
+            transpose_plan,
+        )
+
+        okey = offsets.tobytes()
+        key = (id(coords), okey, bool(transpose), "direct")
+        plan = self._get(self._window_plans, key)
+        if plan is not None:
+            return plan
+        other = self._get(
+            self._window_plans, (id(coords), okey, not transpose, "direct")
+        )
+        derived = transpose_plan(other, offsets) if other is not None else None
+        if derived is not None:
+            return self._put(self._window_plans, key, (coords,), derived)
+        cap = self.escape_cap_for(stride)
+        if cap and negation_perm(offsets) is None:
+            cap = 0  # asymmetric subset: strict poison semantics
+        plan = build_plan_direct(
+            coords, mask, offsets,
+            tile=self.window_tile, window=self.window_size,
+            blocks=self.window_blocks, transpose=transpose,
+            escape_cap=cap, escape_tiles=self.escape_tiles_for(stride),
+        )
+        return self._put(self._window_plans, key, (coords,), plan)
+
+    def window_plan_cross(self, table_sv, query_sv, offsets, transpose=False,
+                          expanding=False):
+        """Window plan of a cross-set map: neighbour ranks of
+        ``query_sv``'s coords matched in ``table_sv``'s key table.
+        ``expanding`` (a stride-2 down conv, several table ranks per query
+        row) halves the tile and widens coverage by
+        ``window_expand_factor``."""
+        from nerf_downstream_tpu_torch.ops.window_conv import build_plan_direct
+
+        key = (id(table_sv.coords), id(query_sv.coords), offsets.tobytes(),
+               bool(transpose), "cross")
+        plan = self._get(self._window_plans, key)
+        if plan is not None:
+            return plan
+        if expanding:
+            tile = max(32, self.window_tile // 2)
+            blocks = self.window_expand_factor * self.window_blocks
+        else:
+            tile, blocks = self.window_tile, self.window_blocks
+        plan = build_plan_direct(
+            table_sv.coords, table_sv.mask, offsets,
+            tile=tile, window=self.window_size, blocks=blocks,
+            transpose=transpose,
+            out_coords=query_sv.coords, out_mask=query_sv.mask,
+        )
+        return self._put(self._window_plans, key,
+                         (table_sv.coords, query_sv.coords), plan)
+
+    def strided(self, sv: SparseVoxels, stride: int) -> SparseVoxels:
+        """The level ``stride`` times coarser than ``sv`` (cached), capped
+        by ``level_cap``; its overflow count feeds ``level_poison``."""
+        key = (id(sv.coords), sv.stride, stride)
+        out = self._get(self._strided, key)
+        if out is None:
+            out, lost = kernels.stride_coords_capped(
+                sv, stride, self.level_cap(sv.stride * stride))
+            self._put(self._strided, key, (sv.coords,), out)
+            self._put(self._level_overflow, id(out.coords), (out.coords,),
+                      lost)
+        return out
+
+    def level_cap(self, stride: int) -> int | None:
+        """Row capacity of the level at absolute tensor stride ``stride``
+        (``level_caps`` indexed by log2 of the stride), None = uncapped."""
+        if self.level_caps is None:
+            return None
+        return self._per_level(self.level_caps, stride)
+
+    def level_poison(self, coords, feats):
+        """NaN-poison ``feats`` if the level at ``coords`` lost valid rows
+        to its cap (fail loud, never compute on a truncated level)."""
+        lost = self._get(self._level_overflow, id(coords))
+        if lost is None:
+            return feats
+        scale = torch.where(lost > 0, float("nan"), 1.0)
+        return feats * scale.to(feats.dtype)

@@ -1,0 +1,78 @@
+"""Segmentation metrics: confusion histogram, per-class IoU, IoU meter
+(counterpart of ``nerf_downstream_tpu/train/metrics.py``)."""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+
+def fast_hist(pred: torch.Tensor, label: torch.Tensor, n: int):
+    """Confusion counts [n, n]: rows = label, cols = pred. Rows whose label
+    is outside [0, n) are not counted."""
+    k = (label >= 0) & (label < n)
+    idx = torch.where(k, n * label + pred, n * n).to(torch.int64)
+    idx = torch.where((idx >= 0) & (idx <= n * n), idx, n * n)
+    return torch.bincount(idx, minlength=n * n + 1)[: n * n].reshape(n, n)
+
+
+def per_class_iu(hist: torch.Tensor) -> torch.Tensor:
+    """IoU per class from a confusion matrix."""
+    inter = torch.diagonal(hist)
+    union = hist.sum(1) + hist.sum(0) - inter
+    return inter / torch.clamp(union, min=1)
+
+
+@dataclasses.dataclass(frozen=True)
+class IoUMeterState:
+    """Per-class sums over batches: labels seen, correct, predicted."""
+
+    total_seen: torch.Tensor
+    total_correct: torch.Tensor
+    total_positive: torch.Tensor
+
+    @classmethod
+    def create(cls, num_classes: int) -> "IoUMeterState":
+        z = torch.zeros(num_classes, dtype=torch.int64)
+        return cls(total_seen=z, total_correct=z, total_positive=z)
+
+
+def iou_update(state: IoUMeterState, pred, label, valid,
+               num_classes: int) -> IoUMeterState:
+    """Add one batch of flat predictions/labels under a validity mask."""
+    c = num_classes
+
+    def count(x):
+        return torch.bincount(x.to(torch.int64), minlength=c + 1)[:c]
+
+    lab = torch.where(valid, label, c)
+    prd = torch.where(valid, pred, c)
+    correct = torch.where(valid & (pred == label), label, c)
+    return IoUMeterState(
+        total_seen=state.total_seen + count(lab),
+        total_correct=state.total_correct + count(correct),
+        total_positive=state.total_positive + count(prd),
+    )
+
+
+def iou_compute(state: IoUMeterState, void_label: int | None = None) -> dict:
+    """Per-class IoU/accuracy and their means over the classes seen,
+    excluding ``void_label``."""
+    seen = state.total_seen.cpu().numpy().astype(np.float64)
+    correct = state.total_correct.cpu().numpy().astype(np.float64)
+    positive = state.total_positive.cpu().numpy().astype(np.float64)
+    union = seen + positive - correct
+    iou = correct / np.maximum(union, 1)
+    acc = correct / np.maximum(seen, 1)
+    keep = np.ones(len(seen), bool)
+    if void_label is not None and 0 <= void_label < len(seen):
+        keep[void_label] = False
+    keep &= seen > 0
+    return {
+        "iou_per_class": iou,
+        "acc_per_class": acc,
+        "mIoU": float(iou[keep].mean()) if keep.any() else 0.0,
+        "mAcc": float(acc[keep].mean()) if keep.any() else 0.0,
+    }

@@ -1,0 +1,225 @@
+"""The port's CUDA kernels on the card against the same code on the CPU,
+at small shapes with the edges the full-width smoke run does not reach:
+row counts that are not a multiple of the kernel's 64-row block, channel
+counts that are not a multiple of its 16-channel chunk or 64-column
+block, members with no entry at all, masked queries, windows that run
+past the key table, and escape lists in use.
+
+Every test needs a GPU and ``nvcc`` and skips without them. On a machine
+with the card, from the repository root:
+
+    python -m pytest --noconftest -m cuda tests/test_torch_port_cuda.py
+
+Plans built on the card (K1) must equal those built on the CPU (the plain
+version) exactly; K2 must match its plain version within atol = rtol =
+1e-5 in f32, and within rtol = 2^-8 in bf16 against the f32 sum (one
+rounding into bf16 is at most 2^-9 relative).
+"""
+
+import dataclasses
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from nerf_downstream_tpu_torch.ops import kernels as K  # noqa: E402
+from nerf_downstream_tpu_torch.ops import window_conv as wc  # noqa: E402
+from nerf_downstream_tpu_torch.sparse import kernels as sk  # noqa: E402
+from nerf_downstream_tpu_torch.sparse import packing  # noqa: E402
+from nerf_downstream_tpu_torch.sparse.types import PointField  # noqa: E402
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc (run on the card)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def level(seed, n=640, valid=560, extent=12, batches=2):
+    """(coords, mask) of a sorted level (and its stride-2 parent), on the
+    CPU."""
+    rng = np.random.default_rng(seed)
+    coords = np.zeros((n, 4), np.float32)
+    coords[:, 1:] = rng.integers(-extent // 2, extent // 2, (n, 3))
+    coords[:, 0] = rng.integers(0, batches, n)
+    field = PointField(coords=torch.as_tensor(coords),
+                       feats=torch.zeros(n, 1),
+                       mask=torch.as_tensor(np.arange(n) < valid))
+    sv, _ = sk.field_to_sparse(field)
+    coarse, _ = sk.stride_coords_capped(sv, 2, None)
+    return (sv.coords, sv.mask), (coarse.coords, coarse.mask)
+
+
+def plans_equal(a, b):
+    for f in dataclasses.fields(a):
+        x, y = getattr(a, f.name), getattr(b, f.name)
+        if torch.is_tensor(x):
+            assert torch.equal(x.cpu(), y.cpu()), f.name
+        else:
+            assert x == y, f.name
+
+
+PLAN_CASES = {
+    "same_set_escapes": dict(tile=32, window=16, blocks=2, escape_cap=4096,
+                             escape_tiles=200),
+    "same_set_strict": dict(tile=64, window=32, blocks=2),
+    "expanding": dict(tile=32, window=32, blocks=12, cross="expanding"),
+    "contracting": dict(tile=64, window=32, blocks=4, cross="contracting"),
+}
+
+
+@pytest.mark.parametrize("case", sorted(PLAN_CASES))
+def test_plans_on_card_equal_cpu(cuda, case):
+    """Whole plans (K1 plus the escape search) built on the card equal the
+    plans the CPU builds with K1's plain version."""
+    kw = dict(PLAN_CASES[case])
+    cross = kw.pop("cross", None)
+    fine, coarse = level(1)
+    if cross is None:
+        table, query, offs = fine, None, sk.kernel_offsets(3, 1)
+    elif cross == "expanding":
+        table, query, offs = fine, coarse, sk.kernel_offsets(2, 1)
+    else:
+        table, query, offs = coarse, fine, sk.kernel_offsets(2, 1)
+        kw["transpose"] = True
+    plans = []
+    for dev in ("cpu", cuda):
+        extra = {} if query is None else dict(out_coords=query[0].to(dev),
+                                              out_mask=query[1].to(dev))
+        plans.append(wc.build_plan_direct(table[0].to(dev), table[1].to(dev),
+                                          offs, **kw, **extra))
+    plans_equal(plans[1], plans[0])
+    if case == "same_set_escapes":
+        assert int(plans[0].esc_stats[2]) > 0
+
+
+def test_k1_launch_matches_plain(cuda):
+    """K1 launched directly, with starts pushed to the end of the table so
+    the windows read past it, against the plain version on the card."""
+    (c, m), _ = level(2)
+    hi, lo = (t.to(cuda) for t in packing.pack(c, m))
+    n = hi.shape[0]
+    rng = np.random.default_rng(3)
+    g, mm, tile, window, blocks = 9, 3, 32, 32, 6
+    starts = torch.as_tensor(
+        np.sort(rng.integers(0, n, (g, n // tile)), 1) // window * window,
+        dtype=torch.int32).contiguous().to(cuda)
+    deltas = torch.as_tensor(rng.integers(-2 ** 31, 2 ** 31, (g, mm, 2)),
+                             dtype=torch.int32)
+    deltas[:, :, 0] = torch.as_tensor(rng.integers(-1, 2, (g, mm)))
+    deltas[:, 0] = 0  # the identity offset: every valid query matches
+    deltas = deltas.to(cuda)
+    mask = m.to(cuda).clone()
+    mask[::7] = False
+    args = (hi, lo, hi, lo, mask, deltas, starts, tile, window, blocks)
+    got = K.window_match(*args)
+    want = K.window_match_plain(*args)
+    assert torch.equal(got, want)
+    assert (got[:, :, 0] >= 0).any()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("c,cout", [(27, 20), (8, 64), (200, 96)])
+def test_k2_matches_plain(cuda, dtype, c, cout):
+    (coords, mask), _ = level(4, n=480, valid=420)
+    plan = wc.build_plan_direct(coords, mask, sk.kernel_offsets(3, 1),
+                                tile=32, window=32, blocks=4)
+    g, nt, m, tile = plan.idx.shape
+    assert (nt * tile) % 64  # a ragged last 64-row block
+    rng = np.random.default_rng(5)
+    idx = plan.idx.clone()
+    idx[1, :, 2, :] = -1  # a member with no entry anywhere
+    idx[:, -1, :, -4:] = 127  # ranks past the table read as zero rows
+    feats = torch.as_tensor(rng.normal(size=(len(coords), c)),
+                            dtype=torch.float32)
+    w = torch.as_tensor(rng.normal(size=(g, m, c, cout)) * 0.1,
+                        dtype=torch.float32)
+    f, ww = feats.to(dtype), w.to(dtype)
+    want = K.window_gather_matmul_plain(f.float(), plan.starts, idx,
+                                        ww.float())
+    got = K.window_gather_matmul(f.to(cuda), plan.starts.to(cuda),
+                                 idx.contiguous().to(cuda),
+                                 ww.contiguous().to(cuda))
+    assert got.dtype == dtype and got.shape == want.shape
+    if dtype == torch.float32:
+        torch.testing.assert_close(got.cpu(), want, rtol=1e-5, atol=1e-5)
+    else:
+        torch.testing.assert_close(got.float().cpu(), want, rtol=2 ** -8,
+                                   atol=1e-5)
+
+
+def test_conv_and_model_on_card_match_cpu(cuda):
+    """The conv forward with escapes, and a small Res16UNet's eval logits,
+    on the card against the CPU (f32), with both kernels launched."""
+    from nerf_downstream_tpu_torch import convert, serve
+    from nerf_downstream_tpu_torch.data import synthetic
+    from nerf_downstream_tpu_torch.models import get_model
+
+    (coords, mask), _ = level(6)
+    offs = sk.kernel_offsets(3, 1)
+    kw = dict(tile=32, window=16, blocks=2, escape_cap=4096,
+              escape_tiles=200)
+    rng = np.random.default_rng(7)
+    feats = torch.as_tensor(rng.normal(size=(len(coords), 12)),
+                            dtype=torch.float32)
+    w = torch.as_tensor(rng.normal(size=(27, 12, 16)) * 0.1,
+                        dtype=torch.float32)
+    outs = []
+    for dev in ("cpu", cuda):
+        plan = wc.build_plan_direct(coords.to(dev), mask.to(dev), offs, **kw)
+        outs.append(wc.window_conv_apply(
+            feats.to(dev), plan, wc.transpose_plan(plan, offs), w.to(dev)))
+    torch.testing.assert_close(outs[1].cpu(), outs[0], rtol=1e-5, atol=1e-5)
+
+    knobs = dict(level_caps=(1024, 512, 256, 128, 64), window_tile=64,
+                 window_size=32, window_blocks=2, window_expand_factor=3,
+                 window_escape_cap=(8192, 2048, 256, 0, 0),
+                 window_escape_tiles=(144, 72, 36, 2, 2))
+    model = get_model("Res16UNet14", in_channel=27, out_channel=20,
+                      planes=(8,) * 8, ctx=knobs, assume_unique=True)
+    convert.load_flax_variables(model, convert.init_flax_variables(model, 0))
+    srng = np.random.default_rng(0)
+    samples = []
+    for _ in range(2):
+        sc = synthetic.make_synthetic_scene(
+            srng, n_voxels=440, reso=(32, 32, 32), with_labels=True,
+            surface=True)
+        samples.append({
+            "coordinates": sc["coords"].astype(np.float32),
+            "features": np.concatenate([sc["density"], sc["sh"]],
+                                       1)[:, 1:28].astype(np.float32),
+            "labels": sc["labels"]})
+    batch = synthetic.collate_mink(samples, capacity=1024)
+    ref, ref_m = serve.eval_step(model.eval(), batch)
+    K.reset_launch_counts()
+    got, got_m = serve.eval_step(model.to(cuda), batch)
+    counts = K.launch_counts()
+    assert counts["window_match"] > 0 and counts["window_gather_matmul"] > 0
+    valid = torch.as_tensor(batch["mask"])
+    assert torch.isfinite(ref[valid]).all()
+    torch.testing.assert_close(got.cpu()[valid], ref[valid], rtol=1e-4,
+                               atol=1e-4)
+    assert torch.equal(got_m["hist"].cpu(), ref_m["hist"])
+
+
+def test_wrappers_refuse_bad_inputs_on_card(cuda):
+    f = torch.zeros(64, 8, device=cuda)
+    starts = torch.zeros(1, 2, dtype=torch.int32, device=cuda)
+    idx = torch.full((1, 2, 1, 32), -1, dtype=torch.int32, device=cuda)
+    w = torch.zeros(1, 1, 8, 4, device=cuda)
+    assert not K.window_gather_matmul(f, starts, idx, w).any()
+    with pytest.raises(TypeError):
+        K.window_gather_matmul(f.double(), starts, idx, w.double())
+    with pytest.raises(TypeError):
+        K.window_gather_matmul(f, starts.long(), idx, w)
+    with pytest.raises(ValueError, match="contiguous"):
+        K.window_gather_matmul(f, starts, idx, w.transpose(2, 3).contiguous()
+                               .transpose(2, 3))
+    with pytest.raises(ValueError, match="is on"):
+        K.window_gather_matmul(f, starts.cpu(), idx, w)
