@@ -54,9 +54,18 @@ def flax_path(key: str) -> tuple[str, ...]:
 def flax_to_state_dict(model: torch.nn.Module,
                        variables: dict) -> dict[str, torch.Tensor]:
     """``state_dict`` of ``model`` filled from the reference's
-    ``{"params", "batch_stats"}`` trees."""
+    ``{"params", "batch_stats"}`` trees. A params-only tree (no
+    ``"params"`` key at the top, such as a gradient tree) gives the
+    parameters alone."""
+    if "params" not in variables:
+        variables = {"params": variables}
+        keys = [k for k, _ in model.named_parameters()]
+    else:
+        keys = list(model.state_dict())
+    refs = model.state_dict()
     out = {}
-    for key, ref in model.state_dict().items():
+    for key in keys:
+        ref = refs[key]
         node = variables
         for name in flax_path(key):
             node = node[name]
@@ -72,6 +81,20 @@ def load_flax_variables(model: torch.nn.Module, variables: dict):
     """Load the reference's variable trees into ``model`` (strict)."""
     model.load_state_dict(flax_to_state_dict(model, variables), strict=True)
     return model
+
+
+def state_dict_to_flax(state: dict) -> dict:
+    """The reference's ``{"params", "batch_stats"}`` trees (nested dicts of
+    float32 numpy arrays) of a port ``state_dict`` (or of any mapping from
+    its keys to tensors, such as parameter gradients)."""
+    tree: dict = {}
+    for key, value in state.items():
+        path = flax_path(key)
+        node = tree
+        for name in path[:-1]:
+            node = node.setdefault(name, {})
+        node[path[-1]] = value.detach().to("cpu", torch.float32).numpy()
+    return tree
 
 
 def init_flax_variables(model: torch.nn.Module, seed: int) -> dict:

@@ -1,6 +1,6 @@
 """Layers over SparseVoxels: windowed conv, conv-transpose, BN, activations
 (counterpart of ``nerf_downstream_tpu/models/mink/layers.py``, the
-fully-windowed path).
+fully-windowed path, forward and backward).
 
 Every k3/s1 conv and k2/s2 down conv rides window plans built from the
 level's sorted keys; the k2 transpose conv reuses the down conv's plans
@@ -18,7 +18,10 @@ import torch
 from torch import nn
 from torch.nn import functional as F
 
-from nerf_downstream_tpu_torch.ops.norm import batch_norm_apply
+from nerf_downstream_tpu_torch.ops.norm import (
+    batch_norm_apply,
+    masked_mean_var,
+)
 from nerf_downstream_tpu_torch.ops.window_conv import window_conv_apply
 from nerf_downstream_tpu_torch.sparse import CoordinateContext, kernel_offsets
 from nerf_downstream_tpu_torch.sparse.types import SparseVoxels
@@ -118,12 +121,20 @@ class SparseConvTranspose(nn.Module):
 
 
 class MaskedBatchNorm(nn.Module):
-    """BatchNorm with running statistics, evaluation mode (the training
-    statistics belong to the training slice of the port)."""
+    """BatchNorm over the valid rows with running statistics.
 
-    def __init__(self, num_channels: int, eps: float = 1e-5):
+    Train mode (``module.train()``) normalizes with the masked, biased
+    batch statistics (the gradient flows through them) and updates the
+    running mean and the running *unbiased* variance ``var * cnt /
+    max(cnt - 1, 1)`` with ``momentum`` as the weight of the new batch
+    (torch's convention). Eval mode normalizes with the running statistics.
+    """
+
+    def __init__(self, num_channels: int, eps: float = 1e-5,
+                 momentum: float = 0.1):
         super().__init__()
         self.eps = eps
+        self.momentum = momentum
         self.weight = nn.Parameter(torch.ones(num_channels))
         self.bias = nn.Parameter(torch.zeros(num_channels))
         self.register_buffer("running_mean", torch.zeros(num_channels))
@@ -131,12 +142,19 @@ class MaskedBatchNorm(nn.Module):
 
     def forward(self, sv: SparseVoxels) -> SparseVoxels:
         if self.training:
-            raise NotImplementedError(
-                "MaskedBatchNorm runs in eval mode only; call model.eval()"
-            )
+            mean, var, cnt = masked_mean_var(sv.feats, sv.mask,
+                                             return_count=True)
+            with torch.no_grad():
+                m = self.momentum
+                unbiased = var * (cnt / torch.clamp(cnt - 1.0, min=1.0))
+                self.running_mean.copy_((1 - m) * self.running_mean
+                                        + m * mean)
+                self.running_var.copy_((1 - m) * self.running_var
+                                       + m * unbiased)
+        else:
+            mean, var = self.running_mean, self.running_var
         return sv.replace(feats=batch_norm_apply(
-            sv.feats, self.running_mean, self.running_var, self.weight,
-            self.bias, self.eps,
+            sv.feats, mean, var, self.weight, self.bias, self.eps,
         ))
 
 
@@ -168,10 +186,11 @@ def get_nonlinearity(name: str):
     return apply
 
 
-def make_norm(norm_type: str, num_channels: int) -> nn.Module:
+def make_norm(norm_type: str, num_channels: int, *,
+              bn_momentum: float = 0.1) -> nn.Module:
     """Norm factory; the port has BatchNorm ("BN") only."""
     if norm_type == "BN":
-        return MaskedBatchNorm(num_channels)
+        return MaskedBatchNorm(num_channels, momentum=bn_momentum)
     raise ValueError(f"norm type {norm_type!r} is not ported")
 
 

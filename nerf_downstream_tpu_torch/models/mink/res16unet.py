@@ -1,5 +1,8 @@
-"""Res16UNet sparse U-Net family, inference (counterpart of
-``nerf_downstream_tpu/models/mink/res16unet.py``).
+"""Res16UNet sparse U-Net family (counterpart of
+``nerf_downstream_tpu/models/mink/res16unet.py``). ``model.train()``
+selects training (batch statistics in every BatchNorm, which update the
+running ones); ``model.eval()`` inference. Nothing else in the forward
+depends on the mode.
 
 Encoder: a two-conv stem at stride 1, then 4 x [k2/s2 down conv -> residual
 stage]; decoder: 4 x [k2 transpose conv onto the cached encoder level ->
@@ -66,6 +69,7 @@ class Res16UNet(nn.Module):
         super().__init__()
         if block not in BLOCKS:
             raise NotImplementedError(f"block {block!r} is not ported")
+        self.out_channel = out_channel
         self.planes, self.layers = tuple(planes), tuple(layers)
         self.compute_dtype = compute_dtype
         self.ctx_kwargs = dict(ctx or {})

@@ -2,11 +2,20 @@
 version. Importing this package builds nothing: a kernel is compiled on
 its first launch (``build.library``).
 
-K1 ``window_match`` (``match.py``, ``window_match.cu``) and K2
+K1 ``window_match`` (``match.py``, ``window_match.cu``), K2
 ``window_gather_matmul`` (``gather_matmul.py``,
-``window_gather_matmul.cu``).
+``window_gather_matmul.cu``), K3 ``window_bwd`` (``bwd.py``,
+``window_bwd.cu``) and K4 ``window_dw`` (``dw.py``, ``window_dw.cu``).
 """
 
+from nerf_downstream_tpu_torch.ops.kernels.bwd import (
+    window_bwd,
+    window_bwd_plain,
+)
+from nerf_downstream_tpu_torch.ops.kernels.dw import (
+    window_dw,
+    window_dw_plain,
+)
 from nerf_downstream_tpu_torch.ops.kernels.gather_matmul import (
     window_gather_matmul,
     window_gather_matmul_plain,
@@ -16,7 +25,7 @@ from nerf_downstream_tpu_torch.ops.kernels.match import (
     window_match_plain,
 )
 
-KERNELS = (window_match, window_gather_matmul)
+KERNELS = (window_match, window_gather_matmul, window_bwd, window_dw)
 
 
 def reset_launch_counts() -> None:
@@ -32,6 +41,10 @@ __all__ = [
     "KERNELS",
     "launch_counts",
     "reset_launch_counts",
+    "window_bwd",
+    "window_bwd_plain",
+    "window_dw",
+    "window_dw_plain",
     "window_gather_matmul",
     "window_gather_matmul_plain",
     "window_match",

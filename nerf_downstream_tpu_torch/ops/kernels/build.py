@@ -2,13 +2,14 @@
 
 Each ``.cu`` source in this directory has a plain C interface and becomes
 its own shared library, compiled by ``nvcc`` for ``sm_90a`` on first use
-and loaded with ``ctypes`` (no PyTorch headers, so a build takes seconds).
+and loaded with ``ctypes`` (no PyTorch headers, so a build takes seconds);
+the ``.cuh`` headers hold device code that several sources share.
 All sources compile in parallel, one ``nvcc`` process each. Libraries go
 to ``nerf_downstream_tpu_torch/_build/`` (git-ignored) under a name that
-hashes the source and the flags, so an edited source is rebuilt and an
-unchanged one is reused. ``nvcc``'s ``-Xptxas -v`` report (registers,
-shared memory, spills per kernel) is kept beside each library as
-``<name>.log``.
+hashes the source, the shared headers and the flags, so an edited source
+or header is rebuilt and an unchanged one is reused. ``nvcc``'s
+``-Xptxas -v`` report (registers, shared memory, spills per kernel) is
+kept beside each library as ``<name>.log``.
 """
 
 from __future__ import annotations
@@ -23,7 +24,10 @@ import torch
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(_HERE)), "_build")
-SOURCES = ("window_match.cu", "window_gather_matmul.cu")
+SOURCES = ("window_match.cu", "window_gather_matmul.cu", "window_bwd.cu",
+           "window_dw.cu")
+# device code the sources share (#include "..."), hashed into every name
+HEADERS = ("window_gather.cuh", "window_dw.cuh")
 FLAGS = (
     "-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -47,8 +51,10 @@ def nvcc_path() -> str:
 
 def _target(src: str) -> tuple[str, str]:
     path = os.path.join(_HERE, src)
-    with open(path, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(FLAGS).encode())
+    digest = hashlib.sha256(" ".join(FLAGS).encode())
+    for name in (src, *HEADERS):
+        with open(os.path.join(_HERE, name), "rb") as f:
+            digest.update(f.read())
     stem = os.path.splitext(src)[0]
     return path, os.path.join(BUILD_DIR, f"{stem}-{digest.hexdigest()[:16]}.so")
 

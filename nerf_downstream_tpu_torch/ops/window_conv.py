@@ -1,5 +1,5 @@
 """Windowed sparse convolution over key-sorted coordinate sets
-(counterpart of ``nerf_downstream_tpu/ops/window_conv.py``, forward).
+(counterpart of ``nerf_downstream_tpu/ops/window_conv.py``).
 
 Every level's coordinates are stored in packed-key order, and the map
 "row of coord + d" for a fixed offset d preserves that order. So the
@@ -18,8 +18,12 @@ list instead of poisoning the output. ``transpose_plan`` relabels a
 same-set plan into its transpose.
 
 Apply side: ``window_conv_apply`` runs K2 (``window_gather_matmul``) and
-adds the escape entries with ``index_add_``. Both kernels take their plain
-PyTorch versions on CPU tensors and launch on CUDA tensors.
+adds the escape entries with ``index_add_``. Its gradient is a
+``torch.autograd.Function``: K3 (``window_bwd``) gives d_feats and d_w
+over the inverse plan, or, for a conv declared ``input_grad=False``, K4
+(``window_dw``) gives d_w alone over the forward plan. The escape side
+path is plain PyTorch, differentiated by autograd. Every kernel takes its
+plain PyTorch version on CPU tensors and launches on CUDA tensors.
 
 Guards: a plan that could not place every entry (``n_escaped > 0``)
 NaN-poisons the conv output (fail loud, never a silent truncation).
@@ -33,6 +37,8 @@ import numpy as np
 import torch
 
 from nerf_downstream_tpu_torch.ops.kernels import (
+    window_bwd,
+    window_dw,
     window_gather_matmul,
     window_match,
 )
@@ -332,7 +338,9 @@ def transpose_plan(plan: WindowPlan, offsets: np.ndarray) -> WindowPlan | None:
 def _esc_scatter(out, feats, esc_k, esc_i, esc_j, w_gm):
     """Escape side path: out[esc_i] += feats[esc_j] @ w_gm[esc_k], in f32
     and added in the output type (plain PyTorch: the reference runs this
-    as XLA ops too, never as a kernel)."""
+    as XLA ops too, never as a kernel, and leaves its gradient to
+    autodiff). ``out`` is updated in place; the conv's autograd Functions
+    save no output, so autograd can rebase it."""
     valid = esc_j >= 0
     gf = torch.where(valid[:, None], feats[esc_j.clamp(min=0).long()], 0)
     k_count, c, cout = w_gm.shape
@@ -345,6 +353,44 @@ def _esc_scatter(out, feats, esc_k, esc_i, esc_j, w_gm):
     return out.index_add_(0, esc_i.clamp(min=0).long(), upd)
 
 
+class _WindowConvCore(torch.autograd.Function):
+    """K2 forward; K3 backward over the inverse plan (the reference's
+    ``_window_conv_core``). g_out is cast to the compute type, d_feats
+    comes back in it, and d_w is computed in f32 and cast to the type of
+    the permuted weights."""
+
+    @staticmethod
+    def forward(ctx, f, w, starts, idx, inv_starts, inv_idx):
+        ctx.save_for_backward(f, w, inv_starts, inv_idx)
+        return window_gather_matmul(f, starts, idx, w)
+
+    @staticmethod
+    def backward(ctx, g):
+        f, w, inv_starts, inv_idx = ctx.saved_tensors
+        d_in, d_w = window_bwd(
+            g.to(f.dtype).contiguous(), f, inv_starts, inv_idx,
+            w.transpose(-1, -2).contiguous(),
+        )
+        return d_in, d_w.to(w.dtype), None, None, None, None
+
+
+class _WindowConvCoreDwOnly(torch.autograd.Function):
+    """K2 forward; K4 backward over the forward plan, no d_feats (the
+    reference's ``_window_conv_core_dw_only``, for convs whose input is
+    declared non-differentiated)."""
+
+    @staticmethod
+    def forward(ctx, f, w, starts, idx):
+        ctx.save_for_backward(f, w, starts, idx)
+        return window_gather_matmul(f, starts, idx, w)
+
+    @staticmethod
+    def backward(ctx, g):
+        f, w, starts, idx = ctx.saved_tensors
+        d_w = window_dw(f, starts, idx, g.to(f.dtype).contiguous())
+        return None, d_w.to(w.dtype), None, None
+
+
 def window_conv_apply(
     feats: torch.Tensor,
     plan: WindowPlan,
@@ -354,13 +400,14 @@ def window_conv_apply(
     compute_dtype: torch.dtype = torch.float32,
     input_grad: bool = True,
 ) -> torch.Tensor:
-    """Sparse conv forward through a window plan: [N_out, Cout] in
+    """Sparse conv through a window plan: [N_out, Cout] in
     ``compute_dtype`` (f32 accumulation inside K2, one rounding).
 
     ``weights`` [K, Cin, Cout] in kernel-offset order. ``inv_plan`` is the
-    transpose plan the backward would gather along; the forward reads only
+    transpose plan the backward gathers along (K3); the forward reads only
     its escape guard. ``input_grad`` False (first-layer convs) declares no
-    transpose plan.
+    transpose plan: the backward gives d_w alone (K4) and no d_feats
+    beyond the escape side path's.
     """
     if input_grad and (plan.window != inv_plan.window
                        or plan.perm != inv_plan.perm):
@@ -374,7 +421,14 @@ def window_conv_apply(
     perm = torch.as_tensor(plan.perm, device=feats.device)
     w = weights.to(compute_dtype)[perm].reshape(
         g_count, m, cin, weights.shape[-1]).contiguous()
-    out = window_gather_matmul(f, plan.starts, plan.idx, w)
+    if input_grad:
+        if inv_plan.idx.shape[1] * inv_plan.idx.shape[3] != n_in:
+            raise ValueError("the inverse plan's tiles do not cover the "
+                             "input rows")
+        out = _WindowConvCore.apply(f, w, plan.starts, plan.idx,
+                                    inv_plan.starts, inv_plan.idx)
+    else:
+        out = _WindowConvCoreDwOnly.apply(f, w, plan.starts, plan.idx)
     if plan.esc_k is not None:
         out = _esc_scatter(out, f, plan.esc_k, plan.esc_i, plan.esc_j,
                            w.reshape(g_count * m, cin, -1))

@@ -3,7 +3,8 @@ at small shapes with the edges the full-width smoke run does not reach:
 row counts that are not a multiple of the kernel's 64-row block, channel
 counts that are not a multiple of its 16-channel chunk or 64-column
 block, members with no entry at all, masked queries, windows that run
-past the key table, and escape lists in use.
+past the key table, escape lists in use, and d_w reductions over one and
+over several row chunks.
 
 Every test needs a GPU and ``nvcc`` and skips without them. On a machine
 with the card, from the repository root:
@@ -11,9 +12,14 @@ with the card, from the repository root:
     python -m pytest --noconftest -m cuda tests/test_torch_port_cuda.py
 
 Plans built on the card (K1) must equal those built on the CPU (the plain
-version) exactly; K2 must match its plain version within atol = rtol =
-1e-5 in f32, and within rtol = 2^-8 in bf16 against the f32 sum (one
-rounding into bf16 is at most 2^-9 relative).
+version) exactly; K2, and K3's d_feats, must match the plain version within
+atol = rtol = 1e-5 in f32, and within rtol = 2^-8 in bf16 against the f32
+sum (one rounding into bf16 is at most 2^-9 relative). d_w (K3 and K4) is
+an f32 sum whose plain version takes the same inputs, so it must match
+within 1e-5 of its largest value in both types, and be bit-identical
+between two launches. A small training step on the card must match the same step on
+the CPU: the loss within 1e-5 relative, each gradient within 1e-4 of its
+largest value.
 """
 
 import dataclasses
@@ -223,3 +229,120 @@ def test_wrappers_refuse_bad_inputs_on_card(cuda):
                                .transpose(2, 3))
     with pytest.raises(ValueError, match="is on"):
         K.window_gather_matmul(f, starts.cpu(), idx, w)
+
+
+def _bwd_case(dtype, c, cout, n, valid, extent):
+    """K3 and K4 inputs over a same-set plan and its transpose, with a
+    member emptied and ranks past the table, in ``dtype`` on the CPU."""
+    (coords, mask), _ = level(8, n=n, valid=valid, extent=extent)
+    offs = sk.kernel_offsets(3, 1)
+    # windows wide enough that nothing escapes: the plan and its transpose
+    # then hold the same pairs
+    plan = wc.build_plan_direct(coords, mask, offs, tile=32, window=128,
+                                blocks=6)
+    assert int(plan.n_escaped) == 0
+    inv = wc.transpose_plan(plan, offs)
+    g, nt, m, tile = plan.idx.shape
+    rng = np.random.default_rng(9)
+
+    def rand(*shape, scale=1.0):
+        return torch.as_tensor(rng.normal(size=shape) * scale,
+                               dtype=torch.float32).to(dtype)
+
+    idx, inv_idx = plan.idx.clone(), inv.idx.clone()
+    idx[1, :, 2, :] = -1
+    inv_idx[2, :, 0, :] = -1
+    idx[:, -1, :, -4:] = 767
+    inv_idx[:, -1, :, -4:] = 767
+    return dict(plan=plan, inv=inv, idx=idx, inv_idx=inv_idx,
+                feats=rand(n, c), g_out=rand(n, cout),
+                w_t=rand(g, m, cout, c, scale=0.1))
+
+
+def _close_to_max(got, want, tol=1e-5):
+    torch.testing.assert_close(got.cpu(), want, rtol=0,
+                               atol=tol * float(want.abs().max()))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("c,cout,n,valid,extent", [
+    (27, 32, 480, 420, 12), (96, 96, 480, 420, 12), (256, 200, 480, 420, 12),
+    (40, 24, 4160, 3900, 14)])
+def test_k3_k4_match_plain(cuda, dtype, c, cout, n, valid, extent):
+    """The last case has 4,160 rows: d_w is reduced over three row
+    chunks."""
+    k = _bwd_case(dtype, c, cout, n, valid, extent)
+    inv, plan = k["inv"], k["plan"]
+    up = [x.float() for x in (k["g_out"], k["feats"], k["w_t"])]
+    want_f, want_w = K.window_bwd_plain(up[0], up[1], inv.starts,
+                                        k["inv_idx"], up[2])
+    args = [t.contiguous().to(cuda) for t in (
+        k["g_out"], k["feats"], inv.starts, k["inv_idx"], k["w_t"])]
+    got_f, got_w = K.window_bwd(*args)
+    assert got_f.dtype == dtype and got_w.dtype == torch.float32
+    rtol = 1e-5 if dtype == torch.float32 else 2 ** -8
+    torch.testing.assert_close(got_f.float().cpu(), want_f, rtol=rtol,
+                               atol=1e-5)
+    _close_to_max(got_w, want_w)
+    again_f, again_w = K.window_bwd(*args)
+    assert torch.equal(again_w, got_w) and torch.equal(again_f, got_f)
+
+    want4 = K.window_dw_plain(up[1], plan.starts, k["idx"], up[0])
+    args4 = [t.contiguous().to(cuda) for t in (
+        k["feats"], plan.starts, k["idx"], k["g_out"])]
+    got4 = K.window_dw(*args4)
+    _close_to_max(got4, want4)
+    assert torch.equal(K.window_dw(*args4), got4)
+    # unmodified plans: K3's d_w over the inverse plan is K4's over the
+    # forward plan
+    _, dw3 = K.window_bwd(args[0], args[1], args[2],
+                          inv.idx.contiguous().to(cuda), args[4])
+    dw4 = K.window_dw(args4[0], args4[1], plan.idx.contiguous().to(cuda),
+                      args4[3])
+    _close_to_max(dw3, dw4.cpu())
+
+
+def test_train_step_on_card_matches_cpu(cuda, monkeypatch):
+    """One f32 training step of a small Res16UNet14 (device augmentation
+    off: the two devices' generators draw different numbers) on the card
+    against the CPU, with K1-K4 launched."""
+    from nerf_downstream_tpu_torch import train3d
+    from nerf_downstream_tpu_torch.data import synthetic
+
+    knobs = dict(level_caps=(1024, 512, 256, 128, 64), window_tile=64,
+                 window_size=32, window_blocks=2, window_expand_factor=3,
+                 window_escape_cap=(8192, 2048, 256, 0, 0),
+                 window_escape_tiles=(144, 72, 36, 2, 2))
+    monkeypatch.setitem(train3d.PRESETS, "tiny", dict(
+        train3d.PRESETS["train_64k"], scenes=2, capacity=1024, ctx=knobs,
+        grid_extent=40,
+        task=dict(train3d.PRESETS["train_64k"]["task"],
+                  device_transforms=())))
+    srng = np.random.default_rng(0)
+    samples = []
+    for _ in range(2):
+        sc = synthetic.make_synthetic_scene(
+            srng, n_voxels=440, reso=(32, 32, 32), with_labels=True,
+            surface=True)
+        samples.append({
+            "coordinates": sc["coords"].astype(np.float32),
+            "features": np.concatenate([sc["density"], sc["sh"]],
+                                       1)[:, 1:28].astype(np.float32),
+            "labels": sc["labels"]})
+    batch = synthetic.collate_mink(samples, capacity=1024)
+    runs = []
+    for dev in ("cpu", cuda):
+        task, state = train3d.build_training(
+            "Res16UNet14", "tiny", device=dev, planes=(8,) * 8,
+            compute_dtype=torch.float32)
+        K.reset_launch_counts()
+        state, mets = train3d.train_step(task, state, batch)
+        runs.append((float(mets["loss"]), K.launch_counts(),
+                     {k: p.grad.cpu() for k, p in
+                      state.model.named_parameters()}))
+    (loss_c, _, grads_c), (loss_g, counts, grads_g) = runs
+    assert np.isfinite(loss_c)
+    assert all(v > 0 for v in counts.values()), counts
+    np.testing.assert_allclose(loss_g, loss_c, rtol=1e-5)
+    for key, g in grads_c.items():
+        _close_to_max(grads_g[key], g, 1e-4)

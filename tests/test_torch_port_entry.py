@@ -21,7 +21,7 @@ from nerf_downstream_tpu.train.modules import (  # noqa: E402
     SegmentationTraining,
     _weighted_ce,
 )
-from nerf_downstream_tpu_torch import convert, serve  # noqa: E402
+from nerf_downstream_tpu_torch import convert, serve, train3d  # noqa: E402
 from nerf_downstream_tpu_torch.models import get_model  # noqa: E402
 from nerf_downstream_tpu_torch.train import metrics as TM  # noqa: E402
 from nerf_downstream_tpu_torch.train import modules as TMod  # noqa: E402
@@ -39,8 +39,12 @@ for name in names:
 added = set(sys.modules) - before
 bad = sorted(m for m in added if m.split(".")[0] in ("jax", "jaxlib", "flax",
                                                      "nerf_downstream_tpu"))
-print(len(names), bad)
+print(len(names), bad, ",".join(names))
 """
+
+# modules of the training slice the import guard must reach
+TRAIN_MODULES = ("ops.kernels.bwd", "ops.kernels.dw", "train.optim",
+                 "train.state", "data.device_transforms", "train3d")
 
 
 def test_port_imports_no_jax():
@@ -51,8 +55,11 @@ def test_port_imports_no_jax():
         [sys.executable, "-I", "-c", _IMPORT_ALL.format(root=ROOT)],
         capture_output=True, text=True, timeout=300, check=True,
     ).stdout.split()
-    assert int(out[0]) >= 20
+    assert int(out[0]) >= 26
     assert out[1] == "[]", out
+    names = out[2].split(",")
+    for mod in TRAIN_MODULES:
+        assert f"nerf_downstream_tpu_torch.{mod}" in names, mod
     assert not os.path.exists(
         os.path.join(ROOT, "nerf_downstream_tpu_torch", "_build", "lock"))
 
@@ -85,6 +92,23 @@ def test_entry_points_refuse_cpu_fallback():
                                   device="cpu", planes=(8,) * 8)
     assert next(model.parameters()).device.type == "cpu"
     assert not model.training
+
+
+def test_train_entry_refuses_cpu_fallback():
+    """The training entry point raises without a GPU unless the caller
+    asks for the CPU, and builds a model in train mode with SGD."""
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is visible: the default device is usable")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train3d.build_training("Res16UNet14", "train_64k", planes=(8,) * 8)
+    task, state = train3d.build_training("Res16UNet14", "train_64k",
+                                         device="cpu", planes=(8,) * 8)
+    assert next(state.model.parameters()).device.type == "cpu"
+    assert state.model.training and state.step == 0
+    assert isinstance(state.optimizer, torch.optim.SGD)
+    assert state.schedule is None and task.weight_decay == 1e-5
+    ed = task.device_aug.transforms[1]
+    assert (ed.max_extent, ed.num_scenes) == (160, 8)
 
 
 def _bench_knobs(text: str) -> dict:
@@ -219,3 +243,35 @@ def test_norm_functions_match_reference(rng):
         np.testing.assert_allclose(b.float().numpy(),
                                    np.asarray(r.astype(jnp.float32)),
                                    rtol=tol, atol=1e-6)
+
+
+def test_train_preset_carries_the_benchmark_knobs():
+    """train_64k copies the 64k BLOCK_BINDINGS (window knobs, grid extent,
+    duplicate averaging, the elastic warp's recipe) and bench_3d_train's
+    task (_make_task)."""
+    import ast
+
+    sys.path.insert(0, ROOT)
+    import bench
+
+    ref = _bench_knobs(bench.BLOCK_BINDINGS)
+    preset = train3d.PRESETS["train_64k"]
+    for k, v in preset["ctx"].items():
+        assert ref[k] == v, k
+    assert set(preset["ctx"]) == set(ref) - {"grid_extent", "method"}
+    assert preset["grid_extent"] == ref["grid_extent"]
+    assert "field_to_sparse.assume_unique = False" in bench.BLOCK_BINDINGS
+    assert not preset["assume_unique"]
+    ed = {k: eval(v) for k, v in re.findall(
+        r"ElasticDistortion\.(\w+) = ([^\n]+)", bench.BLOCK_BINDINGS)}
+    assert preset["task"]["transform_params"]["ElasticDistortion"] == dict(
+        distortion_params=tuple(ed["distortion_params"]),
+        application_ratio=ed["application_ratio"])
+    call = next(n for n in ast.walk(ast.parse(inspect.getsource(
+        bench._make_task))) if isinstance(n, ast.Call)
+        and getattr(n.func, "id", "") == "SegmentationTraining")
+    task_kw = {k.arg: ast.literal_eval(k.value) for k in call.keywords}
+    for k, v in task_kw.items():
+        assert preset["task"][k] == v, k
+    assert (preset["scenes"], preset["capacity"]) == (bench.SCENES,
+                                                      bench.CAPACITY)
