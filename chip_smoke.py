@@ -3,11 +3,14 @@
 
     python3 chip_smoke.py
 
-Drives the port's two main paths on the card at full width: Res16UNet18A
-sparse-voxel serving (``nerf_downstream_tpu_torch.serve``) and its
-training step (``nerf_downstream_tpu_torch.train3d``), with the
-hand-written CUDA kernels K1 ``window_match``, K2 ``window_gather_matmul``
-(forward), K3 ``window_bwd`` and K4 ``window_dw`` (backward), and holds
+Drives the port's three main paths on the card at full width:
+Res16UNet18A sparse-voxel serving (``nerf_downstream_tpu_torch.serve``),
+its training step (``nerf_downstream_tpu_torch.train3d``) and the
+evaluation of pruned checkpoints (``nerf_downstream_tpu_torch.eval3d``),
+with the hand-written CUDA kernels K1 ``window_match``, K2
+``window_gather_matmul`` (forward), K3 ``window_bwd`` and K4
+``window_dw`` (backward), K5 ``window_gather_matmul_bs`` (block-sparse
+forward) and K6 ``row_gather_matmul`` (row gather-matmul), and holds
 every kernel against its plain PyTorch version on the inputs the main
 paths give it. Phases:
 
@@ -56,7 +59,26 @@ paths give it. Phases:
    reported beside a plain step whose K2 sums run in reverse order, with
    the ReLU gates each pair's forwards put on different sides (why:
    ``phase_train_model``);
-10. the ``kernels`` line, the card line, and the ``ok`` line.
+10. sparse_eval: ``eval3d`` at ``eval_64k`` (bf16, 3 batches) over
+    checkpoints this phase writes with the port's ``save_checkpoint`` from
+    seeded weights: dense; ZAXIS (``--sparsify``, mode 2); mode 1 with
+    ``--layout strided`` over a negation-closed offset pruning; mode 1
+    with ``--layout csr`` over half the weight blocks pruned at
+    granularity 128 and at 32. Launch counts are reset just before and
+    read just after each ``eval3d`` run; per configuration: the median
+    request time after the first, device time, busy share and device ops
+    from a profile, host wall time in turns with the dense model, the
+    convs on each route (windowed, block-sparse, row), and the f32 logits against the dense model on the same zeroed
+    weights within 1e-4 x max|logit| (the bf16 gap is reported);
+11. k5: every K5 call of one recorded forward at granularity 128 and at
+    32 against its plain version (rtol 1e-5 in f32, 2^-8 in bf16 against
+    the f32 sum), against K2 on the spec-masked weights, two launches
+    bit-identical; K5 against K2 on the same plans at 10, 25, 50 and
+    75 % dead blocks (the dead-block crossover);
+12. k6: every K6 call of one recorded ZAXIS forward and one offset-pruned
+    forward against its plain version (rtol 1e-5; bf16 inputs, f32
+    output), two launches bit-identical;
+13. the ``kernels`` line, the card line, and the ``ok`` line.
 
 Every phase prints one JSON line; any failure exits non-zero without the
 ``ok`` line. Without a GPU, or without the package beside this file, the
@@ -85,10 +107,33 @@ DFEATS_TOL = {"float32": (1e-5, 1e-5), "bfloat16": (2.0 ** -8, 1e-5)}
 DW_TOL = 1e-5  # of max|d_w[g, m]|, per (g, m)
 TRAIN_LOSS_TOL = 1e-5
 TRAIN_GRAD_TOL = 1e-4
+SPARSE_BATCHES = 3
+SPARSE_TOL = 1e-4  # of max|logit|, sparse config vs dense on zeroed weights
+K5_DEAD_SHARES = (0.10, 0.25, 0.50, 0.75)
+ONES, TWOS = ",".join("1" * 9), ",".join("2" * 9)
+# pruned-eval configurations: (pruning of the checkpoint, eval3d flags)
+SPARSE_CONFIGS = {
+    "dense": (None, []),
+    "zaxis": ("zaxis", ["--sparsify", "--sparse_mode", TWOS]),
+    "offsets_strided": ("offsets", ["--sparsify", "--sparse_mode", ONES,
+                                    "--layout", "strided"]),
+    "blocks128_csr": (128, ["--sparsify", "--sparse_mode", ONES, "--layout",
+                            "csr", "--block_live_granularity", "128"]),
+    "blocks32_csr": (32, ["--sparsify", "--sparse_mode", ONES, "--layout",
+                          "csr", "--block_live_granularity", "32"]),
+}
+# symmetric (negation-closed) live offsets with (dx, dy) groups of one
+# size, so the escape lists stay on; 4 of the 8 offsets of a down conv
+UNIFORM_OFFSETS = (0, 4, 8, 9, 13, 17, 18, 22, 26)
+DOWN_OFFSETS = (0, 3, 4, 7)
 # H100 SXM published peaks (NVIDIA data sheet, dense): bytes/s of HBM3 and
 # FLOP/s of the bf16 tensor cores and of f32 on the CUDA cores
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
+
+
+WINDOW_KERNELS = ("window_match", "window_gather_matmul")
+TRAIN_KERNELS = WINDOW_KERNELS + ("window_bwd", "window_dw")
 
 
 class PhaseError(RuntimeError):
@@ -443,7 +488,7 @@ def phase_serve(card: str, requests: dict, dtype) -> tuple[dict, dict]:
                 raise PhaseError(f"{preset}: non-finite loss")
             rows.append(int(valid.sum()))
         counts = kernels.launch_counts()
-        for name in ("window_match", "window_gather_matmul"):
+        for name in WINDOW_KERNELS:
             if counts[name] <= 0:
                 raise PhaseError(f"{preset}: kernel {name} never launched")
         for name, c in counts.items():
@@ -457,20 +502,15 @@ def phase_serve(card: str, requests: dict, dtype) -> tuple[dict, dict]:
     return out, launches
 
 
-def phase_profile(preset: str, n: int, dtype) -> dict:
+def profile_requests(model, batches) -> dict:
     """Where a request's time goes: host wall time against the device time
     of every kernel (torch.profiler, CUPTI), per request, after warmup."""
-    import numpy as np
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     from nerf_downstream_tpu_torch import serve
 
-    model = serve.build_segmenter("Res16UNet18A", ctx_preset=preset,
-                                  device="cuda", seed=0, compute_dtype=dtype)
-    rng = np.random.default_rng(2)
-    batches = [serve.to_device(serve.make_batch(preset, rng), "cuda")
-               for _ in range(n)]
+    n = len(batches)
     serve.eval_step(model, batches[0])
 
     def run() -> float:
@@ -489,14 +529,28 @@ def phase_profile(preset: str, n: int, dtype) -> dict:
     device = sum(r[0] for r in rows)
     if device <= 0:
         raise PhaseError("the profiler saw no device time")
-    return {"phase": "profile", "preset": preset, "dtype": str(dtype),
-            "requests": n, "wall_ms_per_request": wall,
+    return {"requests": n, "wall_ms_per_request": wall,
             "wall_ms_per_request_profiled": wall_profiled,
             "device_ms_per_request": device,
             "device_busy_share": device / wall,
             "device_ops_per_request": sum(r[1] for r in rows),
             "top_device": [{"name": k[:90], "per_request": c, "ms": ms}
                            for ms, c, k in rows[:12]]}
+
+
+def phase_profile(preset: str, n: int, dtype) -> dict:
+    """``profile_requests`` of ``n`` requests of ``preset``."""
+    import numpy as np
+
+    from nerf_downstream_tpu_torch import serve
+
+    model = serve.build_segmenter("Res16UNet18A", ctx_preset=preset,
+                                  device="cuda", seed=0, compute_dtype=dtype)
+    rng = np.random.default_rng(2)
+    batches = [serve.to_device(serve.make_batch(preset, rng), "cuda")
+               for _ in range(n)]
+    return {"phase": "profile", "preset": preset, "dtype": str(dtype),
+            **profile_requests(model, batches)}
 
 
 def record_forward(preset: str, dtype):
@@ -699,7 +753,8 @@ def phase_train(card: str, dtype) -> tuple[dict, dict, tuple]:
         raise PhaseError(f"repeated training losses: {line}")
     want = {"window_bwd": K3_PER_STEP * TRAIN_STEPS,
             "window_dw": K4_PER_STEP * TRAIN_STEPS}
-    for name, c in counts.items():
+    for name in TRAIN_KERNELS:
+        c = counts[name]
         if c <= 0 or c != want.get(name, c):
             raise PhaseError(f"kernel {name}: {c} launches in {TRAIN_STEPS} "
                              f"steps, want {want.get(name, '> 0')}")
@@ -1047,6 +1102,498 @@ def phase_train_model() -> dict:
     return line
 
 
+class SparseRecorder:
+    """Records the inputs of every K5 and K6 call of a forward, by wrapping
+    the names the package's modules call. Calls go on to the real
+    wrappers."""
+
+    def __init__(self):
+        self.k5: list[tuple] = []
+        self.k6: list[tuple] = []
+
+    def __enter__(self):
+        from nerf_downstream_tpu_torch.ops import sparse_conv, window_conv
+
+        self._saved = (window_conv.window_gather_matmul_bs,
+                       sparse_conv.row_gather_matmul)
+        bs, rg = self._saved
+
+        def rec_bs(feats, starts, idx, w, live, block):
+            self.k5.append((feats.clone(), starts.clone(), idx.clone(),
+                            w.clone(), live.clone(), block))
+            return bs(feats, starts, idx, w, live, block)
+
+        def rec_rg(x_ext, km, w):
+            self.k6.append((x_ext.clone(), km.clone(), w.clone()))
+            return rg(x_ext, km, w)
+
+        window_conv.window_gather_matmul_bs = rec_bs
+        sparse_conv.row_gather_matmul = rec_rg
+        return self
+
+    def __exit__(self, *exc):
+        from nerf_downstream_tpu_torch.ops import sparse_conv, window_conv
+
+        (window_conv.window_gather_matmul_bs,
+         sparse_conv.row_gather_matmul) = self._saved
+        return False
+
+
+def pruned_params(params: dict, how, seed: int = 0) -> dict:
+    """A pruned copy of a parameter tree. ``"zaxis"``: every conv kernel
+    but the transposes keeps its z-column offsets; ``"offsets"``: 3x3x3
+    kernels keep ``UNIFORM_OFFSETS``, 2x2x2 ones ``DOWN_OFFSETS``; an int
+    b: half of every offset's b x b weight blocks (rounded down) zeroed,
+    in kernels with more than one block."""
+    import numpy as np
+
+    from nerf_downstream_tpu_torch.ops.weight_sparse import zaxis_offsets
+    from nerf_downstream_tpu_torch.sparse import kernel_offsets
+    from nerf_downstream_tpu_torch.utils.prune import flatten, unflatten
+
+    rng = np.random.default_rng(seed)
+    flat = flatten(params)
+    for path, arr in flat.items():
+        k = arr.shape[0]
+        if path[-1] != "kernel" or k == 1:
+            continue
+        out = arr.copy()
+        if how in ("zaxis", "offsets"):
+            if how == "zaxis":
+                if path[0].startswith("convtr"):
+                    continue  # transpose convs are dense in every mode
+                keep = zaxis_offsets(kernel_offsets(3 if k == 27 else 2, 1))
+            else:
+                keep = UNIFORM_OFFSETS if k == 27 else DOWN_OFFSETS
+            out[:] = 0
+            out[list(keep)] = arr[list(keep)]
+        else:
+            b = how
+            nbi, nbo = -(-arr.shape[1] // b), -(-arr.shape[2] // b)
+            if nbi * nbo < 2:
+                continue
+            for kk in range(k):
+                for p in rng.permutation(nbi * nbo)[:nbi * nbo // 2]:
+                    bi, bo = divmod(int(p), nbo)
+                    out[kk, bi * b:(bi + 1) * b, bo * b:(bo + 1) * b] = 0
+        flat[path] = out
+    return unflatten(flat)
+
+
+def wall_in_turns(a, b, batches) -> tuple[float, float]:
+    """Host wall ms per request of models ``a`` and ``b`` over the same
+    requests, timed in turns (a, b, b, a) so host noise falls on both."""
+    import torch
+
+    from nerf_downstream_tpu_torch import serve
+
+    def run(model) -> float:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for batch in batches:
+            serve.eval_step(model, batch)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3 / len(batches)
+
+    t: dict = {"a": [], "b": []}
+    for which in "abba":
+        t[which].append(run(a if which == "a" else b))
+    return sum(t["a"]) / 2, sum(t["b"]) / 2
+
+
+def _flag(flags: list, name: str, default):
+    return flags[flags.index(name) + 1] if name in flags else default
+
+
+def phase_sparse_eval(card: str) -> tuple[dict, dict, dict]:
+    """The pruned-eval path: for each of ``SPARSE_CONFIGS`` a checkpoint
+    written by the port's ``save_checkpoint`` (seeded weights, pruned as
+    the configuration says) goes through ``eval3d.main`` at ``eval_64k``
+    in bf16, launch counts reset just before and read just after; then a
+    profile of 3 requests, their wall time in turns with the dense model,
+    one recorded forward (K5 and K6 calls), and the f32 logits against the
+    dense model on the same weights. Returns
+    (phase line, launch counts, {"k5": {config: calls}, "k6": ...})."""
+    import contextlib
+    import io
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from nerf_downstream_tpu_torch import convert, eval3d, serve
+    from nerf_downstream_tpu_torch.ops import kernels
+    from nerf_downstream_tpu_torch.train.checkpoints import (
+        load_checkpoint,
+        save_checkpoint,
+    )
+
+    init = convert.init_flax_variables(
+        eval3d.get_model("Res16UNet18A", in_channel=serve.IN_CHANNELS,
+                         out_channel=serve.NUM_CLASSES), 0)
+    batch = serve.to_device(
+        serve.make_batch("eval_64k", np.random.default_rng(1)), "cuda")
+    rng = np.random.default_rng(2)
+    prof_batches = [serve.to_device(serve.make_batch("eval_64k", rng),
+                                    "cuda") for _ in range(3)]
+    valid = batch["mask"]
+    dense16 = eval3d.build_evaluator("eval_64k", init, device="cuda")
+    down = {f"conv{i}_conv" for i in range(1, 5)}
+    line = {"phase": "sparse_eval", "card": card, "preset": "eval_64k",
+            "dtype": "torch.bfloat16", "batches": SPARSE_BATCHES,
+            "tolerance_of_max_logit": SPARSE_TOL, "configs": {}}
+    launches = {name: 0 for name in kernels.launch_counts()}
+    recs: dict = {"k5": {}, "k6": {}}
+    total_convs = None
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, (how, flags) in SPARSE_CONFIGS.items():
+            params = (init["params"] if how is None
+                      else pruned_params(init["params"], how))
+            ckpt = os.path.join(tmp, name, "last.ckpt")
+            save_checkpoint(ckpt, params, init["batch_stats"],
+                            meta={"seed": 0, "pruning": str(how)})
+            argv = ["--preset", "eval_64k", "--load_path", ckpt, "--tag",
+                    name, "--batches", str(SPARSE_BATCHES), "--seed", "0",
+                    *flags]
+            log = io.StringIO()
+            torch.cuda.synchronize()
+            kernels.reset_launch_counts()
+            with contextlib.redirect_stdout(log):
+                res = eval3d.main(argv)
+            counts = kernels.launch_counts()
+            for k, v in counts.items():
+                launches[k] += v
+            # the maps eval3d derived, for the route and launch checks
+            raw = load_checkpoint(ckpt)
+            variables = {"params": raw["params"],
+                         "batch_stats": raw["batch_stats"]}
+            modes = eval3d.parse_sparse_mode(
+                "--sparsify" in flags, _flag(flags, "--sparse_mode", ""))
+            gran = int(_flag(flags, "--block_live_granularity", 128))
+            with contextlib.redirect_stdout(io.StringIO()):
+                vmap, bmap = eval3d.derive_maps(
+                    variables["params"], modes,
+                    _flag(flags, "--layout", "csr"), gran)
+            routes = res["routes"]
+            if total_convs is None:
+                total_convs = sum(routes.values())
+            n_row = 4 if how == "zaxis" else len(down & set(vmap or {}))
+            n_bs = len([p for p in (bmap or {})
+                        if not p.startswith("convtr")])
+            want = {"windowed": total_convs - n_row - n_bs, "row": n_row,
+                    "blocksparse": n_bs}
+            want = {k: v for k, v in want.items() if v}
+            cfg = {
+                "pruning": str(how), "flags": flags,
+                "log": [ln for ln in log.getvalue().splitlines()
+                        if ln.startswith(("num_params", "folded"))],
+                "results": res["results"], "ms": res["ms"],
+                "ms_median_after_first": float(np.median(res["ms"][1:])),
+                "routes": routes, "launches": counts,
+                "launches_per_request": {k: v / SPARSE_BATCHES
+                                         for k, v in counts.items()},
+                "offset_map_entries": len(vmap or {}),
+                "block_map_entries": len(bmap or {}),
+            }
+            line["configs"][name] = cfg
+            if routes != want:
+                raise PhaseError(f"{name}: routes {routes}, want {want}")
+            want_k = {"window_gather_matmul_bs": n_bs * SPARSE_BATCHES,
+                      "row_gather_matmul": n_row * SPARSE_BATCHES}
+            for k in WINDOW_KERNELS:
+                if counts[k] <= 0:
+                    raise PhaseError(f"{name}: kernel {k} never launched")
+            for k, n in want_k.items():
+                if counts[k] != n:
+                    raise PhaseError(f"{name}: kernel {k} launched "
+                                     f"{counts[k]} times, want {n}")
+            if not all(np.isfinite(v) for v in res["results"].values()):
+                raise PhaseError(f"{name}: non-finite results {cfg}")
+
+            kw = dict(sparse_mode=modes, valid_offsets_map=vmap,
+                      block_live_map=bmap, block_live_granularity=gran,
+                      device="cuda")
+            model = eval3d.build_evaluator("eval_64k", variables, **kw)
+            cfg["profile"] = profile_requests(model, prof_batches)
+            if how is not None:
+                d_ms, c_ms = wall_in_turns(dense16, model, prof_batches)
+                cfg["wall_ms_in_turns"] = {"dense": d_ms, name: c_ms}
+            with SparseRecorder() as rec:
+                logits16 = serve.eval_step(model, batch)[0]
+            if rec.k5:
+                recs["k5"][name] = rec.k5
+            if rec.k6:
+                recs["k6"][name] = rec.k6
+            del model
+            model = eval3d.build_evaluator(
+                "eval_64k", variables, compute_dtype=torch.float32, **kw)
+            got = serve.eval_step(model, batch)[0]
+            del model
+            dense = eval3d.build_evaluator(
+                "eval_64k", variables, device="cuda",
+                compute_dtype=torch.float32)
+            ref = serve.eval_step(dense, batch)[0]
+            del dense
+            torch.cuda.empty_cache()
+            scale = float(ref[valid].abs().max())
+            err = float((got[valid] - ref[valid]).abs().max())
+            cfg["f32_vs_dense"] = {
+                "max_abs_err": err, "max_abs_logit": scale,
+                "err_of_max": err / scale,
+                "argmax_agreement": float(
+                    (got[valid].argmax(-1) == ref[valid].argmax(-1))
+                    .float().mean())}
+            gap = float((logits16[valid].float() - ref[valid]).abs().max())
+            cfg["bf16_vs_dense_f32"] = {
+                "max_abs_err": gap, "err_of_max": gap / scale,
+                "argmax_agreement": float(
+                    (logits16[valid].argmax(-1) == ref[valid].argmax(-1))
+                    .float().mean())}
+            if not (np.isfinite(err) and err <= SPARSE_TOL * scale):
+                raise PhaseError(f"{name}: f32 logits off the dense model "
+                                 f"on the same weights: {cfg}")
+    return line, launches, recs
+
+
+def k5_work(feats, starts, idx, w, live, block) -> tuple[int, int]:
+    """(bytes, FLOPs) K5 must spend: the features, plan and liveness read
+    once, the live weight blocks read once, the output written once;
+    2 x (live channel pairs of the member) per present plan entry."""
+    import torch
+
+    g, nt, m, tile = idx.shape
+    c, cout = w.shape[-2:]
+    es = feats.element_size()
+    nbi, nbo = live.shape[-2:]
+    wi = torch.full((nbi,), float(block), device=w.device)
+    wo = torch.full((nbo,), float(block), device=w.device)
+    wi[-1], wo[-1] = c - block * (nbi - 1), cout - block * (nbo - 1)
+    pairs = (live.double() * (wi[:, None] * wo[None, :]).double()).sum((2, 3))
+    rows = starts[:, :, None, None].long() + idx.long()
+    present = ((idx >= 0) & (rows < feats.shape[0])).sum((1, 3)).double()
+    flops = int(2 * float((present * pairs).sum()))
+    nbytes = (feats.numel() * es + int(float(pairs.sum())) * es
+              + 4 * (idx.numel() + starts.numel()) + live.numel()
+              + nt * tile * cout * es)
+    return int(nbytes), flops
+
+
+def k6_work(x_ext, km, w) -> tuple[int, int]:
+    """(bytes, FLOPs) K6 must spend: x_ext, the kernel map and the weights
+    read once, the f32 output written once; 2 Cin Cout operations per real
+    pair (km < N_in)."""
+    es = x_ext.element_size()
+    c, cout = w.shape[-2:]
+    pairs = int((km < x_ext.shape[0] - 1).sum())
+    nbytes = ((x_ext.numel() + w.numel()) * es + 4 * km.numel()
+              + 4 * km.shape[1] * cout)
+    return int(nbytes), 2 * c * cout * pairs
+
+
+def _dead_spec(live_shape, share: float, seed: int):
+    """uint8 liveness with round(share x blocks) dead blocks per member."""
+    import numpy as np
+    import torch
+
+    g, m, nbi, nbo = live_shape
+    rng = np.random.default_rng(seed)
+    n = nbi * nbo
+    live = np.ones((g, m, n), np.uint8)
+    for gi in range(g):
+        for j in range(m):
+            live[gi, j, rng.permutation(n)[:int(round(share * n))]] = 0
+    return torch.as_tensor(live.reshape(live_shape))
+
+
+def phase_k5(recs: dict) -> tuple[dict, dict]:
+    import torch
+
+    from nerf_downstream_tpu_torch.ops.kernels import (
+        gather_matmul_bs,
+        window_gather_matmul,
+        window_gather_matmul_bs,
+        window_gather_matmul_bs_plain,
+    )
+
+    configs: dict = {}
+    err32 = err16 = err_k2 = 0.0
+    identical = deterministic = True
+    for name, calls in recs.items():
+        acc = {"calls": len(calls), "ms": 0.0, "plain_ms": 0.0,
+               "k2_masked_ms": 0.0, "bound_ms": 0.0, "bytes_bound_ms": 0.0,
+               "shapes": {}}
+        for feats, starts, idx, w, live, block in calls:
+            c, cout = w.shape[-2:]
+            f32, w32 = feats.float(), w.float()
+            got = window_gather_matmul_bs(f32, starts, idx, w32, live, block)
+            want = window_gather_matmul_bs_plain(f32, starts, idx, w32, live,
+                                                 block)
+            d32 = (got - want).abs()
+            bad32 = int((d32 > K2_F32_TOL + K2_F32_TOL * want.abs()).sum())
+            got16 = window_gather_matmul_bs(feats, starts, idx, w, live,
+                                            block)
+            d16 = (got16.float() - want).abs()
+            bad16 = int((d16 > K2_BF16_ATOL + K2_BF16_RTOL
+                         * want.abs()).sum())
+            masked = (w * gather_matmul_bs.live_mask(live, block, c, cout)
+                      .to(w.dtype)).contiguous()
+            k2 = window_gather_matmul(feats, starts, idx, masked)
+            dk2 = (got16.float() - k2.float()).abs()
+            bad_k2 = int((dk2 > K2_BF16_ATOL + K2_BF16_RTOL
+                          * k2.float().abs()).sum())
+            identical &= bool(torch.equal(got16, k2))
+            again = window_gather_matmul_bs(feats, starts, idx, w, live,
+                                            block)
+            deterministic &= bool(torch.equal(again, got16))
+            err32 = max(err32, float(d32.max()))
+            err16 = max(err16, float(d16.max()))
+            err_k2 = max(err_k2, float(dk2.max()))
+            t_k = device_ms(lambda: window_gather_matmul_bs(
+                feats, starts, idx, w, live, block))
+            t_k2 = device_ms(lambda: window_gather_matmul(feats, starts, idx,
+                                                          masked))
+            t_p = device_ms(lambda: window_gather_matmul_bs_plain(
+                feats, starts, idx, w, live, block), reps=2)
+            nbytes, flops = k5_work(feats, starts, idx, w, live, block)
+            b, by = bound(nbytes, flops, feats.dtype)
+            acc["ms"] += t_k
+            acc["plain_ms"] += t_p
+            acc["k2_masked_ms"] += t_k2
+            acc["bound_ms"] += b
+            acc["bytes_bound_ms"] += b if by == "bytes" else 0.0
+            key = f"{feats.shape[0]}x{c}->{idx.shape[1] * idx.shape[3]}x" \
+                  f"{cout} G{idx.shape[0]} M{idx.shape[2]}"
+            s = acc["shapes"].setdefault(key, {
+                "calls": 0, "block": block, "dead_share": 0.0, "ms": 0.0,
+                "k2_masked_ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
+                "bound_by": by})
+            s["calls"] += 1
+            s["dead_share"] = 1.0 - float(live.float().mean())
+            s["ms"] += t_k
+            s["k2_masked_ms"] += t_k2
+            s["plain_ms"] += t_p
+            s["bound_ms"] += b
+            if bad32 or bad16 or bad_k2:
+                raise PhaseError(f"K5 outside tolerance at {key}: {bad32} "
+                                 f"f32, {bad16} bf16, {bad_k2} against K2")
+        configs[name] = acc
+    if not deterministic:
+        raise PhaseError("K5: two launches on the same inputs differ")
+
+    # the dead-block crossover: K5 against K2 on the spec-masked weights,
+    # same plans, same inputs, timed in turns (K2, K5, K5, K2)
+    crossover = []
+    calls32 = recs.get("blocks32_csr", [])
+    calls128 = recs.get("blocks128_csr", [])
+    picks = []
+    if calls32:  # the finest level's call, and the widest matrix's
+        picks.append((max(calls32, key=lambda a: a[0].shape[0]), 32))
+        picks.append((max(calls32, key=lambda a: a[3].shape[-2]
+                          * a[3].shape[-1]), 32))
+    if calls128:  # the matrix with the most 128-blocks
+        picks.append((max(calls128, key=lambda a: a[4].shape[-2]
+                          * a[4].shape[-1]), 128))
+    for (feats, starts, idx, w, live, _), block in picks:
+        c, cout = w.shape[-2:]
+        for share in K5_DEAD_SHARES:
+            spec = _dead_spec(live.shape[:2] + (-(-c // block),
+                                                -(-cout // block)),
+                              share, 7).to(live.device)
+            masked = (w * gather_matmul_bs.live_mask(spec, block, c, cout)
+                      .to(w.dtype)).contiguous()
+            t = {"k2": [], "k5": []}
+            for which in ("k2", "k5", "k5", "k2"):
+                if which == "k2":
+                    t["k2"].append(device_ms(lambda: window_gather_matmul(
+                        feats, starts, idx, masked)))
+                else:
+                    t["k5"].append(device_ms(lambda: window_gather_matmul_bs(
+                        feats, starts, idx, w, spec, block)))
+            k2_ms, k5_ms = (sum(v) / len(v) for v in (t["k2"], t["k5"]))
+            crossover.append({
+                "rows": idx.shape[1] * idx.shape[3], "C": c, "Cout": cout,
+                "block": block, "dead_share": 1.0 - float(spec.float()
+                                                          .mean()),
+                "k2_ms": k2_ms, "k5_ms": k5_ms, "k5_over_k2": k5_ms / k2_ms})
+    head = configs.get("blocks32_csr") or next(iter(configs.values()))
+    line = {"phase": "k5", "configs": configs, "crossover": crossover,
+            "max_abs_err_f32": err32, "max_abs_err_bf16": err16,
+            "max_abs_err_vs_k2": err_k2, "identical_to_k2": identical,
+            "deterministic": deterministic,
+            "tolerance": {"f32": [K2_F32_TOL, K2_F32_TOL],
+                          "bf16": [K2_BF16_ATOL, K2_BF16_RTOL]}}
+    return line, {"max_abs_err": err32, "max_abs_err_bf16": err16,
+                  "max_abs_err_vs_k2": err_k2, "identical_to_k2": identical,
+                  "deterministic": deterministic, "ms": head["ms"],
+                  "plain_ms": head["plain_ms"],
+                  "k2_masked_ms": head["k2_masked_ms"],
+                  "bound_ms": head["bound_ms"],
+                  "bound_by": ("bytes" if head["bytes_bound_ms"]
+                               >= head["bound_ms"] / 2 else "operations"),
+                  "calls_per_forward": head["calls"]}
+
+
+def phase_k6(recs: dict) -> tuple[dict, dict]:
+    import torch
+
+    from nerf_downstream_tpu_torch.ops.kernels import (
+        row_gather_matmul,
+        row_gather_matmul_plain,
+    )
+
+    configs: dict = {}
+    err32 = err16 = 0.0
+    deterministic = True
+    for name, calls in recs.items():
+        acc = {"calls": [], "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
+               "bytes_bound_ms": 0.0}
+        for x_ext, km, w in calls:
+            want = row_gather_matmul_plain(x_ext.float(), km, w.float())
+            errs = {}
+            for dt, (x, ww) in (("f32", (x_ext.float(), w.float())),
+                                ("bf16", (x_ext, w))):
+                got = row_gather_matmul(x, km, ww)
+                bad = int(((got - want).abs()
+                           > K2_F32_TOL + K2_F32_TOL * want.abs()).sum())
+                errs[dt] = float((got - want).abs().max())
+                if bad:
+                    raise PhaseError(f"K6 ({dt}) outside tolerance: {bad} "
+                                     f"elements, K={km.shape[0]}")
+                if dt == "bf16":
+                    deterministic &= bool(torch.equal(
+                        row_gather_matmul(x, km, ww), got))
+            err32, err16 = max(err32, errs["f32"]), max(err16, errs["bf16"])
+            t_k = device_ms(lambda: row_gather_matmul(x_ext, km, w))
+            t_p = device_ms(lambda: row_gather_matmul_plain(x_ext, km, w),
+                            reps=2)
+            nbytes, flops = k6_work(x_ext, km, w)
+            b, by = bound(nbytes, flops, x_ext.dtype)
+            acc["ms"] += t_k
+            acc["plain_ms"] += t_p
+            acc["bound_ms"] += b
+            acc["bytes_bound_ms"] += b if by == "bytes" else 0.0
+            acc["calls"].append({
+                "K": km.shape[0], "n_in": x_ext.shape[0] - 1,
+                "n_out": km.shape[1], "C": w.shape[-2], "Cout": w.shape[-1],
+                "pairs": int((km < x_ext.shape[0] - 1).sum()), "ms": t_k,
+                "plain_ms": t_p, "bound_ms": b, "bound_by": by,
+                "max_abs_err": errs})
+        configs[name] = acc
+    if not deterministic:
+        raise PhaseError("K6: two launches on the same inputs differ")
+    head = configs.get("zaxis") or next(iter(configs.values()))
+    line = {"phase": "k6", "configs": configs, "max_abs_err_f32": err32,
+            "max_abs_err_bf16_inputs": err16,
+            "deterministic": deterministic,
+            "tolerance": [K2_F32_TOL, K2_F32_TOL]}
+    return line, {"max_abs_err": err32, "max_abs_err_bf16_inputs": err16,
+                  "deterministic": deterministic, "ms": head["ms"],
+                  "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
+                  "bound_by": ("bytes" if head["bytes_bound_ms"]
+                               >= head["bound_ms"] / 2 else "operations"),
+                  "calls_per_forward": len(head["calls"])}
+
+
 def main() -> int:
     import torch
 
@@ -1110,14 +1657,26 @@ def main() -> int:
         del rec
         phase = "train_model"
         emit(phase_train_model())
+        phase = "sparse_eval"
+        line, sparse_launches, sparse_recs = phase_sparse_eval(card)
+        emit(line)
+        phase = "k5"
+        line, k5 = phase_k5(sparse_recs["k5"])
+        emit(line)
+        phase = "k6"
+        line, k6 = phase_k6(sparse_recs["k6"])
+        emit(line)
+        del sparse_recs
     except Exception as e:  # report the failing phase, then fail
         emit({"phase": phase, "ok": False,
               "error": f"{type(e).__name__}: {e}"})
         raise
+
     def paths(name):
-        return {"launches": launches[name] + train_launches[name],
-                "launches_by_path": {"serve": launches[name],
-                                     "train": train_launches[name]}}
+        by_path = {"serve": launches[name], "train": train_launches[name],
+                   "sparse_eval": sparse_launches[name]}
+        return {"launches": sum(by_path.values()),
+                "launches_by_path": by_path}
 
     src = "nerf_downstream_tpu_torch/ops/kernels/"
     tpu = "nerf_downstream_tpu/ops/pallas/window_gather.py"
@@ -1130,6 +1689,13 @@ def main() -> int:
         "window_bwd": "a gather-matmul over the inverse plan plus a "
                       "per-offset gathered outer-product sum",
         "window_dw": "a per-offset gathered outer-product sum",
+        "window_gather_matmul_bs": "a per-offset gather and product over "
+                                   "the live weight blocks, summed over the "
+                                   "offsets of a plan",
+        "row_gather_matmul": "a per-offset gather of the rows a kernel map "
+                             "names and product, summed over the offsets "
+                             "(index_select and bmm are two calls that "
+                             "materialise the [K, N, Cin] gathers)",
     }
     kernels = [
         dict(name="window_match", route="cuda",
@@ -1148,6 +1714,16 @@ def main() -> int:
         dict(name="window_dw", route="cuda", source=src + "window_dw.cu",
              replaces=f"{tpu}:590", library_ms=None,
              shapes="one train_64k step (bf16)", **paths("window_dw"), **k4),
+        dict(name="window_gather_matmul_bs", route="cuda",
+             source=src + "window_gather_matmul_bs.cu",
+             replaces=f"{tpu}:284", library_ms=None,
+             shapes="one eval_64k forward, csr at granularity 32 (bf16)",
+             **paths("window_gather_matmul_bs"), **k5),
+        dict(name="row_gather_matmul", route="cuda",
+             source=src + "row_gather_matmul.cu",
+             replaces="nerf_downstream_tpu/ops/pallas/gather_matmul.py:76",
+             library_ms=None, shapes="one eval_64k forward, ZAXIS (bf16 "
+             "inputs, f32 output)", **paths("row_gather_matmul"), **k6),
     ]
     for k in kernels:
         k["library_ms_null_because"] = no_library[k["name"]]

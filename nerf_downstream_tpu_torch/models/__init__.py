@@ -5,11 +5,15 @@ from __future__ import annotations
 
 
 def get_model(name: str = "Res16UNet18A", in_channel: int = 27,
-              out_channel: int = 20, **kwargs):
+              out_channel: int = 20, sparse=None, **kwargs):
     """Build a Res16UNet by registry name. ``in_channel`` is required here
-    (PyTorch sizes weights at construction; the reference infers it)."""
+    (PyTorch sizes weights at construction; the reference infers it).
+    ``sparse`` is the nine-slot conv-mode list (``Res16UNet.sparse_mode``;
+    None = dense)."""
     from nerf_downstream_tpu_torch.models.mink import res16unet
 
+    if sparse is not None:
+        kwargs["sparse_mode"] = tuple(sparse)
     if name == "Res16UNet":
         return res16unet.Res16UNet(in_channel, out_channel, **kwargs)
     if name in res16unet.VARIANTS:

@@ -15,20 +15,24 @@ from nerf_downstream_tpu_torch.models.mink.layers import (
 
 class BasicBlock(nn.Module):
     """conv3-norm-act-conv3-norm (+ skip, through a 1x1 conv-norm when the
-    width changes) - act. Expansion 1."""
+    width changes) - act. Expansion 1. ``conv_mode`` goes to the two 3x3
+    convs (``SparseConv``)."""
 
     expansion = 1
 
     def __init__(self, inplanes: int, planes: int, norm_type: str = "BN",
                  nonlinearity: str = "MinkowskiReLU",
-                 compute_dtype: torch.dtype = torch.float32):
+                 compute_dtype: torch.dtype = torch.float32,
+                 conv_mode: int = 0):
         super().__init__()
         self.non = get_nonlinearity(nonlinearity)
         self.conv1 = SparseConv(inplanes, planes, 3, 1,
-                                compute_dtype=compute_dtype)
+                                compute_dtype=compute_dtype,
+                                conv_mode=conv_mode)
         self.norm1 = make_norm(norm_type, planes)
         self.conv2 = SparseConv(planes, planes, 3, 1,
-                                compute_dtype=compute_dtype)
+                                compute_dtype=compute_dtype,
+                                conv_mode=conv_mode)
         self.norm2 = make_norm(norm_type, planes)
         self.downsample = None
         if inplanes != planes * self.expansion:

@@ -1,6 +1,7 @@
 """Layers over SparseVoxels: windowed conv, conv-transpose, BN, activations
 (counterpart of ``nerf_downstream_tpu/models/mink/layers.py``, the
-fully-windowed path, forward and backward).
+fully-windowed path, forward and backward, with the weight-sparse
+inference modes).
 
 Every k3/s1 conv and k2/s2 down conv rides window plans built from the
 level's sorted keys; the k2 transpose conv reuses the down conv's plans
@@ -10,10 +11,22 @@ with x-fastest offsets, the reference's layout. Parameters start at zero
 (no hidden random state): weights come from
 ``convert.load_flax_variables``, or from ``convert.init_flax_variables``
 with an explicit seed.
+
+Weight-sparse inference (``eval3d --sparsify``), in the reference's order
+of decisions: a conv in mode 2 (ZAXIS) runs over its z-column offsets; in
+mode 1 over the live offsets ``ctx.valid_offsets_map`` lists under its
+module path (``SparseConv.path``). A k3/s1 subset stays windowed, its
+(dx, dy) groups padded to one size with zero-weight repeats. A k2/s2 down
+conv with a subset leaves the windowed path for the row path (a kernel
+map and K6). A windowed conv whose path has an entry in
+``ctx.block_live_map`` with at least 25 % dead blocks runs the
+block-sparse forward (K5). Each conv records the route it took last in
+``route`` (1x1 convs, plain matrix products, record none).
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 from torch import nn
 from torch.nn import functional as F
@@ -22,9 +35,22 @@ from nerf_downstream_tpu_torch.ops.norm import (
     batch_norm_apply,
     masked_mean_var,
 )
-from nerf_downstream_tpu_torch.ops.window_conv import window_conv_apply
+from nerf_downstream_tpu_torch.ops.sparse_conv import sparse_conv_apply
+from nerf_downstream_tpu_torch.ops.weight_sparse import (
+    pad_offset_groups,
+    zaxis_offsets,
+)
+from nerf_downstream_tpu_torch.ops.window_conv import (
+    group_offsets,
+    window_conv_apply,
+    window_conv_apply_blocksparse,
+)
 from nerf_downstream_tpu_torch.sparse import CoordinateContext, kernel_offsets
 from nerf_downstream_tpu_torch.sparse.types import SparseVoxels
+
+# least share of dead weight blocks for the block-sparse forward (the
+# reference's routing, measured on its TPU; kept for parity)
+BLOCK_SPARSE_MIN_DEAD = 0.25
 
 
 def as_rows(sv: SparseVoxels) -> SparseVoxels:
@@ -33,31 +59,62 @@ def as_rows(sv: SparseVoxels) -> SparseVoxels:
     return sv
 
 
+def _window_groups_ok(offs) -> bool:
+    """Windowed plans need (dx, dy) offset groups of one size."""
+    try:
+        group_offsets(offs)
+        return True
+    except ValueError:
+        return False
+
+
 class SparseConv(nn.Module):
     """Sparse convolution; stride 2 emits the next coarser level.
 
     ``input_grad=False`` declares that the input is never differentiated
     (first-layer convs over the data batch): no transpose plan is built.
+    ``conv_mode``: 0 dense, 1 the live offsets of a pruned checkpoint
+    (``ctx.valid_offsets_map``), 2 ZAXIS (the dx = dy = 0 offsets); a
+    static ``valid_offsets`` tuple sets the subset directly. ``path`` is
+    the module's name in the reference's variable tree (set by the model
+    from ``convert.flax_path``); the sparse maps are keyed by it.
     """
 
     def __init__(self, in_channels: int, out_channels: int,
                  kernel_size: int = 3, stride: int = 1,
                  use_bias: bool = False,
                  compute_dtype: torch.dtype = torch.float32,
-                 input_grad: bool = True):
+                 input_grad: bool = True, conv_mode: int = 0,
+                 valid_offsets: tuple | None = None):
         super().__init__()
         if (kernel_size, stride) not in ((1, 1), (3, 1), (2, 2)):
             raise ValueError(
-                f"windowed path has no kernel {kernel_size} / stride {stride}"
+                f"neither the windowed nor the row path takes kernel "
+                f"{kernel_size} / stride {stride}"
             )
         self.kernel_size = kernel_size
         self.stride = stride
         self.compute_dtype = compute_dtype
         self.input_grad = input_grad
+        self.conv_mode = conv_mode
+        self.valid_offsets = valid_offsets
+        self.path = ""
+        self.route = None
         k = kernel_size ** 3
         self.kernel = nn.Parameter(torch.zeros(k, in_channels, out_channels))
         self.bias = (nn.Parameter(torch.zeros(out_channels)) if use_bias
                      else None)
+
+    def _subset(self, full_offs, ctx):
+        subset = self.valid_offsets
+        if self.conv_mode == 2 and subset is None:  # ZAXIS
+            subset = zaxis_offsets(full_offs)
+        if self.conv_mode == 1 and subset is None and ctx.valid_offsets_map:
+            # live offsets of the pruned checkpoint; no entry = dense
+            sub = ctx.valid_offsets_map.get(self.path)
+            if sub is not None and 0 < len(sub) < len(full_offs):
+                subset = tuple(int(i) for i in sub)
+        return subset
 
     def forward(self, sv: SparseVoxels, ctx: CoordinateContext):
         cd = self.compute_dtype
@@ -68,25 +125,98 @@ class SparseConv(nn.Module):
             if self.bias is not None:
                 out_f = out_f + self.bias
             return sv.replace(feats=out_f)
-        offs = kernel_offsets(self.kernel_size, sv.stride)
-        s1 = self.stride == 1
+        full_offs = kernel_offsets(self.kernel_size, sv.stride)
+        subset = self._subset(full_offs, ctx)
+        # a subset with non-uniform (dx, dy) groups is padded with
+        # zero-weight repeats of each group's first offset
+        w_rows = None
+        if subset is None:
+            offs = full_offs
+        else:
+            offs = full_offs[list(subset)]
+            if not _window_groups_ok(offs):
+                offs, w_rows = pad_offset_groups(full_offs, subset)
+        s1 = self.kernel_size == 3 and self.stride == 1
+        if not s1 and subset is not None:
+            return self._row_conv(sv, ctx, full_offs[list(subset)], subset)
+
         if s1:
             out_sv = sv
             plan = ctx.window_plan_direct(sv.coords, sv.mask, offs,
                                           stride=sv.stride)
-            inv_plan = (
-                ctx.window_plan_direct(sv.coords, sv.mask, offs,
-                                       transpose=True, stride=sv.stride)
-                if self.input_grad else None
-            )
         else:
             out_sv = ctx.strided(sv, 2)
             plan = ctx.window_plan_cross(sv, out_sv, offs, expanding=True)
-            inv_plan = ctx.window_plan_cross(out_sv, sv, offs, transpose=True)
-        out_f = window_conv_apply(
-            sv.feats, plan, inv_plan, self.kernel, self.bias,
-            compute_dtype=cd, input_grad=self.input_grad or not s1,
-        ).to(cd)
+        w = self.kernel
+        if w_rows is not None:
+            w = torch.where(
+                torch.as_tensor(w_rows >= 0, device=w.device)[:, None, None],
+                w[torch.as_tensor(np.clip(w_rows, 0, None), device=w.device)],
+                0.0)
+        elif subset is not None:
+            w = w[torch.as_tensor(subset, device=w.device)]
+        bl = self._block_live(ctx, subset, w_rows)
+        if bl is not None:
+            self.route = "blocksparse"
+            out_f = window_conv_apply_blocksparse(
+                sv.feats, plan, w, bl, self.bias, compute_dtype=cd,
+                block=ctx.block_live_granularity,
+            ).to(cd)
+        else:
+            self.route = "windowed"
+            if s1:
+                inv_plan = (
+                    ctx.window_plan_direct(sv.coords, sv.mask, offs,
+                                           transpose=True, stride=sv.stride)
+                    if self.input_grad else None
+                )
+            else:
+                inv_plan = ctx.window_plan_cross(out_sv, sv, offs,
+                                                 transpose=True)
+            out_f = window_conv_apply(
+                sv.feats, plan, inv_plan, w, self.bias,
+                compute_dtype=cd, input_grad=self.input_grad or not s1,
+            ).to(cd)
+        out_f = ctx.level_poison(out_sv.coords, out_f)
+        return SparseVoxels(coords=out_sv.coords, feats=out_f,
+                            mask=out_sv.mask, stride=out_sv.stride)
+
+    def _block_live(self, ctx, subset, w_rows):
+        """This conv's block liveness, re-indexed to the plan's offset
+        rows, or None when the block-sparse forward does not apply (no
+        entry, or fewer than 25 % dead blocks)."""
+        if not ctx.block_live_map:
+            return None
+        bl = ctx.block_live_map.get(self.path)
+        if bl is None:
+            return None
+        bl = np.asarray(bl)
+        if w_rows is not None:
+            bl = np.where((w_rows >= 0)[:, None, None],
+                          bl[np.clip(w_rows, 0, None)], False)
+        elif subset is not None:
+            bl = bl[list(subset)]
+        if bl.all() or 1.0 - bl.sum() / bl.size < BLOCK_SPARSE_MIN_DEAD:
+            return None
+        return bl
+
+    def _row_conv(self, sv, ctx, offs, subset):
+        """A strided conv over an offset subset: the row path (kernel map,
+        then K6). The inverse map is built only when autograd may need
+        it."""
+        self.route = "row"
+        out_sv = ctx.strided(sv, self.stride)
+        km = ctx.kernel_map(sv.coords, sv.mask, out_sv.coords, out_sv.mask,
+                            offs, in_stride=sv.stride)
+        inv = None
+        if torch.is_grad_enabled():
+            inv = ctx.kernel_map(out_sv.coords, out_sv.mask, sv.coords,
+                                 sv.mask, offs, transpose=True,
+                                 in_stride=out_sv.stride)
+        w = self.kernel[torch.as_tensor(subset, device=self.kernel.device)]
+        out_f = sparse_conv_apply(sv.feats, km, w, self.bias,
+                                  compute_dtype=self.compute_dtype,
+                                  inv_map=inv).to(self.compute_dtype)
         out_f = ctx.level_poison(out_sv.coords, out_f)
         return SparseVoxels(coords=out_sv.coords, feats=out_f,
                             mask=out_sv.mask, stride=out_sv.stride)
@@ -95,7 +225,10 @@ class SparseConv(nn.Module):
 class SparseConvTranspose(nn.Module):
     """k2/s2 transposed conv onto the cached finer level ``target``: its
     plan is the transpose of the encoder down conv's, and its inverse plan
-    is that down conv's own plan."""
+    is that down conv's own plan. Dense in every sparse mode, as in the
+    reference."""
+
+    route = "windowed"
 
     def __init__(self, in_channels: int, out_channels: int,
                  use_bias: bool = False,

@@ -10,6 +10,11 @@ skip concat -> stage]; a 1x1 head; features sliced back onto the points.
 A fresh CoordinateContext per forward holds the level pyramid and the
 window plans, so each plan is built once and shared by every conv of its
 level and by the matching transpose conv.
+
+``sparse_mode`` is the reference's nine-slot conv-mode list: slot 0
+covers ``conv0a``-``conv4``, slots 1-8 the stages ``block1``-``block8``.
+Only modes 1 (pruned offsets) and 2 (ZAXIS) change a conv; 3 and 4 mean
+dense. Transpose convs ignore the mode.
 """
 
 from __future__ import annotations
@@ -19,6 +24,7 @@ from typing import Sequence
 import torch
 from torch import nn
 
+from nerf_downstream_tpu_torch.convert import flax_path
 from nerf_downstream_tpu_torch.models.mink.blocks import BLOCKS
 from nerf_downstream_tpu_torch.models.mink.layers import (
     SparseConv,
@@ -65,6 +71,7 @@ class Res16UNet(nn.Module):
         compute_dtype: torch.dtype = torch.float32,
         ctx: dict | None = None,
         assume_unique: bool = False,
+        sparse_mode: Sequence[int] = (0,) * 9,
     ):
         super().__init__()
         if block not in BLOCKS:
@@ -74,6 +81,7 @@ class Res16UNet(nn.Module):
         self.compute_dtype = compute_dtype
         self.ctx_kwargs = dict(ctx or {})
         self.assume_unique = assume_unique
+        self.sparse_mode = tuple(sparse_mode)
         p, cd = self.planes, compute_dtype
         block_cls = BLOCKS[block]
         exp = block_cls.expansion
@@ -85,12 +93,14 @@ class Res16UNet(nn.Module):
             blocks = []
             for _ in range(self.layers[idx]):
                 blocks.append(block_cls(inplanes, p[idx], norm_type,
-                                        nonlinearity, cd))
+                                        nonlinearity, cd,
+                                        self._conv_mode(idx + 1)))
                 inplanes = p[idx] * exp
             return nn.ModuleList(blocks), inplanes
 
         def conv(cin, cout, k, s, **kw):
-            return SparseConv(cin, cout, k, s, compute_dtype=cd, **kw)
+            return SparseConv(cin, cout, k, s, compute_dtype=cd,
+                              conv_mode=self._conv_mode(0), **kw)
 
         self.conv0a = unit(conv(in_channels, p[0], 3, 1, input_grad=False),
                            p[0])
@@ -112,6 +122,15 @@ class Res16UNet(nn.Module):
             setattr(self, f"block{5 + i}", blk)
         self.final = SparseConv(cin, out_channel, 1, 1, use_bias=True,
                                 compute_dtype=cd)
+        # each conv's name in the reference's variable tree keys the
+        # pruned-eval maps (ctx.valid_offsets_map, ctx.block_live_map)
+        for name, mod in self.named_modules():
+            if isinstance(mod, SparseConv):
+                mod.path = "/".join(flax_path(f"{name}.kernel")[1:-1])
+
+    def _conv_mode(self, slot: int) -> int:
+        m = self.sparse_mode[slot] if slot < len(self.sparse_mode) else 0
+        return m if m in (1, 2) else 0
 
     @staticmethod
     def _run(blocks, sv, ctx):

@@ -5,7 +5,10 @@ its first launch (``build.library``).
 K1 ``window_match`` (``match.py``, ``window_match.cu``), K2
 ``window_gather_matmul`` (``gather_matmul.py``,
 ``window_gather_matmul.cu``), K3 ``window_bwd`` (``bwd.py``,
-``window_bwd.cu``) and K4 ``window_dw`` (``dw.py``, ``window_dw.cu``).
+``window_bwd.cu``), K4 ``window_dw`` (``dw.py``, ``window_dw.cu``), K5
+``window_gather_matmul_bs`` (``gather_matmul_bs.py``,
+``window_gather_matmul_bs.cu``) and K6 ``row_gather_matmul``
+(``row_gather.py``, ``row_gather_matmul.cu``).
 """
 
 from nerf_downstream_tpu_torch.ops.kernels.bwd import (
@@ -20,12 +23,21 @@ from nerf_downstream_tpu_torch.ops.kernels.gather_matmul import (
     window_gather_matmul,
     window_gather_matmul_plain,
 )
+from nerf_downstream_tpu_torch.ops.kernels.gather_matmul_bs import (
+    window_gather_matmul_bs,
+    window_gather_matmul_bs_plain,
+)
 from nerf_downstream_tpu_torch.ops.kernels.match import (
     window_match,
     window_match_plain,
 )
+from nerf_downstream_tpu_torch.ops.kernels.row_gather import (
+    row_gather_matmul,
+    row_gather_matmul_plain,
+)
 
-KERNELS = (window_match, window_gather_matmul, window_bwd, window_dw)
+KERNELS = (window_match, window_gather_matmul, window_bwd, window_dw,
+           window_gather_matmul_bs, row_gather_matmul)
 
 
 def reset_launch_counts() -> None:
@@ -41,11 +53,15 @@ __all__ = [
     "KERNELS",
     "launch_counts",
     "reset_launch_counts",
+    "row_gather_matmul",
+    "row_gather_matmul_plain",
     "window_bwd",
     "window_bwd_plain",
     "window_dw",
     "window_dw_plain",
     "window_gather_matmul",
+    "window_gather_matmul_bs",
+    "window_gather_matmul_bs_plain",
     "window_gather_matmul_plain",
     "window_match",
     "window_match_plain",

@@ -25,7 +25,8 @@ import torch
 _HERE = os.path.dirname(os.path.abspath(__file__))
 BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(_HERE)), "_build")
 SOURCES = ("window_match.cu", "window_gather_matmul.cu", "window_bwd.cu",
-           "window_dw.cu")
+           "window_dw.cu", "window_gather_matmul_bs.cu",
+           "row_gather_matmul.cu")
 # device code the sources share (#include "..."), hashed into every name
 HEADERS = ("window_gather.cuh", "window_dw.cuh")
 FLAGS = (

@@ -1,12 +1,16 @@
-// Device code shared by the windowed-conv kernels: typed loads and stores,
-// and the windowed gather-matmul (K2's kernel, which K3 also runs for its
-// d_feats half on the inverse plan).
+// Device code shared by the gather-matmul kernels: typed loads and stores,
+// and one gather-matmul core that K2 (windowed forward), K3 (its d_feats
+// half, on the inverse plan), K5 (block-sparse windowed forward) and K6
+// (row gather-matmul) all run:
 //
-//   out[t*T + i] = sum over (g, m) of src[starts[g, t] + idx[g, t, m, i]]
-//                  @ w[g, m]
+//   out[r] = sum over terms q of src[rows(q, r)] @ w[q]
 //
-// Absent entries (-1) and ranks that land past the table add nothing. The
-// design note is in window_gather_matmul.cu.
+// where a term is a plan member (g, m) (K2, K3, K5) or a kernel offset k
+// (K6), and rows(q, r) is the source row or -1 (nothing to add). For a
+// window plan, rows(gm, t*T + i) = starts[g, t] + idx[g, t, m, i]; absent
+// entries (-1) and ranks that land past the table add nothing. A liveness
+// policy may skip whole terms and 16-channel input chunks per 64-column
+// output tile (K5). The design note is in window_gather_matmul.cu.
 
 #pragma once
 
@@ -46,17 +50,44 @@ constexpr int kBK = 16;
 constexpr int kThreads = 256;
 constexpr int kAStride = kBM + 4;  // keeps float4 alignment, fewer conflicts
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads) window_gather_matmul_kernel(
-    const T* __restrict__ feats, int n_rows, int c,
-    const int32_t* __restrict__ starts, const int32_t* __restrict__ idx,
-    const T* __restrict__ w, int groups, int n_tiles, int members,
-    int tile, int cout, T* __restrict__ out) {
+// rows(gm, r) of a window plan: term gm = g * members + m.
+struct PlanRows {
+  const int32_t* starts;
+  const int32_t* idx;
+  int n_tiles, members, tile, n_rows;
+  __device__ __forceinline__ int operator()(int gm, int r) const {
+    const int g = gm / members;
+    const int t = r / tile;
+    return plan_row(starts, idx, g, t, gm - g * members, r - t * tile,
+                    n_tiles, members, tile, n_rows);
+  }
+};
+
+// Liveness policy that keeps every term and every chunk (no test, no
+// barrier in the kernel).
+struct AllLive {
+  static constexpr bool kAlways = true;
+  __device__ bool term(int, int, int) const { return true; }
+  __device__ bool chunk(int, int, int, int) const { return true; }
+};
+
+// The core. A block owns kBM output rows x kBN output columns; each of
+// its 256 threads keeps a 4 x 4 f32 accumulator across all terms and
+// input chunks. Per term it resolves its kBM source rows once (and skips
+// the term when none is present), then per 16-channel chunk stages the
+// gathered [kBM x 16] rows and the [16 x kBN] weight slice in shared
+// memory as f32. Ragged rows and channels are masked with zero fills.
+// Live::term / Live::chunk return this thread's share of a cooperative
+// test; the block goes on when any thread's share is true.
+template <typename T, typename TOut, typename Rows, typename Live>
+__global__ void __launch_bounds__(kThreads) gather_matmul_kernel(
+    const T* __restrict__ src, int c, Rows rows, Live live,
+    const T* __restrict__ w, int n_terms, int n_out, int cout,
+    TOut* __restrict__ out) {
   __shared__ __align__(16) float a_s[kBK][kAStride];
   __shared__ __align__(16) float b_s[kBK][kBN];
   __shared__ int src_s[kBM];
 
-  const int n_out = n_tiles * tile;
   const int row0 = blockIdx.x * kBM;
   const int col0 = blockIdx.y * kBN;
   const int tx = threadIdx.x % 16;
@@ -68,32 +99,31 @@ __global__ void __launch_bounds__(kThreads) window_gather_matmul_kernel(
 #pragma unroll
     for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
 
-  for (int gm = 0; gm < groups * members; ++gm) {
-    const int g = gm / members;
-    const int m = gm % members;
+  for (int q = 0; q < n_terms; ++q) {
+    if constexpr (!Live::kAlways) {
+      if (!__syncthreads_or(live.term(q, col0, threadIdx.x))) continue;
+    }
     int present = 0;
     if (threadIdx.x < kBM) {
       const int r = row0 + threadIdx.x;
-      int src = -1;
-      if (r < n_out) {
-        const int t = r / tile;
-        src = plan_row(starts, idx, g, t, m, r - t * tile, n_tiles, members,
-                       tile, n_rows);
-      }
-      src_s[threadIdx.x] = src;
-      present = src >= 0;
+      const int s = r < n_out ? rows(q, r) : -1;
+      src_s[threadIdx.x] = s;
+      present = s >= 0;
     }
     if (!__syncthreads_or(present)) continue;
 
-    const T* wg = w + static_cast<long long>(gm) * c * cout;
+    const T* wq = w + static_cast<long long>(q) * c * cout;
     for (int k0 = 0; k0 < c; k0 += kBK) {
+      if constexpr (!Live::kAlways) {
+        if (!__syncthreads_or(live.chunk(q, k0, col0, threadIdx.x))) continue;
+      }
       for (int e = threadIdx.x; e < kBM * kBK; e += kThreads) {
         const int r = e / kBK;
         const int kk = e - r * kBK;
-        const int src = src_s[r];
+        const int s = src_s[r];
         float v = 0.f;
-        if (src >= 0 && k0 + kk < c) {
-          v = load_f(feats + static_cast<long long>(src) * c + k0 + kk);
+        if (s >= 0 && k0 + kk < c) {
+          v = load_f(src + static_cast<long long>(s) * c + k0 + kk);
         }
         a_s[kk][r] = v;
       }
@@ -102,7 +132,7 @@ __global__ void __launch_bounds__(kThreads) window_gather_matmul_kernel(
         const int col = e - kk * kBN;
         float v = 0.f;
         if (k0 + kk < c && col0 + col < cout) {
-          v = load_f(wg + static_cast<long long>(k0 + kk) * cout + col0 + col);
+          v = load_f(wq + static_cast<long long>(k0 + kk) * cout + col0 + col);
         }
         b_s[kk][col] = v;
       }
@@ -136,19 +166,30 @@ __global__ void __launch_bounds__(kThreads) window_gather_matmul_kernel(
   }
 }
 
+template <typename T, typename TOut, typename Rows, typename Live>
+int launch_core(const void* src, int c, Rows rows, Live live, const void* w,
+                int n_terms, long long n_out, int cout, void* out,
+                cudaStream_t stream) {
+  if (n_out <= 0 || cout <= 0) return 0;
+  dim3 grid(static_cast<unsigned>((n_out + kBM - 1) / kBM),
+            static_cast<unsigned>((cout + kBN - 1) / kBN));
+  gather_matmul_kernel<T, TOut, Rows, Live><<<grid, kThreads, 0, stream>>>(
+      static_cast<const T*>(src), c, rows, live, static_cast<const T*>(w),
+      n_terms, static_cast<int>(n_out), cout, static_cast<TOut*>(out));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K2's kernel: the windowed gather-matmul over a plan, output in the
+// input type.
 template <typename T>
 int launch_gather_matmul(const void* feats, int n_rows, int c,
                          const int32_t* starts, const int32_t* idx,
                          const void* w, int groups, int n_tiles, int members,
                          int tile, int cout, void* out, cudaStream_t stream) {
-  const long long n_out = static_cast<long long>(n_tiles) * tile;
-  dim3 grid(static_cast<unsigned>((n_out + kBM - 1) / kBM),
-            static_cast<unsigned>((cout + kBN - 1) / kBN));
-  window_gather_matmul_kernel<T><<<grid, kThreads, 0, stream>>>(
-      static_cast<const T*>(feats), n_rows, c, starts, idx,
-      static_cast<const T*>(w), groups, n_tiles, members, tile, cout,
-      static_cast<T*>(out));
-  return static_cast<int>(cudaGetLastError());
+  const PlanRows rows{starts, idx, n_tiles, members, tile, n_rows};
+  return launch_core<T, T>(feats, c, rows, AllLive{}, w, groups * members,
+                           static_cast<long long>(n_tiles) * tile, cout, out,
+                           stream);
 }
 
 }  // namespace ndt

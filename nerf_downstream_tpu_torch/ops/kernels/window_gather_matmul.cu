@@ -33,8 +33,8 @@
 // Tensor cores (mma.sync / wgmma on bf16) and a split over (g, m) for
 // small levels are the next steps.
 //
-// Design (the kernel is in window_gather.cuh, shared with K3): a block owns
-// 64 output rows x 64 output channels; 256 threads
+// Design (the kernel is in window_gather.cuh, shared with K3, K5 and K6): a
+// block owns 64 output rows x 64 output channels; 256 threads
 // each hold a 4 x 4 f32 accumulator in registers across all (g, m) and all
 // channel chunks. Per (g, m) the block resolves its 64 source rows once
 // (skipping the member entirely when none is present), then per chunk

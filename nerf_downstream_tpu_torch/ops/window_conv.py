@@ -18,7 +18,9 @@ list instead of poisoning the output. ``transpose_plan`` relabels a
 same-set plan into its transpose.
 
 Apply side: ``window_conv_apply`` runs K2 (``window_gather_matmul``) and
-adds the escape entries with ``index_add_``. Its gradient is a
+adds the escape entries with ``index_add_``. For inference over a pruned
+checkpoint, ``window_conv_apply_blocksparse`` runs K5
+(``window_gather_matmul_bs``) instead, which skips dead weight blocks. Its gradient is a
 ``torch.autograd.Function``: K3 (``window_bwd``) gives d_feats and d_w
 over the inverse plan, or, for a conv declared ``input_grad=False``, K4
 (``window_dw``) gives d_w alone over the forward plan. The escape side
@@ -40,6 +42,7 @@ from nerf_downstream_tpu_torch.ops.kernels import (
     window_bwd,
     window_dw,
     window_gather_matmul,
+    window_gather_matmul_bs,
     window_match,
 )
 from nerf_downstream_tpu_torch.sparse import packing
@@ -436,6 +439,71 @@ def window_conv_apply(
     if inv_plan is not None:
         bad = bad | (inv_plan.n_escaped > 0)
     out = out * torch.where(bad, float("nan"), 1.0).to(out.dtype)
+    if bias is not None:
+        out = out + bias.to(out.dtype)
+    return out
+
+
+def _member_live(block_live: np.ndarray, perm: tuple, g_count: int,
+                 m: int) -> np.ndarray:
+    """Per-offset block liveness bool[K', nbi, nbo] (rows in the offset
+    order the plan was built from: subset and padding already applied) as
+    [G, M, nbi, nbo] in the plan's (group, member) order."""
+    bl = np.asarray(block_live)
+    return bl[list(perm)].reshape(g_count, m, *bl.shape[1:])
+
+
+def block_live_spec(block_live: np.ndarray, perm: tuple, g_count: int,
+                    m: int) -> tuple:
+    """Per-(group, member) live (Cin-block, Cout-block) pairs, as nested
+    tuples (the reference bakes this spec into its kernel)."""
+    bl = _member_live(block_live, perm, g_count, m)
+    return tuple(
+        tuple(tuple((int(bi), int(bo)) for bi, bo in np.argwhere(bl[g, j]))
+              for j in range(m))
+        for g in range(g_count)
+    )
+
+
+def window_conv_apply_blocksparse(
+    feats: torch.Tensor,
+    plan: WindowPlan,
+    weights: torch.Tensor,
+    block_live: np.ndarray,
+    bias: torch.Tensor | None = None,
+    compute_dtype: torch.dtype = torch.float32,
+    block: int = 128,
+) -> torch.Tensor:
+    """Inference-only windowed conv that skips dead weight blocks (K5):
+    [N_out, Cout] in ``compute_dtype``.
+
+    ``block_live`` bool[K', nbi, nbo] marks the live (Cin, Cout) blocks of
+    each offset at granularity ``block``, rows aligned with ``weights``
+    [K', Cin, Cout]. A dead pair contributes nothing, whatever its
+    weights hold. Forward only; the guard reads the forward plan alone
+    (no inverse plan is built on this path), and the escape side path
+    multiplies by the weights as given, as in the reference.
+    """
+    if torch.is_grad_enabled() and (feats.requires_grad
+                                    or weights.requires_grad):
+        raise RuntimeError("the block-sparse conv is forward only: run it "
+                           "under torch.no_grad() or inference_mode()")
+    cin = feats.shape[1]
+    g_count, _, m, _ = plan.idx.shape
+    f = feats.to(compute_dtype).contiguous()
+    perm = torch.as_tensor(plan.perm, device=feats.device)
+    w = weights.to(compute_dtype)[perm].reshape(
+        g_count, m, cin, weights.shape[-1]).contiguous()
+    # K5 takes the spec as data: uint8[G, M, nbi, nbo]
+    live = torch.as_tensor(
+        _member_live(block_live, plan.perm, g_count, m).astype(np.uint8),
+        device=feats.device)
+    out = window_gather_matmul_bs(f, plan.starts, plan.idx, w, live, block)
+    if plan.esc_k is not None:
+        out = _esc_scatter(out, f, plan.esc_k, plan.esc_i, plan.esc_j,
+                           w.reshape(g_count * m, cin, -1))
+    out = out * torch.where(plan.n_escaped > 0, float("nan"), 1.0).to(
+        out.dtype)
     if bias is not None:
         out = out + bias.to(out.dtype)
     return out

@@ -1,16 +1,23 @@
-"""Per-forward coordinate context: window-plan and stride caches
-(counterpart of ``nerf_downstream_tpu/sparse/context.py``, windowed
-branch only).
+"""Per-forward coordinate context: window-plan, kernel-map and stride
+caches (counterpart of ``nerf_downstream_tpu/sparse/context.py``: its
+windowed branch, and the row kernel maps that convs over a pruned offset
+subset of a stride-2 down conv fall back to).
 
-Every conv of a level reuses one window plan; plans, strided levels and
-their overflow counters are cached by the identity of the coordinate
-tensors. In eager PyTorch a freed tensor's ``id`` can be handed to a new
+Every conv of a level reuses one window plan; plans, kernel maps, strided
+levels and their overflow counters are cached by the identity of the
+coordinate tensors. In eager PyTorch a freed tensor's ``id`` can be handed to a new
 tensor, so every cache entry holds references to its key tensors: while
 the entry lives, its ids cannot be reused. A context lives for one forward
 pass.
 
 The window knobs are explicit constructor arguments (the reference binds
 them through gin); their meaning is documented on the reference class.
+The pruned-eval knobs (``eval3d --sparsify``): ``valid_offsets_map``
+{conv module path -> live offset tuple} is read by mode-1 convs;
+``block_live_map`` {conv module path -> bool[K, nbi, nbo]} by every
+windowed conv at inference, at granularity ``block_live_granularity``.
+Row kernel maps use a dense grid index when ``grid_extent`` is set, else
+sort and binary search.
 """
 
 from __future__ import annotations
@@ -37,6 +44,11 @@ class CoordinateContext:
         window_escape_tiles=64,
         window_expand_factor: int = 2,
         level_caps: tuple | None = None,
+        num_batches: int = 1,
+        grid_extent: int | None = None,
+        valid_offsets_map: dict | None = None,
+        block_live_map: dict | None = None,
+        block_live_granularity: int = 128,
     ):
         self.window_tile = window_tile
         self.window_size = window_size
@@ -45,8 +57,15 @@ class CoordinateContext:
         self.window_escape_tiles = window_escape_tiles
         self.window_expand_factor = window_expand_factor
         self.level_caps = level_caps
+        self.num_batches = num_batches
+        self.grid_extent = grid_extent
+        self.valid_offsets_map = valid_offsets_map
+        self.block_live_map = block_live_map
+        self.block_live_granularity = block_live_granularity
         # key -> (key tensors kept alive, value)
         self._window_plans: dict = {}
+        self._kmaps: dict = {}
+        self._grids: dict = {}
         self._strided: dict = {}
         self._level_overflow: dict = {}
 
@@ -163,3 +182,58 @@ class CoordinateContext:
             return feats
         scale = torch.where(lost > 0, float("nan"), 1.0)
         return feats * scale.to(feats.dtype)
+
+    def _use_grid(self) -> bool:
+        return self.grid_extent is not None
+
+    def grid_index(self, coords, mask, stride: int):
+        key = (id(coords), stride)
+        hit = self._get(self._grids, key)
+        if hit is None:
+            hit = self._put(self._grids, key, (coords,),
+                            kernels.build_grid_index(
+                                coords, mask, self.num_batches,
+                                self.grid_extent, stride))
+        return hit
+
+    def kernel_map(self, in_coords, in_mask, out_coords, out_mask,
+                   offsets, transpose: bool = False, in_stride: int = 1):
+        """Row kernel map int32[K, N_out] (sentinel N_in), cached. A
+        transpose map whose forward map exists is that map inverted."""
+        okey = offsets.tobytes()
+        key = (id(in_coords), id(out_coords), okey, transpose)
+        km = self._get(self._kmaps, key)
+        if km is not None:
+            return km
+        fwd = self._get(self._kmaps, (id(out_coords), id(in_coords), okey,
+                                      not transpose))
+        if fwd is not None:
+            km = invert_kernel_map(fwd, out_coords.shape[0])
+        elif self._use_grid():
+            grid, origin = self.grid_index(in_coords, in_mask, in_stride)
+            km = kernels.build_kernel_map_grid(
+                grid, origin, self.num_batches, self.grid_extent, in_stride,
+                in_coords.shape[0], out_coords, out_mask, offsets, transpose)
+        else:
+            km = kernels.build_kernel_map(in_coords, in_mask, out_coords,
+                                          out_mask, offsets, transpose)
+        return self._put(self._kmaps, key, (in_coords, out_coords), km)
+
+
+def invert_kernel_map(km: torch.Tensor, n_out: int) -> torch.Tensor:
+    """Invert a kernel map: fwd[k, o] = i  =>  inv[k, i] = o.
+
+    ``km`` is int32[K, N_fwd_out] with sentinel = the inverse's output
+    count; the result is int32[K, n_out] with sentinel = N_fwd_out.
+    """
+    k, n_fwd_out = km.shape
+    dev = km.device
+    inv = torch.full((k, n_out + 1), n_fwd_out, dtype=torch.int32,
+                     device=dev)
+    kk = torch.arange(k, device=dev)[:, None].expand(k, n_fwd_out)
+    rows = torch.arange(n_fwd_out, dtype=torch.int32,
+                        device=dev)[None, :].expand(k, n_fwd_out)
+    inv[kk.reshape(-1), km.clamp(0, n_out).long().reshape(-1)] = \
+        rows.reshape(-1)
+    # entries pointing at n_out (no neighbour) landed in the extra column
+    return inv[:, :n_out]

@@ -94,6 +94,105 @@ def stride_coords_capped(sv: SparseVoxels, stride: int, cap: int | None):
     return out, lost
 
 
+def build_grid_index(coords: torch.Tensor, mask: torch.Tensor,
+                     num_batches: int, extent: int, stride: int):
+    """Dense per-batch lookup grid of a coordinate set:
+    grid[b, x, y, z] = row index (or N), flattened to [B * E^3], with
+    coordinates taken relative to each batch element's min corner and
+    cells of size ``stride`` covering ``extent`` finest units per axis.
+    Kernel maps against this set are then single gathers.
+
+    Returns (grid int32[B * E^3], origin int32[B, 3]).
+    """
+    n = coords.shape[0]
+    dev = coords.device
+    e = max(extent // stride, 1)
+    b = coords[:, 0].to(torch.int64)
+    b_ids = torch.where(mask & (b >= 0) & (b < num_batches), b, num_batches)
+    big = 1 << 30
+    xyz = coords[:, 1:].to(torch.int64)
+    masked_xyz = torch.where(mask[:, None], xyz, big)
+    origin = torch.full((num_batches + 1, 3), big, dtype=torch.int64,
+                        device=dev).scatter_reduce(
+        0, b_ids[:, None].expand(n, 3), masked_xyz, "amin")[:num_batches]
+    origin = torch.where(origin == big, 0, origin)
+    bc = b_ids.clamp(0, num_batches - 1)
+    rel = torch.div(xyz - origin[bc], stride, rounding_mode="floor")
+    in_bounds = mask & ((rel >= 0) & (rel < e)).all(1)
+    flat = bc * (e * e * e) + rel[:, 0] * (e * e) + rel[:, 1] * e + rel[:, 2]
+    flat = torch.where(in_bounds, flat, num_batches * e * e * e)
+    grid = torch.full((num_batches * e * e * e + 1,), n, dtype=torch.int32,
+                      device=dev)
+    grid[flat] = torch.arange(n, dtype=torch.int32, device=dev)
+    return grid[:-1], origin.to(torch.int32)
+
+
+def lookup_grid(grid, origin, num_batches: int, extent: int, stride: int,
+                q_coords: torch.Tensor, q_mask: torch.Tensor, n_in: int):
+    """Exact lookup of query coords in a grid index; missing or out of the
+    grid -> ``n_in``."""
+    e = max(extent // stride, 1)
+    q = q_coords.to(torch.int64)
+    b_ids = q[:, 0].clamp(0, num_batches - 1)
+    delta = q[:, 1:] - origin.to(torch.int64)[b_ids]
+    rel = torch.div(delta, stride, rounding_mode="floor")
+    in_bounds = q_mask & ((rel >= 0) & (rel < e)).all(1)
+    if stride > 1:
+        # cells are stride-sized: only exact multiples are coordinates
+        in_bounds = in_bounds & (torch.remainder(delta, stride) == 0).all(1)
+    flat = b_ids * (e * e * e) + rel[:, 0] * (e * e) + rel[:, 1] * e + rel[:, 2]
+    rows = grid[flat.clamp(0, grid.shape[0] - 1)]
+    return torch.where(in_bounds, rows, n_in).to(torch.int32)
+
+
+def _map_queries(out_coords, out_mask, offsets, transpose: bool):
+    """[K * N_out, 4] query coordinates (output coordinate + offset, or -
+    offset for a transposed map) and their mask."""
+    offs = torch.as_tensor(np.asarray(offsets), dtype=torch.int32,
+                           device=out_coords.device)
+    if transpose:
+        offs = -offs
+    k, n_out = offs.shape[0], out_coords.shape[0]
+    q_xyz = out_coords[None, :, 1:].to(torch.int32) + offs[:, None, :]
+    q = torch.cat([out_coords[None, :, :1].to(torch.int32).expand(k, n_out, 1),
+                   q_xyz], -1).reshape(-1, 4)
+    q_mask = out_mask[None, :].expand(k, n_out).reshape(-1)
+    return q, q_mask
+
+
+def build_kernel_map_grid(grid, origin, num_batches: int, extent: int,
+                          in_stride: int, n_in: int, out_coords, out_mask,
+                          offsets, transpose: bool = False) -> torch.Tensor:
+    """Kernel map int32[K, N_out] through the dense grid index: one gather
+    for all K offsets; missing entries = ``n_in``."""
+    q, q_mask = _map_queries(out_coords, out_mask, offsets, transpose)
+    rows = lookup_grid(grid, origin, num_batches, extent, in_stride, q,
+                       q_mask, n_in)
+    return rows.reshape(len(offsets), out_coords.shape[0])
+
+
+def build_kernel_map(in_coords, in_mask, out_coords, out_mask, offsets,
+                     transpose: bool = False) -> torch.Tensor:
+    """Neighbour index table int32[K, N_out] by sort and binary search
+    (no extent needed); missing entries = N_in.
+
+    The input neighbour of output voxel ``o`` at offset ``d`` sits at
+    ``o + d``; for a transposed conv the relation is ``o - d``.
+    """
+    n_in = in_coords.shape[0]
+    dev = in_coords.device
+    hi, lo = packing.pack(in_coords, in_mask)
+    idx = torch.arange(n_in, dtype=torch.int32, device=dev)
+    s_hi, s_lo, s_idx = packing.sort_with_payload(hi, lo, idx)
+    q, q_mask = _map_queries(out_coords, out_mask, offsets, transpose)
+    q_hi, q_lo = packing.pack(q, q_mask)
+    pos = packing.find(s_hi, s_lo, q_hi, q_lo, missing=n_in)
+    s_idx_ext = torch.cat([s_idx, torch.full((1,), n_in, dtype=torch.int32,
+                                             device=dev)])
+    rows = s_idx_ext[pos.long()]
+    return rows.reshape(len(offsets), out_coords.shape[0])
+
+
 def field_to_sparse(
     field: PointField, voxel_size: float = 1.0, assume_unique: bool = False
 ):

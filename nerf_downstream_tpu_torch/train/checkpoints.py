@@ -1,0 +1,261 @@
+"""Checkpoints in the reference's file format (counterpart of
+``nerf_downstream_tpu/train/checkpoints.py``).
+
+The reference writes ``flax.serialization.msgpack_serialize`` of
+
+    {"state_dict": {"params": ..., "batch_stats": ...},
+     "optimizer_states": ..., "global_step": int, "meta": {...}}
+
+with every array as msgpack extension type 1 (a packed ``(shape, dtype
+name, bytes)`` triple) and numpy scalars as type 3. Neither ``flax`` nor
+``msgpack`` is a dependency of the port, so this module carries its own
+reader and writer for the subset that flax emits: nil, bool, ints,
+floats, str, bin, array, map and those two extension types. Arrays are
+read as ``numpy.frombuffer`` of the named dtype; anything else raises,
+including flax's chunked form of arrays over 2^30 bytes.
+
+Trees are nested dicts of numpy arrays in the reference's layout
+(``convert.state_dict_to_flax`` / ``convert.load_flax_variables`` carry
+them to and from a model). A port checkpoint may also hold
+``pruning_masks``: {"path/to/kernel": bool array}, folded into the
+weights on load by ``utils.prune.fold_pruning_masks``.
+"""
+
+from __future__ import annotations
+
+import os
+import struct
+
+import numpy as np
+
+_EXT_NDARRAY = 1
+_EXT_NPSCALAR = 3
+_CHUNKED = "__msgpack_chunked_array__"
+MAX_ARRAY_BYTES = 1 << 30  # flax chunks larger arrays
+
+
+class _Reader:
+    def __init__(self, data: bytes):
+        self.data = memoryview(data)
+        self.pos = 0
+
+    def take(self, n: int) -> bytes:
+        if self.pos + n > len(self.data):
+            raise ValueError("msgpack: truncated data")
+        out = self.data[self.pos:self.pos + n].tobytes()
+        self.pos += n
+        return out
+
+    def unpack(self, fmt: str):
+        return struct.unpack(">" + fmt, self.take(struct.calcsize(fmt)))[0]
+
+    def value(self):
+        b = self.take(1)[0]
+        if b <= 0x7F:
+            return b
+        if b >= 0xE0:
+            return b - 0x100
+        if 0x80 <= b <= 0x8F:
+            return self.map(b & 0x0F)
+        if 0x90 <= b <= 0x9F:
+            return self.array(b & 0x0F)
+        if 0xA0 <= b <= 0xBF:
+            return self.take(b & 0x1F).decode("utf-8")
+        simple = {0xC0: None, 0xC2: False, 0xC3: True}
+        if b in simple:
+            return simple[b]
+        sized = {0xC4: "B", 0xC5: "H", 0xC6: "I"}
+        if b in sized:
+            return self.take(self.unpack(sized[b]))
+        numbers = {0xCA: "f", 0xCB: "d", 0xCC: "B", 0xCD: "H", 0xCE: "I",
+                   0xCF: "Q", 0xD0: "b", 0xD1: "h", 0xD2: "i", 0xD3: "q"}
+        if b in numbers:
+            return self.unpack(numbers[b])
+        fixext = {0xD4: 1, 0xD5: 2, 0xD6: 4, 0xD7: 8, 0xD8: 16}
+        if b in fixext:
+            return self.ext(fixext[b])
+        if b in (0xC7, 0xC8, 0xC9):
+            return self.ext(self.unpack({0xC7: "B", 0xC8: "H",
+                                         0xC9: "I"}[b]))
+        if b in (0xD9, 0xDA, 0xDB):
+            n = self.unpack({0xD9: "B", 0xDA: "H", 0xDB: "I"}[b])
+            return self.take(n).decode("utf-8")
+        if b in (0xDC, 0xDD):
+            return self.array(self.unpack("H" if b == 0xDC else "I"))
+        if b in (0xDE, 0xDF):
+            return self.map(self.unpack("H" if b == 0xDE else "I"))
+        raise ValueError(f"msgpack: unsupported type byte 0x{b:02x}")
+
+    def array(self, n: int) -> list:
+        return [self.value() for _ in range(n)]
+
+    def map(self, n: int) -> dict:
+        out = {}
+        for _ in range(n):
+            k = self.value()
+            out[k] = self.value()
+        if _CHUNKED in out:
+            raise ValueError("msgpack: chunked arrays (over 2^30 bytes) are "
+                             "not supported")
+        return out
+
+    def ext(self, n: int):
+        code = self.unpack("b")
+        payload = self.take(n)
+        if code not in (_EXT_NDARRAY, _EXT_NPSCALAR):
+            raise ValueError(f"msgpack: unsupported extension type {code}")
+        inner = _Reader(payload)
+        shape, name, buf = inner.value()
+        if isinstance(name, bytes):
+            name = name.decode()
+        try:
+            dtype = np.dtype(name)
+        except TypeError as e:
+            raise ValueError(f"msgpack: unsupported array dtype {name!r}") \
+                from e
+        if dtype.hasobject:
+            raise ValueError(f"msgpack: unsupported array dtype {name!r}")
+        arr = np.frombuffer(buf, dtype=dtype).reshape(shape)
+        return arr[()] if code == _EXT_NPSCALAR else arr
+
+
+def unpackb(data: bytes):
+    """Decode one msgpack value (the subset flax emits)."""
+    r = _Reader(data)
+    out = r.value()
+    if r.pos != len(r.data):
+        raise ValueError("msgpack: trailing bytes")
+    return out
+
+
+def _head(out: list, n: int, fix_base: int | None, fix_max: int,
+          codes: tuple) -> None:
+    """Append a length header: fix form below ``fix_max``, else the
+    smallest of the 8/16/32-bit forms ``codes`` lists (None: absent)."""
+    if fix_base is not None and n < fix_max:
+        out.append(bytes([fix_base | n]))
+        return
+    for code, fmt, limit in zip(codes, "BHI", (1 << 8, 1 << 16, 1 << 32)):
+        if code is not None and n < limit:
+            out.append(bytes([code]) + struct.pack(">" + fmt, n))
+            return
+    raise ValueError(f"msgpack: length {n} too large")
+
+
+def _pack(obj, out: list) -> None:
+    if obj is None:
+        out.append(b"\xc0")
+    elif isinstance(obj, bool):
+        out.append(b"\xc3" if obj else b"\xc2")
+    elif isinstance(obj, np.generic):
+        _pack_ext(_EXT_NPSCALAR, np.asarray(obj), out)
+    elif isinstance(obj, int):
+        if 0 <= obj < 128:
+            out.append(bytes([obj]))
+        elif -32 <= obj < 0:
+            out.append(struct.pack(">b", obj))
+        elif obj >= 0:
+            for code, fmt, limit in ((0xCC, "B", 1 << 8), (0xCD, "H", 1 << 16),
+                                     (0xCE, "I", 1 << 32),
+                                     (0xCF, "Q", 1 << 64)):
+                if obj < limit:
+                    out.append(bytes([code]) + struct.pack(">" + fmt, obj))
+                    return
+            raise ValueError(f"msgpack: int {obj} too large")
+        else:
+            for code, fmt, limit in ((0xD0, "b", 1 << 7), (0xD1, "h", 1 << 15),
+                                     (0xD2, "i", 1 << 31),
+                                     (0xD3, "q", 1 << 63)):
+                if obj >= -limit:
+                    out.append(bytes([code]) + struct.pack(">" + fmt, obj))
+                    return
+            raise ValueError(f"msgpack: int {obj} too small")
+    elif isinstance(obj, float):
+        out.append(b"\xcb" + struct.pack(">d", obj))
+    elif isinstance(obj, str):
+        raw = obj.encode("utf-8")
+        _head(out, len(raw), 0xA0, 32, (0xD9, 0xDA, 0xDB))
+        out.append(raw)
+    elif isinstance(obj, (bytes, bytearray)):
+        _head(out, len(obj), None, 0, (0xC4, 0xC5, 0xC6))
+        out.append(bytes(obj))
+    elif isinstance(obj, (list, tuple)):
+        _head(out, len(obj), 0x90, 16, (None, 0xDC, 0xDD))
+        for v in obj:
+            _pack(v, out)
+    elif isinstance(obj, dict):
+        _head(out, len(obj), 0x80, 16, (None, 0xDE, 0xDF))
+        for k, v in sorted(obj.items()):  # flax's tree_map sorts keys
+            _pack(k, out)
+            _pack(v, out)
+    elif isinstance(obj, np.ndarray):
+        _pack_ext(_EXT_NDARRAY, obj, out)
+    else:
+        raise TypeError(f"msgpack: cannot pack {type(obj).__name__}")
+
+
+def _pack_ext(code: int, arr: np.ndarray, out: list) -> None:
+    if arr.dtype.hasobject or arr.dtype.isalignedstruct:
+        raise ValueError(f"msgpack: unsupported array dtype {arr.dtype}")
+    if arr.nbytes > MAX_ARRAY_BYTES:
+        raise ValueError("msgpack: arrays over 2^30 bytes would need flax's "
+                         "chunked form, which is not supported")
+    inner: list = []
+    _pack([list(arr.shape), arr.dtype.name, arr.tobytes("C")], inner)
+    payload = b"".join(inner)
+    n = len(payload)
+    fixext = {1: 0xD4, 2: 0xD5, 4: 0xD6, 8: 0xD7, 16: 0xD8}
+    if n in fixext:
+        out.append(bytes([fixext[n]]))
+    else:
+        _head(out, n, None, 0, (0xC7, 0xC8, 0xC9))
+    out.append(struct.pack(">b", code))
+    out.append(payload)
+
+
+def packb(obj) -> bytes:
+    """Encode ``obj`` (dicts, lists, tuples, Python scalars, str, bytes,
+    numpy arrays and scalars) byte for byte as flax's
+    ``msgpack_serialize`` does (dict keys sorted)."""
+    out: list = []
+    _pack(obj, out)
+    return b"".join(out)
+
+
+def save_checkpoint(path: str, params: dict, batch_stats: dict, *,
+                    opt_state: dict | None = None, global_step: int = 0,
+                    meta: dict | None = None,
+                    pruning_masks: dict | None = None) -> None:
+    """Write the reference's checkpoint layout. ``params`` and
+    ``batch_stats`` are trees of numpy arrays (``convert.state_dict_to_flax``
+    of a model's ``state_dict`` gives both)."""
+    obj = {
+        "state_dict": {"params": params, "batch_stats": batch_stats},
+        "optimizer_states": opt_state or {},
+        "global_step": int(global_step),
+        "meta": meta or {},
+    }
+    if pruning_masks:
+        obj["pruning_masks"] = pruning_masks
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    with open(path, "wb") as f:
+        f.write(packb(obj))
+
+
+def load_checkpoint_raw(path: str) -> dict:
+    with open(path, "rb") as f:
+        return unpackb(f.read())
+
+
+def load_checkpoint(path: str) -> dict:
+    """{"params", "batch_stats", "opt_state", "global_step",
+    "pruning_masks"} of a checkpoint file, as trees of numpy arrays."""
+    obj = load_checkpoint_raw(path)
+    sd = obj.get("state_dict", {})
+    return {
+        "params": sd.get("params", {}),
+        "batch_stats": sd.get("batch_stats", {}),
+        "opt_state": obj.get("optimizer_states", {}),
+        "global_step": obj.get("global_step", 0),
+        "pruning_masks": obj.get("pruning_masks", {}),
+    }

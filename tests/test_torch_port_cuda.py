@@ -19,7 +19,10 @@ an f32 sum whose plain version takes the same inputs, so it must match
 within 1e-5 of its largest value in both types, and be bit-identical
 between two launches. A small training step on the card must match the same step on
 the CPU: the loss within 1e-5 relative, each gradient within 1e-4 of its
-largest value.
+largest value. K5 must match its plain version as K2 does, and equal K2
+on the spec-masked weights; K6 (f32 output for both input types) within
+atol = rtol = 1e-5; a small model in the pruned-eval modes on the card
+must match the CPU within 1e-4.
 """
 
 import dataclasses
@@ -342,7 +345,173 @@ def test_train_step_on_card_matches_cpu(cuda, monkeypatch):
                       state.model.named_parameters()}))
     (loss_c, _, grads_c), (loss_g, counts, grads_g) = runs
     assert np.isfinite(loss_c)
-    assert all(v > 0 for v in counts.values()), counts
+    assert all(counts[k] > 0 for k in ("window_match", "window_gather_matmul",
+                                       "window_bwd", "window_dw")), counts
     np.testing.assert_allclose(loss_g, loss_c, rtol=1e-5)
     for key, g in grads_c.items():
         _close_to_max(grads_g[key], g, 1e-4)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("block,c,cout", [(4, 27, 20), (16, 40, 72),
+                                          (128, 200, 264)])
+def test_k5_matches_plain(cuda, dtype, block, c, cout):
+    """K5 at granularities 4, 16 and 128 with ragged channels: half the
+    blocks dead, a member emptied in the spec and another in the plan, and
+    a spec that also kills blocks whose weights are not zero. Against its
+    plain version, and equal to K2 on the spec-masked weights."""
+    (coords, mask), _ = level(10, n=480, valid=420)
+    plan = wc.build_plan_direct(coords, mask, sk.kernel_offsets(3, 1),
+                                tile=32, window=32, blocks=4)
+    g, nt, m, tile = plan.idx.shape
+    rng = np.random.default_rng(11)
+    nbi, nbo = -(-c // block), -(-cout // block)
+    live = torch.as_tensor(rng.random((g, m, nbi, nbo)) < 0.5,
+                           dtype=torch.uint8)
+    live[0, 1] = 0  # a member with no live pair
+    idx = plan.idx.clone()
+    idx[2, :, 0, :] = -1  # a member with no entry
+    feats = torch.as_tensor(rng.normal(size=(len(coords), c)),
+                            dtype=torch.float32).to(dtype)
+    w = torch.as_tensor(rng.normal(size=(g, m, c, cout)) * 0.1,
+                        dtype=torch.float32).to(dtype)
+    want = K.window_gather_matmul_bs_plain(feats.float(), plan.starts, idx,
+                                           w.float(), live, block)
+    args = [t.contiguous().to(cuda) for t in (feats, plan.starts, idx, w,
+                                              live)]
+    K.reset_launch_counts()
+    got = K.window_gather_matmul_bs(*args, block)
+    assert K.launch_counts()["window_gather_matmul_bs"] == 1
+    assert got.dtype == dtype and got.shape == want.shape
+    if dtype == torch.float32:
+        torch.testing.assert_close(got.cpu(), want, rtol=1e-5, atol=1e-5)
+    else:
+        torch.testing.assert_close(got.float().cpu(), want, rtol=2 ** -8,
+                                   atol=1e-5)
+    assert torch.equal(K.window_gather_matmul_bs(*args, block), got)
+    masked = args[3] * K.gather_matmul_bs.live_mask(
+        args[4], block, c, cout).to(dtype)
+    k2 = K.window_gather_matmul(args[0], args[1], args[2],
+                                masked.contiguous())
+    torch.testing.assert_close(got.float(), k2.float(), rtol=1e-6, atol=1e-6)
+    # the dead blocks really held weights: the dense answer differs
+    dense = K.window_gather_matmul(*args[:4])
+    assert not torch.allclose(dense.float(), got.float())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("k", [1, 2, 8, 27])
+def test_k6_matches_plain(cuda, dtype, k):
+    """K6 at ragged N_out, Cin and Cout with a third of the entries
+    sentinels and one offset all sentinels; bf16 inputs give f32 output."""
+    rng = np.random.default_rng(12 + k)
+    n_in, n_out, c, cout = 700, 333, 40, 72
+    x = torch.as_tensor(rng.normal(size=(n_in + 1, c)),
+                        dtype=torch.float32)
+    x[-1] = 0
+    km = torch.as_tensor(rng.integers(0, n_in, (k, n_out)),
+                         dtype=torch.int32)
+    km[torch.as_tensor(rng.random((k, n_out)) < 0.33)] = n_in
+    km[0] = n_in
+    w = torch.as_tensor(rng.normal(size=(k, c, cout)) * 0.1,
+                        dtype=torch.float32)
+    x, w = x.to(dtype), w.to(dtype)
+    want = K.row_gather_matmul_plain(x.float(), km, w.float())
+    args = [t.contiguous().to(cuda) for t in (x, km, w)]
+    got = K.row_gather_matmul(*args)
+    assert got.dtype == torch.float32 and got.shape == (n_out, cout)
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-5, atol=1e-5)
+    assert torch.equal(K.row_gather_matmul(*args), got)
+    empty = torch.full_like(args[1], n_in)
+    assert not K.row_gather_matmul(args[0], empty, args[2]).any()
+
+
+def test_k5_k6_refuse_bad_inputs_on_card(cuda):
+    f = torch.zeros(64, 8, device=cuda)
+    starts = torch.zeros(1, 2, dtype=torch.int32, device=cuda)
+    idx = torch.full((1, 2, 1, 32), -1, dtype=torch.int32, device=cuda)
+    w = torch.zeros(1, 1, 8, 4, device=cuda)
+    live = torch.ones(1, 1, 2, 1, dtype=torch.uint8, device=cuda)
+    assert not K.window_gather_matmul_bs(f, starts, idx, w, live, 4).any()
+    with pytest.raises(ValueError, match="live"):
+        K.window_gather_matmul_bs(f, starts, idx, w, live, 8)
+    with pytest.raises(TypeError):
+        K.window_gather_matmul_bs(f, starts, idx, w, live.bool(), 4)
+    km = torch.zeros(2, 16, dtype=torch.int32, device=cuda)
+    with pytest.raises(TypeError):
+        K.row_gather_matmul(f, km.long(), torch.zeros(2, 8, 4, device=cuda))
+    with pytest.raises(ValueError, match="w"):
+        K.row_gather_matmul(f, km, torch.zeros(3, 8, 4, device=cuda))
+
+
+@pytest.mark.parametrize("case", ["zaxis", "offsets", "blocks"])
+def test_sparse_eval_on_card_matches_cpu(cuda, monkeypatch, case):
+    """A small Res16UNet14 in the pruned-eval modes, f32 on the card
+    against the CPU: ZAXIS (down convs on the row path, K6), pruned
+    offsets (padded subsets and K6) and pruned 4x4 blocks (K5)."""
+    from nerf_downstream_tpu_torch import convert, eval3d, serve
+    from nerf_downstream_tpu_torch.data import synthetic
+    from nerf_downstream_tpu_torch.utils import prune
+
+    knobs = dict(level_caps=(1024, 512, 256, 128, 64), window_tile=64,
+                 window_size=256, window_blocks=4, window_expand_factor=3,
+                 window_escape_tiles=(144, 72, 36, 2, 2))
+    monkeypatch.setitem(serve.PRESETS, "tiny", dict(
+        scenes=2, capacity=1024, grid_extent=64, assume_unique=True,
+        ctx=knobs))
+    dense = eval3d.get_model("Res16UNet14", in_channel=27, out_channel=20,
+                             planes=(8,) * 8)
+    variables = convert.init_flax_variables(dense, 5)
+    flat = prune.flatten(variables["params"])
+    rng = np.random.default_rng(13)
+    for path, arr in flat.items():
+        if path[-1] != "kernel" or arr.shape[0] == 1:
+            continue
+        if case == "offsets":
+            keep = (0, 3, 4, 7) if arr.shape[0] == 8 else (0, 1, 4, 13, 22)
+            out = np.zeros_like(arr)
+            out[list(keep)] = arr[list(keep)]
+            flat[path] = out
+        elif case == "blocks":
+            dead = rng.random((arr.shape[0], -(-arr.shape[1] // 4),
+                               -(-arr.shape[2] // 4))) < 0.5
+            mask = dead.repeat(4, 1).repeat(4, 2)[:, :arr.shape[1],
+                                                  :arr.shape[2]]
+            flat[path] = np.where(mask, 0, arr).astype(arr.dtype)
+    variables["params"] = prune.unflatten(flat)
+    mode = 2 if case == "zaxis" else 1
+    layout = "csr" if case == "blocks" else "strided"
+    vmap, bmap = eval3d.derive_maps(variables["params"], [mode] * 9, layout,
+                                    granularity=4)
+    srng = np.random.default_rng(0)
+    samples = []
+    for _ in range(2):
+        sc = synthetic.make_synthetic_scene(
+            srng, n_voxels=440, reso=(32, 32, 32), with_labels=True,
+            surface=True)
+        samples.append({
+            "coordinates": sc["coords"].astype(np.float32),
+            "features": np.concatenate([sc["density"], sc["sh"]],
+                                       1)[:, 1:28].astype(np.float32),
+            "labels": sc["labels"]})
+    batch = synthetic.collate_mink(samples, capacity=1024)
+    outs, routes = [], []
+    for dev in ("cpu", cuda):
+        model = eval3d.build_evaluator(
+            "tiny", variables, sparse_mode=[mode] * 9,
+            valid_offsets_map=vmap, block_live_map=bmap,
+            block_live_granularity=4, device=dev,
+            compute_dtype=torch.float32, model="Res16UNet14",
+            planes=(8,) * 8)
+        K.reset_launch_counts()
+        outs.append(serve.eval_step(model, batch)[0].cpu())
+        routes.append(eval3d.route_counts(model))
+    counts = K.launch_counts()
+    want = {"zaxis": "row_gather_matmul", "offsets": "row_gather_matmul",
+            "blocks": "window_gather_matmul_bs"}[case]
+    assert counts[want] > 0
+    assert routes[0] == routes[1]
+    valid = torch.as_tensor(batch["mask"])
+    assert torch.isfinite(outs[0][valid]).all()
+    torch.testing.assert_close(outs[1][valid], outs[0][valid], rtol=1e-4,
+                               atol=1e-4)

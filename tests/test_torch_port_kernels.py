@@ -189,7 +189,9 @@ def test_wrappers_take_plain_version_on_cpu(rng):
             feats.to(dt), plan.starts, idx, w.to(dt)))
     assert tker.launch_counts() == {"window_match": 0,
                                     "window_gather_matmul": 0,
-                                    "window_bwd": 0, "window_dw": 0}
+                                    "window_bwd": 0, "window_dw": 0,
+                                    "window_gather_matmul_bs": 0,
+                                    "row_gather_matmul": 0}
 
 
 def test_wrappers_refuse_other_devices():
