@@ -65,16 +65,23 @@ paths give it. Phases:
     ``--layout strided`` over a negation-closed offset pruning; mode 1
     with ``--layout csr`` over half the weight blocks pruned at
     granularity 128 and at 32. Launch counts are reset just before and
-    read just after each ``eval3d`` run; per configuration: the median
-    request time after the first, device time, busy share and device ops
-    from a profile, host wall time in turns with the dense model, the
-    convs on each route (windowed, block-sparse, row), and the f32 logits against the dense model on the same zeroed
-    weights within 1e-4 x max|logit| (the bf16 gap is reported);
+    read just after each ``eval3d`` run; per configuration: 20 request
+    times after a warm-up (median, quartiles, range), device time, busy
+    share and device ops from a profile, host wall time in 10 turns of
+    (dense, config, config, dense) over 3 requests with the paired gap's
+    median and range (resolved only where the range excludes zero), the
+    convs on each route (windowed, block-sparse, row), and the f32 logits
+    against the dense model on the same zeroed weights within
+    1e-4 x max|logit| (the bf16 gap is reported); then the capacity
+    guard: the request of seed 0 whose first down conv overflows its
+    window coverage (in the reference too) must come out all NaN;
 11. k5: every K5 call of one recorded forward at granularity 128 and at
     32 against its plain version (rtol 1e-5 in f32, 2^-8 in bf16 against
     the f32 sum), against K2 on the spec-masked weights, two launches
     bit-identical; K5 against K2 on the same plans at 10, 25, 50 and
-    75 % dead blocks (the dead-block crossover);
+    75 % dead blocks (the dead-block crossover). K5 is timed as one
+    launch on weights already zero on every dead block (the block tier
+    keeps them so; ``masked=True``), as K2 is on the same weights;
 12. k6: every K6 call of one recorded ZAXIS forward and one offset-pruned
     forward against its plain version (rtol 1e-5; bf16 inputs, f32
     output), two launches bit-identical;
@@ -107,7 +114,12 @@ DFEATS_TOL = {"float32": (1e-5, 1e-5), "bfloat16": (2.0 ** -8, 1e-5)}
 DW_TOL = 1e-5  # of max|d_w[g, m]|, per (g, m)
 TRAIN_LOSS_TOL = 1e-5
 TRAIN_GRAD_TOL = 1e-4
-SPARSE_BATCHES = 3
+SPARSE_BATCHES = 3  # eval3d's requests per configuration (the path run)
+SPARSE_REQUESTS = 20  # timed requests per configuration, after one warm-up
+WALL_TURNS = 10  # (dense, config, config, dense) turns per pruned config
+# the fifth eval_64k batch of seed 0 overflows the first down conv's
+# window coverage, in the reference too (tests/test_torch_port_eval_caps.py)
+OVERFLOWING_REQUEST = 4
 SPARSE_TOL = 1e-4  # of max|logit|, sparse config vs dense on zeroed weights
 K5_DEAD_SHARES = (0.10, 0.25, 0.50, 0.75)
 ONES, TWOS = ",".join("1" * 9), ",".join("2" * 9)
@@ -1118,10 +1130,12 @@ class SparseRecorder:
                        sparse_conv.row_gather_matmul)
         bs, rg = self._saved
 
-        def rec_bs(feats, starts, idx, w, live, block):
+        def rec_bs(feats, starts, idx, w, live, block, masked=False):
+            if not masked:
+                raise PhaseError("the block tier passed K5 unmasked weights")
             self.k5.append((feats.clone(), starts.clone(), idx.clone(),
                             w.clone(), live.clone(), block))
-            return bs(feats, starts, idx, w, live, block)
+            return bs(feats, starts, idx, w, live, block, masked=True)
 
         def rec_rg(x_ext, km, w):
             self.k6.append((x_ext.clone(), km.clone(), w.clone()))
@@ -1180,9 +1194,86 @@ def pruned_params(params: dict, how, seed: int = 0) -> dict:
     return unflatten(flat)
 
 
-def wall_in_turns(a, b, batches) -> tuple[float, float]:
+def spread(values) -> dict:
+    """Median, quartiles and range of a list of times."""
+    import numpy as np
+
+    v = np.asarray(values, dtype=float)
+    return {"n": int(v.size), "median": float(np.median(v)),
+            "p25": float(np.percentile(v, 25)),
+            "p75": float(np.percentile(v, 75)),
+            "min": float(v.min()), "max": float(v.max())}
+
+
+def request_times(model, batches, n: int) -> list[float]:
+    """Host wall ms of ``n`` requests of ``model``, each ended by a
+    synchronise, cycling over ``batches`` after one untimed warm-up."""
+    import torch
+
+    from nerf_downstream_tpu_torch import serve
+
+    serve.eval_step(model, batches[0])
+    times = []
+    for i in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        serve.eval_step(model, batches[i % len(batches)])
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return times
+
+
+def overflow_check(model) -> dict:
+    """The capacity guard on the card: the dense model over the request
+    of seed 0 whose first down conv overflows its window coverage must
+    poison that request (and no other plan may overflow), as the
+    reference's guard does."""
+    import numpy as np
+    import torch
+
+    from nerf_downstream_tpu_torch import serve
+    from nerf_downstream_tpu_torch.ops import window_conv
+
+    rng = np.random.default_rng(0)
+    for _ in range(OVERFLOWING_REQUEST + 1):
+        batch = serve.make_batch("eval_64k", rng)
+    batch = serve.to_device(batch, "cuda")
+    build = window_conv.build_plan_direct
+    plans = []
+
+    def recording(coords, mask, offsets, **kw):
+        plan = build(coords, mask, offsets, **kw)
+        if int(plan.n_escaped) > 0:
+            plans.append({"table_rows": int(mask.sum()),
+                          "offsets": len(offsets),
+                          "cross": kw.get("out_coords") is not None,
+                          "coverage": kw["blocks"] * kw["window"]})
+        return plan
+
+    window_conv.build_plan_direct = recording
+    try:
+        logits, mets = serve.eval_step(model, batch)
+    finally:
+        window_conv.build_plan_direct = build
+    out = {"request": f"seed 0, request {OVERFLOWING_REQUEST}",
+           "overflowing_plans": plans,
+           "loss_is_nan": bool(np.isnan(float(mets["loss"]))),
+           "poisoned_rows": float(torch.isnan(logits[batch["mask"]])
+                                  .float().mean())}
+    want = [{"table_rows": 62400, "offsets": 8, "cross": True,
+             "coverage": 1536}]
+    if plans != want or out["poisoned_rows"] != 1.0 or not out["loss_is_nan"]:
+        raise PhaseError(f"capacity guard: {out}, want plans {want} and "
+                         "every row poisoned")
+    return out
+
+
+def wall_in_turns(a, b, batches, turns: int = WALL_TURNS) -> dict:
     """Host wall ms per request of models ``a`` and ``b`` over the same
-    requests, timed in turns (a, b, b, a) so host noise falls on both."""
+    requests, timed in ``turns`` turns of (a, b, b, a) so that host noise
+    falls on both. Each turn gives one time per model (the mean of its two
+    runs) and one paired gap b - a; the gap is resolved only when every
+    turn puts it on the same side of zero."""
     import torch
 
     from nerf_downstream_tpu_torch import serve
@@ -1195,10 +1286,19 @@ def wall_in_turns(a, b, batches) -> tuple[float, float]:
         torch.cuda.synchronize()
         return (time.perf_counter() - t0) * 1e3 / len(batches)
 
-    t: dict = {"a": [], "b": []}
-    for which in "abba":
-        t[which].append(run(a if which == "a" else b))
-    return sum(t["a"]) / 2, sum(t["b"]) / 2
+    ta, tb, gaps = [], [], []
+    for _ in range(turns):
+        t: dict = {"a": [], "b": []}
+        for which in "abba":
+            t[which].append(run(a if which == "a" else b))
+        ta.append(sum(t["a"]) / 2)
+        tb.append(sum(t["b"]) / 2)
+        gaps.append(tb[-1] - ta[-1])
+    gap = spread(gaps)
+    return {"turns": turns, "requests_per_run": len(batches),
+            "a_ms": spread(ta), "b_ms": spread(tb), "gap_ms": gap,
+            "gap_of_a": gap["median"] / spread(ta)["median"],
+            "resolved": gap["min"] > 0 or gap["max"] < 0}
 
 
 def _flag(flags: list, name: str, default):
@@ -1209,10 +1309,11 @@ def phase_sparse_eval(card: str) -> tuple[dict, dict, dict]:
     """The pruned-eval path: for each of ``SPARSE_CONFIGS`` a checkpoint
     written by the port's ``save_checkpoint`` (seeded weights, pruned as
     the configuration says) goes through ``eval3d.main`` at ``eval_64k``
-    in bf16, launch counts reset just before and read just after; then a
-    profile of 3 requests, their wall time in turns with the dense model,
+    in bf16, launch counts reset just before and read just after; then
+    ``SPARSE_REQUESTS`` timed requests, a profile of 3 requests, their
+    wall time in ``WALL_TURNS`` turns with the dense model,
     one recorded forward (K5 and K6 calls), and the f32 logits against the
-    dense model on the same weights. Returns
+    dense model on the same weights; last, ``overflow_check``. Returns
     (phase line, launch counts, {"k5": {config: calls}, "k6": ...})."""
     import contextlib
     import io
@@ -1241,6 +1342,7 @@ def phase_sparse_eval(card: str) -> tuple[dict, dict, dict]:
     down = {f"conv{i}_conv" for i in range(1, 5)}
     line = {"phase": "sparse_eval", "card": card, "preset": "eval_64k",
             "dtype": "torch.bfloat16", "batches": SPARSE_BATCHES,
+            "wall_turns": WALL_TURNS,
             "tolerance_of_max_logit": SPARSE_TOL, "configs": {}}
     launches = {name: 0 for name in kernels.launch_counts()}
     recs: dict = {"k5": {}, "k6": {}}
@@ -1288,7 +1390,6 @@ def phase_sparse_eval(card: str) -> tuple[dict, dict, dict]:
                 "log": [ln for ln in log.getvalue().splitlines()
                         if ln.startswith(("num_params", "folded"))],
                 "results": res["results"], "ms": res["ms"],
-                "ms_median_after_first": float(np.median(res["ms"][1:])),
                 "routes": routes, "launches": counts,
                 "launches_per_request": {k: v / SPARSE_BATCHES
                                          for k, v in counts.items()},
@@ -1314,10 +1415,12 @@ def phase_sparse_eval(card: str) -> tuple[dict, dict, dict]:
                       block_live_map=bmap, block_live_granularity=gran,
                       device="cuda")
             model = eval3d.build_evaluator("eval_64k", variables, **kw)
+            cfg["request_ms"] = spread(request_times(model, prof_batches,
+                                                     SPARSE_REQUESTS))
             cfg["profile"] = profile_requests(model, prof_batches)
-            if how is not None:
-                d_ms, c_ms = wall_in_turns(dense16, model, prof_batches)
-                cfg["wall_ms_in_turns"] = {"dense": d_ms, name: c_ms}
+            if how is not None:  # a = dense, b = this configuration
+                cfg["wall_ms_in_turns"] = wall_in_turns(dense16, model,
+                                                        prof_batches)
             with SparseRecorder() as rec:
                 logits16 = serve.eval_step(model, batch)[0]
             if rec.k5:
@@ -1352,6 +1455,7 @@ def phase_sparse_eval(card: str) -> tuple[dict, dict, dict]:
             if not (np.isfinite(err) and err <= SPARSE_TOL * scale):
                 raise PhaseError(f"{name}: f32 logits off the dense model "
                                  f"on the same weights: {cfg}")
+    line["overflow_check"] = overflow_check(dense16)
     return line, launches, recs
 
 
@@ -1424,32 +1528,37 @@ def phase_k5(recs: dict) -> tuple[dict, dict]:
                "shapes": {}}
         for feats, starts, idx, w, live, block in calls:
             c, cout = w.shape[-2:]
+            # the block tier keeps its weights zero on every dead block, so
+            # the wrapper launches K5 alone (masked=True), as K2 is timed
+            masked = (w * gather_matmul_bs.live_mask(live, block, c, cout)
+                      .to(w.dtype)).contiguous()
+            if not torch.equal(masked, w):
+                raise PhaseError("K5 was given weights alive on dead blocks")
             f32, w32 = feats.float(), w.float()
-            got = window_gather_matmul_bs(f32, starts, idx, w32, live, block)
+            got = window_gather_matmul_bs(f32, starts, idx, w32, live, block,
+                                          masked=True)
             want = window_gather_matmul_bs_plain(f32, starts, idx, w32, live,
                                                  block)
             d32 = (got - want).abs()
             bad32 = int((d32 > K2_F32_TOL + K2_F32_TOL * want.abs()).sum())
             got16 = window_gather_matmul_bs(feats, starts, idx, w, live,
-                                            block)
+                                            block, masked=True)
             d16 = (got16.float() - want).abs()
             bad16 = int((d16 > K2_BF16_ATOL + K2_BF16_RTOL
                          * want.abs()).sum())
-            masked = (w * gather_matmul_bs.live_mask(live, block, c, cout)
-                      .to(w.dtype)).contiguous()
             k2 = window_gather_matmul(feats, starts, idx, masked)
             dk2 = (got16.float() - k2.float()).abs()
             bad_k2 = int((dk2 > K2_BF16_ATOL + K2_BF16_RTOL
                           * k2.float().abs()).sum())
             identical &= bool(torch.equal(got16, k2))
             again = window_gather_matmul_bs(feats, starts, idx, w, live,
-                                            block)
+                                            block, masked=True)
             deterministic &= bool(torch.equal(again, got16))
             err32 = max(err32, float(d32.max()))
             err16 = max(err16, float(d16.max()))
             err_k2 = max(err_k2, float(dk2.max()))
             t_k = device_ms(lambda: window_gather_matmul_bs(
-                feats, starts, idx, w, live, block))
+                feats, starts, idx, w, live, block, masked=True))
             t_k2 = device_ms(lambda: window_gather_matmul(feats, starts, idx,
                                                           masked))
             t_p = device_ms(lambda: window_gather_matmul_bs_plain(
@@ -1508,7 +1617,7 @@ def phase_k5(recs: dict) -> tuple[dict, dict]:
                         feats, starts, idx, masked)))
                 else:
                     t["k5"].append(device_ms(lambda: window_gather_matmul_bs(
-                        feats, starts, idx, w, spec, block)))
+                        feats, starts, idx, masked, spec, block, masked=True)))
             k2_ms, k5_ms = (sum(v) / len(v) for v in (t["k2"], t["k5"]))
             crossover.append({
                 "rows": idx.shape[1] * idx.shape[3], "C": c, "Cout": cout,

@@ -15,6 +15,9 @@ preset's synthetic batches (made from ``--seed``) with
 ``serve.eval_step`` on the card, and writes ``{tag}.json`` to
 ``--save_path``; an existing tag is skipped unless ``--replace`` is
 given. ``--device cpu`` runs the plain PyTorch versions of the kernels.
+``--model`` (default ``Res16UNet18A``) takes the place of the reference's
+gin binding of the model class, as the keyword arguments of ``main`` take
+the place of its bindings of the model's arguments.
 
 Sparse modes (nine slots: slot 0 for ``conv0a``-``conv4``, slots 1-8 for
 ``block1``-``block8``): 1 runs a conv over the live offsets of its pruned
@@ -214,7 +217,8 @@ def main(argv=None, **model_kwargs):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--preset", choices=sorted(serve.PRESETS),
                     default="eval_64k")
-    ap.add_argument("--model", default="Res16UNet18A")
+    ap.add_argument("--model", default="Res16UNet18A",
+                    help="model class (the reference binds it through gin)")
     ap.add_argument("--load_path", default=None)
     ap.add_argument("--save_path", default=None)
     ap.add_argument("--sparsify", action="store_true")

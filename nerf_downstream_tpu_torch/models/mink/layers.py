@@ -41,7 +41,9 @@ from nerf_downstream_tpu_torch.ops.weight_sparse import (
     zaxis_offsets,
 )
 from nerf_downstream_tpu_torch.ops.window_conv import (
+    block_live_tensor,
     group_offsets,
+    mask_dead_blocks,
     window_conv_apply,
     window_conv_apply_blocksparse,
 )
@@ -100,6 +102,8 @@ class SparseConv(nn.Module):
         self.valid_offsets = valid_offsets
         self.path = ""
         self.route = None
+        # K5's inputs kept between forwards: (key, masked weights, liveness)
+        self._bs_cache = (None, None, None)
         k = kernel_size ** 3
         self.kernel = nn.Parameter(torch.zeros(k, in_channels, out_channels))
         self.bias = (nn.Parameter(torch.zeros(out_channels)) if use_bias
@@ -147,23 +151,18 @@ class SparseConv(nn.Module):
         else:
             out_sv = ctx.strided(sv, 2)
             plan = ctx.window_plan_cross(sv, out_sv, offs, expanding=True)
-        w = self.kernel
-        if w_rows is not None:
-            w = torch.where(
-                torch.as_tensor(w_rows >= 0, device=w.device)[:, None, None],
-                w[torch.as_tensor(np.clip(w_rows, 0, None), device=w.device)],
-                0.0)
-        elif subset is not None:
-            w = w[torch.as_tensor(subset, device=w.device)]
         bl = self._block_live(ctx, subset, w_rows)
         if bl is not None:
             self.route = "blocksparse"
+            w, live = self._blocksparse_inputs(
+                bl, plan, ctx.block_live_granularity, subset, w_rows)
             out_f = window_conv_apply_blocksparse(
                 sv.feats, plan, w, bl, self.bias, compute_dtype=cd,
-                block=ctx.block_live_granularity,
+                block=ctx.block_live_granularity, live=live, masked=True,
             ).to(cd)
         else:
             self.route = "windowed"
+            w = self._kernel_rows(subset, w_rows)
             if s1:
                 inv_plan = (
                     ctx.window_plan_direct(sv.coords, sv.mask, offs,
@@ -180,6 +179,19 @@ class SparseConv(nn.Module):
         out_f = ctx.level_poison(out_sv.coords, out_f)
         return SparseVoxels(coords=out_sv.coords, feats=out_f,
                             mask=out_sv.mask, stride=out_sv.stride)
+
+    def _kernel_rows(self, subset, w_rows):
+        """The kernel's rows in the plan's offset order: a subset's rows,
+        or the padded rows ``w_rows`` (-1 = a zero-weight repeat)."""
+        w = self.kernel
+        if w_rows is not None:
+            return torch.where(
+                torch.as_tensor(w_rows >= 0, device=w.device)[:, None, None],
+                w[torch.as_tensor(np.clip(w_rows, 0, None), device=w.device)],
+                0.0)
+        if subset is not None:
+            return w[torch.as_tensor(subset, device=w.device)]
+        return w
 
     def _block_live(self, ctx, subset, w_rows):
         """This conv's block liveness, re-indexed to the plan's offset
@@ -199,6 +211,29 @@ class SparseConv(nn.Module):
         if bl.all() or 1.0 - bl.sum() / bl.size < BLOCK_SPARSE_MIN_DEAD:
             return None
         return bl
+
+    def _blocksparse_inputs(self, bl, plan, block, subset, w_rows):
+        """K5's inputs for this conv: its kernel rows with every dead block
+        of ``bl`` zeroed, and ``bl`` in K5's form on the device. Made once
+        and kept while the kernel parameter, its rows, the liveness and the
+        plan's offset order stay the same, as they do over the forwards of
+        one checkpoint."""
+        k = self.kernel
+        if torch.is_grad_enabled() and k.requires_grad:
+            raise RuntimeError("the block-sparse conv is forward only: run "
+                               "it under torch.no_grad() or inference_mode()")
+        g_count, _, m, _ = plan.idx.shape
+        key = (k.data_ptr(), k._version, str(k.device), subset,
+               None if w_rows is None else w_rows.tobytes(), bl.tobytes(),
+               bl.shape, block, plan.perm, g_count, m)
+        if key != self._bs_cache[0]:
+            with torch.no_grad():
+                self._bs_cache = (
+                    key,
+                    mask_dead_blocks(self._kernel_rows(subset, w_rows), bl,
+                                     block),
+                    block_live_tensor(bl, plan.perm, g_count, m, k.device))
+        return self._bs_cache[1:]
 
     def _row_conv(self, sv, ctx, offs, subset):
         """A strided conv over an offset subset: the row path (kernel map,

@@ -34,10 +34,10 @@ _ARGTYPES = (_P, _I, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
 
 def live_mask(live: torch.Tensor, block: int, c: int,
               cout: int) -> torch.Tensor:
-    """The liveness [G, M, nbi, nbo] expanded to a bool [G, M, C, Cout]
-    mask of the weights (edge blocks clamped)."""
-    return (live.bool().repeat_interleave(block, 2)
-            .repeat_interleave(block, 3)[:, :, :c, :cout])
+    """The liveness [..., nbi, nbo] expanded to a bool [..., C, Cout] mask
+    of the weights (edge blocks clamped)."""
+    return (live.bool().repeat_interleave(block, -2)
+            .repeat_interleave(block, -1)[..., :c, :cout])
 
 
 def window_gather_matmul_bs_plain(feats, starts, idx, w, live, block: int):
@@ -48,7 +48,8 @@ def window_gather_matmul_bs_plain(feats, starts, idx, w, live, block: int):
         feats, starts, idx, w * live_mask(live, block, c, cout).to(w.dtype))
 
 
-def window_gather_matmul_bs(feats, starts, idx, w, live, block: int):
+def window_gather_matmul_bs(feats, starts, idx, w, live, block: int,
+                            masked: bool = False):
     """out [nT * T, Cout] = sum_{g, m} feats[starts[g, t] + idx[g, t, m, i]]
     @ (w[g, m] on its live blocks), f32 accumulation, one rounding into
     the type of ``feats``.
@@ -56,7 +57,9 @@ def window_gather_matmul_bs(feats, starts, idx, w, live, block: int):
     ``feats`` [N_rows, C] (float32 or bfloat16); ``starts`` int32[G, nT];
     ``idx`` int32[G, nT, M, T] (-1 = absent); ``w`` [G, M, C, Cout] in the
     type of ``feats``; ``live`` uint8[G, M, ceil(C / block),
-    ceil(Cout / block)], nonzero = live.
+    ceil(Cout / block)], nonzero = live. ``masked``: ``w`` is already
+    zero on every dead block (a caller that keeps its weights so between
+    calls); otherwise the wrapper zeroes them first, one elementwise pass.
     """
     dev = feats.device
     if dev.type == "cpu":
@@ -78,7 +81,8 @@ def window_gather_matmul_bs(feats, starts, idx, w, live, block: int):
         (w, "w", feats.dtype, (g_count, m, c, cout)),
         (live, "live", torch.uint8, (g_count, m, nbi, nbo)),
     ))
-    w_live = (w * live_mask(live, block, c, cout).to(w.dtype)).contiguous()
+    if not masked:
+        w = (w * live_mask(live, block, c, cout).to(w.dtype)).contiguous()
     out = torch.empty((nt * tile, cout), dtype=feats.dtype, device=dev)
     fn = build.function("window_gather_matmul_bs",
                         "window_gather_matmul_bs_launch", _ARGTYPES)
@@ -86,7 +90,7 @@ def window_gather_matmul_bs(feats, starts, idx, w, live, block: int):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(
             feats.data_ptr(), n_rows, c, starts.data_ptr(), idx.data_ptr(),
-            w_live.data_ptr(), live.data_ptr(), nbi, nbo, block, g_count, nt,
+            w.data_ptr(), live.data_ptr(), nbi, nbo, block, g_count, nt,
             m, tile, cout, out.data_ptr(),
             int(feats.dtype == torch.bfloat16), stream,
         )

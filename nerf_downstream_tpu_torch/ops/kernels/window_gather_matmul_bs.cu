@@ -12,8 +12,10 @@
 //
 // accumulated in f32 and rounded once into the output type (the input
 // type). A dead pair contributes nothing even where its weights are not
-// zero: the wrapper multiplies the weights by the expanded liveness (one
-// elementwise pass), so the kernel may skip work but never has to mask.
+// zero: the weights reach the kernel zero on every dead block (the wrapper
+// multiplies them by the expanded liveness, one elementwise pass, unless
+// the caller keeps them so between calls), so the kernel may skip work
+// but never has to mask.
 //
 // The TPU kernel bakes the liveness into the compiled kernel as a nested
 // tuple, gathers with a one-hot matmul over a packed copy of the live

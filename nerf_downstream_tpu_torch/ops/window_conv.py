@@ -20,7 +20,8 @@ same-set plan into its transpose.
 Apply side: ``window_conv_apply`` runs K2 (``window_gather_matmul``) and
 adds the escape entries with ``index_add_``. For inference over a pruned
 checkpoint, ``window_conv_apply_blocksparse`` runs K5
-(``window_gather_matmul_bs``) instead, which skips dead weight blocks. Its gradient is a
+(``window_gather_matmul_bs``) instead, which skips dead weight blocks.
+The gradient of ``window_conv_apply`` is a
 ``torch.autograd.Function``: K3 (``window_bwd``) gives d_feats and d_w
 over the inverse plan, or, for a conv declared ``input_grad=False``, K4
 (``window_dw``) gives d_w alone over the forward plan. The escape side
@@ -45,6 +46,7 @@ from nerf_downstream_tpu_torch.ops.kernels import (
     window_gather_matmul_bs,
     window_match,
 )
+from nerf_downstream_tpu_torch.ops.kernels.gather_matmul_bs import live_mask
 from nerf_downstream_tpu_torch.sparse import packing
 
 _U32 = 0xFFFFFFFF
@@ -465,6 +467,24 @@ def block_live_spec(block_live: np.ndarray, perm: tuple, g_count: int,
     )
 
 
+def block_live_tensor(block_live: np.ndarray, perm: tuple, g_count: int,
+                      m: int, device) -> torch.Tensor:
+    """The block liveness as K5 takes it: uint8[G, M, nbi, nbo] on
+    ``device``, in the plan's (group, member) order."""
+    return torch.as_tensor(
+        _member_live(block_live, perm, g_count, m).astype(np.uint8),
+        device=device)
+
+
+def mask_dead_blocks(weights: torch.Tensor, block_live: np.ndarray,
+                     block: int) -> torch.Tensor:
+    """``weights`` [K', Cin, Cout] with every dead (Cin, Cout) block of
+    ``block_live`` bool[K', nbi, nbo] zeroed."""
+    live = torch.as_tensor(block_live, device=weights.device)
+    return weights * live_mask(live, block, *weights.shape[1:]).to(
+        weights.dtype)
+
+
 def window_conv_apply_blocksparse(
     feats: torch.Tensor,
     plan: WindowPlan,
@@ -473,6 +493,8 @@ def window_conv_apply_blocksparse(
     bias: torch.Tensor | None = None,
     compute_dtype: torch.dtype = torch.float32,
     block: int = 128,
+    live: torch.Tensor | None = None,
+    masked: bool = False,
 ) -> torch.Tensor:
     """Inference-only windowed conv that skips dead weight blocks (K5):
     [N_out, Cout] in ``compute_dtype``.
@@ -482,7 +504,11 @@ def window_conv_apply_blocksparse(
     [K', Cin, Cout]. A dead pair contributes nothing, whatever its
     weights hold. Forward only; the guard reads the forward plan alone
     (no inverse plan is built on this path), and the escape side path
-    multiplies by the weights as given, as in the reference.
+    multiplies by the weights as given, as in the reference. For a caller
+    that keeps both between forwards: ``live`` is ``block_live`` already in
+    K5's form (``block_live_tensor``), and ``masked`` says ``weights`` are
+    already zero on every dead block (``mask_dead_blocks``), so K5's
+    wrapper makes no masked copy.
     """
     if torch.is_grad_enabled() and (feats.requires_grad
                                     or weights.requires_grad):
@@ -494,11 +520,11 @@ def window_conv_apply_blocksparse(
     perm = torch.as_tensor(plan.perm, device=feats.device)
     w = weights.to(compute_dtype)[perm].reshape(
         g_count, m, cin, weights.shape[-1]).contiguous()
-    # K5 takes the spec as data: uint8[G, M, nbi, nbo]
-    live = torch.as_tensor(
-        _member_live(block_live, plan.perm, g_count, m).astype(np.uint8),
-        device=feats.device)
-    out = window_gather_matmul_bs(f, plan.starts, plan.idx, w, live, block)
+    if live is None:
+        live = block_live_tensor(block_live, plan.perm, g_count, m,
+                                 feats.device)
+    out = window_gather_matmul_bs(f, plan.starts, plan.idx, w, live, block,
+                                  masked=masked)
     if plan.esc_k is not None:
         out = _esc_scatter(out, f, plan.esc_k, plan.esc_i, plan.esc_j,
                            w.reshape(g_count * m, cin, -1))

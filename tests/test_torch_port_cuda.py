@@ -359,7 +359,8 @@ def test_k5_matches_plain(cuda, dtype, block, c, cout):
     """K5 at granularities 4, 16 and 128 with ragged channels: half the
     blocks dead, a member emptied in the spec and another in the plan, and
     a spec that also kills blocks whose weights are not zero. Against its
-    plain version, and equal to K2 on the spec-masked weights."""
+    plain version, equal to K2 on the spec-masked weights, and equal to
+    itself given those weights with ``masked=True``."""
     (coords, mask), _ = level(10, n=480, valid=420)
     plan = wc.build_plan_direct(coords, mask, sk.kernel_offsets(3, 1),
                                 tile=32, window=32, blocks=4)
@@ -394,6 +395,9 @@ def test_k5_matches_plain(cuda, dtype, block, c, cout):
     k2 = K.window_gather_matmul(args[0], args[1], args[2],
                                 masked.contiguous())
     torch.testing.assert_close(got.float(), k2.float(), rtol=1e-6, atol=1e-6)
+    # weights the caller keeps masked: the same answer, bit for bit
+    assert torch.equal(K.window_gather_matmul_bs(
+        *args[:3], masked.contiguous(), args[4], block, masked=True), got)
     # the dead blocks really held weights: the dense answer differs
     dense = K.window_gather_matmul(*args[:4])
     assert not torch.allclose(dense.float(), got.float())

@@ -267,6 +267,38 @@ def test_blocksparse_plain_matches_interpreted_kernel(rng, monkeypatch):
             torch.as_tensor(w).requires_grad_(), live, block=blk)
 
 
+def test_blocksparse_conv_keeps_its_inputs(rng):
+    """A conv on the block tier masks its weights and copies its liveness
+    once, reuses both on the next forward, and makes them again when its
+    kernel is loaded anew; each forward equals the block-sparse apply on
+    the kernel of that moment."""
+    coords, mask = sorted_level(rng, n=512, valid=420, extent=12)
+    feats = torch.as_tensor(rng.normal(size=(512, 8)).astype(np.float32))
+    live = rng.random((27, 2, 2)) < 0.5
+    live[13] = True
+    ctx = CoordinateContext(window_tile=64, window_size=128,
+                            window_blocks=2, block_live_map={"c": live},
+                            block_live_granularity=4)
+    sv = SparseVoxels(coords=torch.as_tensor(coords), feats=feats,
+                      mask=torch.as_tensor(mask), stride=1)
+    conv = SparseConv(8, 8, 3, 1)
+    conv.path = "c"
+    plan = ctx.window_plan_direct(sv.coords, sv.mask, tk.kernel_offsets(3, 1))
+    for scale in (0.1, 0.2):
+        w = torch.as_tensor(rng.normal(size=(27, 8, 8)).astype(np.float32))
+        conv.load_state_dict({"kernel": w * scale})
+        with torch.no_grad():
+            got = conv(sv, ctx).feats
+            kept = conv._bs_cache
+            again = conv(sv, ctx).feats
+        assert conv.route == "blocksparse" and conv._bs_cache is kept
+        want = twc.window_conv_apply_blocksparse(feats, plan, w * scale,
+                                                 live, block=4)
+        assert torch.equal(got, again) and torch.equal(got, want)
+    with pytest.raises(RuntimeError, match="forward only"):
+        conv(sv, ctx)
+
+
 def test_asymmetric_subset_poisons(rng, monkeypatch):
     """A conv over (0, 9, 18) (the (-1, -1) column; its negation is not in
     the set) gets no escape list, so entries beyond its window poison the
