@@ -28,7 +28,8 @@ SOURCES = ("window_match.cu", "window_gather_matmul.cu", "window_bwd.cu",
            "window_dw.cu", "window_gather_matmul_bs.cu",
            "row_gather_matmul.cu")
 # device code the sources share (#include "..."), hashed into every name
-HEADERS = ("window_gather.cuh", "window_dw.cuh")
+HEADERS = ("window_gather.cuh", "window_dw.cuh", "window_gather_tc.cuh",
+           "window_dw_tc.cuh")
 FLAGS = (
     "-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

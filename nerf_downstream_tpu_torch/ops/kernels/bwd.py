@@ -5,13 +5,17 @@ Replaces the Pallas TPU kernel ``window_bwd_pallas``
 (``nerf_downstream_tpu/ops/pallas/window_gather.py:504``). The CUDA kernel
 is ``window_bwd.cu`` (device code shared with K2 and K4 through
 ``window_gather.cuh`` and ``window_dw.cuh``; its header states the bound
-on the H100 and the design); ``window_bwd_plain`` is the same function in
-plain PyTorch: K2's plain version on the inverse plan for d_feats, and
-the features times the gathered gradient rows for d_w.
+on the H100 and the design): bfloat16 inputs run both halves on the
+tensor cores (``window_gather_tc.cuh``, ``window_dw_tc.cuh``, with the
+tiles and term split of ``tc.py``), float32 ones on the CUDA cores;
+``window_bwd_plain`` is the same function in plain PyTorch: K2's plain
+version on the inverse plan for d_feats, and the features times the
+gathered gradient rows for d_w.
 
 The wrapper dispatches on the device of its tensors: CPU tensors take the
 plain version, CUDA tensors launch the kernel, anything else raises.
-``window_bwd.launches`` counts kernel launches.
+``window_bwd.launches`` counts kernel launches, and
+``window_bwd.core_launches`` the same launches by core.
 """
 
 from __future__ import annotations
@@ -20,7 +24,7 @@ import ctypes
 
 import torch
 
-from nerf_downstream_tpu_torch.ops.kernels import build
+from nerf_downstream_tpu_torch.ops.kernels import build, tc
 from nerf_downstream_tpu_torch.ops.kernels.dw import (
     DTYPES,
     dw_scratch,
@@ -32,9 +36,10 @@ from nerf_downstream_tpu_torch.ops.kernels.gather_matmul import (
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # g_out, n_out, cout, feats, c, inv_starts, inv_idx, w_t, groups, n_tiles,
-# members, tile, chunk_rows, d_feats, part, d_w, bf16, stream
+# members, tile, chunk_rows, d_feats, part, d_w, bf16, bn, parts, per,
+# fpart, bc, bo, stream
 _ARGTYPES = (_P, _I, _I, _P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P,
-             _I, _P)
+             _I, _I, _I, _I, _P, _I, _I, _P)
 
 
 def window_bwd_plain(g_out, feats, inv_starts, inv_idx, w_t):
@@ -81,22 +86,37 @@ def window_bwd(g_out, feats, inv_starts, inv_idx, w_t):
         (inv_idx, "inv_idx", torch.int32, (g_count, nt, m, tile)),
         (w_t, "w_t", dt, (g_count, m, cout, c)),
     ))
-    d_feats = torch.empty((nt * tile, c), dtype=dt, device=dev)
+    n_in = nt * tile
+    d_feats = torch.empty((n_in, c), dtype=dt, device=dev)
     d_w = torch.empty((g_count, m, c, cout), dtype=torch.float32, device=dev)
-    per, part = dw_scratch(nt * tile, d_w.shape, dev)
+    # d_feats is K2's core on g_out: input width cout, output width c
+    choice = tc.gather_choice(dt, n_in, cout, c, g_count * m)
+    rows_per, part = dw_scratch(
+        n_in, d_w.shape, dev,
+        tc.dw_chunk_rows(n_in, c, cout, g_count * m)
+        if choice.core == "tensor" else None)
+    bc, bo = tc.dw_tiles(c, cout)
+    if choice.core == "tensor" and tc.vector_ok(c, cout):
+        tc.check_aligned("window_bwd", g_out, feats, w_t)
+    fpart = (torch.empty(choice.scratch_numel(n_in, c), dtype=torch.float32,
+                         device=dev) if choice.parts > 1 else None)
     fn = build.function("window_bwd", "window_bwd_launch", _ARGTYPES)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(
             g_out.data_ptr(), n_out, cout, feats.data_ptr(), c,
             inv_starts.data_ptr(), inv_idx.data_ptr(), w_t.data_ptr(),
-            g_count, nt, m, tile, per, d_feats.data_ptr(), part.data_ptr(),
-            d_w.data_ptr(), int(dt == torch.bfloat16), stream,
+            g_count, nt, m, tile, rows_per, d_feats.data_ptr(),
+            part.data_ptr(), d_w.data_ptr(), int(choice.core == "tensor"),
+            choice.column_tile, choice.parts, choice.per,
+            None if fpart is None else fpart.data_ptr(), bc, bo, stream,
         )
     if err != 0:
         raise RuntimeError(f"window_bwd launch failed: CUDA error {err}")
     window_bwd.launches += 1
+    window_bwd.core_launches[choice.core] += 1
     return d_feats, d_w
 
 
 window_bwd.launches = 0
+window_bwd.core_launches = {"tensor": 0, "cuda": 0}

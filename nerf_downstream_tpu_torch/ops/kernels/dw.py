@@ -41,9 +41,11 @@ def chunk_rows(rows: int) -> int:
     return max(64, -(-per // 64) * 64)
 
 
-def dw_scratch(rows: int, d_w_shape, device) -> tuple[int, torch.Tensor]:
-    """(chunk rows, f32 scratch for the per-chunk partials of d_w)."""
-    per = chunk_rows(rows)
+def dw_scratch(rows: int, d_w_shape, device,
+               per: int | None = None) -> tuple[int, torch.Tensor]:
+    """(chunk rows, f32 scratch for the per-chunk partials of d_w), with
+    ``per`` rows per chunk (default ``chunk_rows(rows)``)."""
+    per = per or chunk_rows(rows)
     chunks = -(-rows // per)
     numel = 1
     for s in d_w_shape:

@@ -3,12 +3,14 @@
 Replaces the Pallas TPU kernel ``window_gather_matmul_pallas``
 (``nerf_downstream_tpu/ops/pallas/window_gather.py:131``). The CUDA kernel
 is ``window_gather_matmul.cu`` (its header states the bound on the H100
-and the design); ``window_gather_matmul_plain`` is the same function in
-plain PyTorch.
+and the design): bfloat16 inputs run on the tensor cores, float32 ones on
+the CUDA cores, with the column tile and term split of ``tc.py``;
+``window_gather_matmul_plain`` is the same function in plain PyTorch.
 
 The wrapper dispatches on the device of its tensors: CPU tensors take the
 plain version, CUDA tensors launch the kernel, anything else raises.
-``window_gather_matmul.launches`` counts kernel launches.
+``window_gather_matmul.launches`` counts kernel launches, and
+``window_gather_matmul.core_launches`` the same launches by core.
 """
 
 from __future__ import annotations
@@ -17,13 +19,14 @@ import ctypes
 
 import torch
 
-from nerf_downstream_tpu_torch.ops.kernels import build
+from nerf_downstream_tpu_torch.ops.kernels import build, tc
 
 _DTYPES = (torch.float32, torch.bfloat16)
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # feats, n_rows, c, starts, idx, w, groups, n_tiles, members, tile, cout,
-# out, bf16, stream
-_ARGTYPES = (_P, _I, _I, _P, _P, _P, _I, _I, _I, _I, _I, _P, _I, _P)
+# out, bf16, bn, parts, per, part, stream
+_ARGTYPES = (_P, _I, _I, _P, _P, _P, _I, _I, _I, _I, _I, _P, _I, _I, _I, _I,
+             _P, _P)
 
 
 def window_gather_matmul_plain(feats, starts, idx, w):
@@ -75,7 +78,14 @@ def window_gather_matmul(feats, starts, idx, w):
         (idx, "idx", torch.int32, (g_count, nt, m, tile)),
         (w, "w", feats.dtype, (g_count, m, c, cout)),
     ))
-    out = torch.empty((nt * tile, cout), dtype=feats.dtype, device=dev)
+    n_out = nt * tile
+    out = torch.empty((n_out, cout), dtype=feats.dtype, device=dev)
+    choice = tc.gather_choice(feats.dtype, n_out, c, cout, g_count * m)
+    if choice.core == "tensor" and tc.vector_ok(c, cout):
+        tc.check_aligned("window_gather_matmul", feats, w)
+    part = (torch.empty(choice.scratch_numel(n_out, cout),
+                        dtype=torch.float32, device=dev)
+            if choice.parts > 1 else None)
     fn = build.function("window_gather_matmul",
                         "window_gather_matmul_launch", _ARGTYPES)
     with torch.cuda.device(dev):
@@ -83,14 +93,17 @@ def window_gather_matmul(feats, starts, idx, w):
         err = fn(
             feats.data_ptr(), n_rows, c, starts.data_ptr(), idx.data_ptr(),
             w.data_ptr(), g_count, nt, m, tile, cout, out.data_ptr(),
-            int(feats.dtype == torch.bfloat16), stream,
+            int(choice.core == "tensor"), choice.column_tile, choice.parts,
+            choice.per, None if part is None else part.data_ptr(), stream,
         )
     if err != 0:
         raise RuntimeError(
             f"window_gather_matmul launch failed: CUDA error {err}"
         )
     window_gather_matmul.launches += 1
+    window_gather_matmul.core_launches[choice.core] += 1
     return out
 
 
 window_gather_matmul.launches = 0
+window_gather_matmul.core_launches = {"tensor": 0, "cuda": 0}

@@ -1,7 +1,8 @@
 // Device code shared by the gather-matmul kernels: typed loads and stores,
-// and one gather-matmul core that K2 (windowed forward), K3 (its d_feats
-// half, on the inverse plan), K5 (block-sparse windowed forward) and K6
-// (row gather-matmul) all run:
+// and one CUDA-core gather-matmul core that K5 (block-sparse windowed
+// forward), K6 (row gather-matmul), and the float32 calls of K2 (windowed
+// forward) and of K3's d_feats half (on the inverse plan) run; their
+// bfloat16 calls run the tensor-core core of window_gather_tc.cuh:
 //
 //   out[r] = sum over terms q of src[rows(q, r)] @ w[q]
 //

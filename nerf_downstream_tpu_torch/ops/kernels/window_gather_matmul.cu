@@ -16,7 +16,8 @@
 // 227 KB of shared memory, less than one such window at C = 128..256, and
 // it can index rows directly. So this kernel gathers only the rows that
 // idx names, straight from global memory (they sit inside the window,
-// so neighbouring tiles hit L2), in K-chunks of 16 channels.
+// so neighbouring tiles hit L2), in channel chunks (16 channels on the
+// CUDA-core core, 32 on the tensor-core one).
 //
 // Bound on the H100 at the model's shapes: operations at the wide,
 // dense levels, bytes elsewhere. The heaviest calls of the 64k eval batch
@@ -24,40 +25,45 @@
 // M = 3, ~1.2M present entries): 2 C Cout = 18.4 kFLOP per present entry,
 // 22 us per call at the bf16 tensor-core peak (989 TFLOP/s), against
 // ~10 us to move their features, idx and output once at 3.35 TB/s. Coarse
-// levels (512 rows at C = 256) need well under a microsecond either way.
-// This first version reaches neither bound: it multiplies on the f32 CUDA
-// cores (67 TFLOP/s peak), spends the work of absent entries within a
-// 64-row block, and at coarse levels launches only (rows / 64) x
-// (Cout / 64) blocks (32 for 512 rows x 256 channels), too few to fill
-// 132 SMs.
-// Tensor cores (mma.sync / wgmma on bf16) and a split over (g, m) for
-// small levels are the next steps.
+// levels (512 rows at C = 256) need well under a microsecond either way;
+// there the limit is how many of the 132 SMs get a block.
 //
-// Design (the kernel is in window_gather.cuh, shared with K3, K5 and K6): a
-// block owns 64 output rows x 64 output channels; 256 threads
-// each hold a 4 x 4 f32 accumulator in registers across all (g, m) and all
-// channel chunks. Per (g, m) the block resolves its 64 source rows once
-// (skipping the member entirely when none is present), then per chunk
-// stages the gathered [64 x 16] feature slice and the [16 x 64] weight
-// slice in shared memory as f32. Ragged edges (C = 27, Cout not a
-// multiple of 64, the last tile) are masked with zero fills, so no
-// padding of the inputs is needed.
+// Two cores, chosen by the input type alone:
+// - bfloat16 (the serving, training and pruned-eval paths):
+//   window_gather_tc.cuh. mma.sync m16n8k16 on the tensor cores with f32
+//   accumulators, gathered rows and weights copied into a 4-stage
+//   shared-memory ring by cp.async in 16-byte pieces (element by element
+//   when C or Cout is not a multiple of 8, as for the C = 27 stem), a
+//   column tile of 32, 64, 96 or 128 chosen per Cout by the wrapper, and at
+//   coarse levels the G x M terms split over several blocks whose f32
+//   partials a second kernel adds in a fixed order (the wrapper picks the
+//   split from the shapes: ops/kernels/tc.py). The header's note has the
+//   details.
+// - float32: window_gather.cuh's CUDA-core core, unchanged (its gates hold
+//   it to 1e-5 of the f32 sum, which TF32 would not meet). A block owns 64
+//   output rows x 64 output channels; 256 threads each hold a 4 x 4 f32
+//   accumulator across all (g, m) and 16-channel chunks, staged in shared
+//   memory as f32; ragged edges are masked with zero fills.
 
 #include <cstdint>
 
-#include "window_gather.cuh"
+#include "window_gather_tc.cuh"
 
 // bf16: 1 for bfloat16, 0 for float32 (feats, w and out share the type).
+// bf16 only: bn is the column tile, parts and per the term split (parts
+// runs of per terms), part f32 scratch [parts, n_tiles * tile, cout] when
+// parts > 1.
 extern "C" int window_gather_matmul_launch(
     const void* feats, int n_rows, int c, const int32_t* starts,
     const int32_t* idx, const void* w, int groups, int n_tiles, int members,
-    int tile, int cout, void* out, int bf16, void* stream) {
+    int tile, int cout, void* out, int bf16, int bn, int parts, int per,
+    float* part, void* stream) {
   if (n_tiles <= 0 || tile <= 0 || cout <= 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (bf16)
-    return ndt::launch_gather_matmul<__nv_bfloat16>(
-        feats, n_rows, c, starts, idx, w, groups, n_tiles, members, tile,
-        cout, out, s);
+    return ndt::tc::launch_gather_matmul(feats, n_rows, c, starts, idx, w,
+                                         groups, n_tiles, members, tile,
+                                         cout, bn, parts, per, part, out, s);
   return ndt::launch_gather_matmul<float>(feats, n_rows, c, starts, idx, w,
                                           groups, n_tiles, members, tile,
                                           cout, out, s);

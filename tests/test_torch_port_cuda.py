@@ -22,7 +22,10 @@ the CPU: the loss within 1e-5 relative, each gradient within 1e-4 of its
 largest value. K5 must match its plain version as K2 does, and equal K2
 on the spec-masked weights; K6 (f32 output for both input types) within
 atol = rtol = 1e-5; a small model in the pruned-eval modes on the card
-must match the CPU within 1e-4.
+must match the CPU within 1e-4. The bf16 tensor-core path of K2 and K3
+is held to the same tolerances at ragged shapes, with and without its
+split of the terms over blocks, and must be bit-identical from launch to
+launch and carry a NaN input row to exactly the outputs that name it.
 """
 
 import dataclasses
@@ -234,6 +237,14 @@ def test_wrappers_refuse_bad_inputs_on_card(cuda):
         K.window_gather_matmul(f, starts.cpu(), idx, w)
 
 
+def bf16_steps(a, b):
+    """How many bf16 values lie between a and b, elementwise (0: equal)."""
+    def key(x):  # the bf16 bit patterns, ordered as the values are
+        i = x.contiguous().view(torch.int16).to(torch.int32)
+        return torch.where(i < 0, -(i & 0x7FFF), i)
+    return (key(a) - key(b)).abs()
+
+
 def _bwd_case(dtype, c, cout, n, valid, extent):
     """K3 and K4 inputs over a same-set plan and its transpose, with a
     member emptied and ranks past the table, in ``dtype`` on the CPU."""
@@ -394,7 +405,20 @@ def test_k5_matches_plain(cuda, dtype, block, c, cout):
         args[4], block, c, cout).to(dtype)
     k2 = K.window_gather_matmul(args[0], args[1], args[2],
                                 masked.contiguous())
-    torch.testing.assert_close(got.float(), k2.float(), rtol=1e-6, atol=1e-6)
+    if dtype == torch.float32:  # both on the CUDA-core core
+        torch.testing.assert_close(got.float(), k2.float(), rtol=1e-6,
+                                   atol=1e-6)
+    else:
+        # K2's bf16 sums run on the tensor cores, K5's on the CUDA cores:
+        # two roundings into bf16 of f32 sums taken in different orders.
+        # K5 against K2's f32 sum of the same values, within K2's bf16
+        # tolerance, and never more than one bf16 step from K2's bf16
+        k2_32 = K.window_gather_matmul(args[0].float(), args[1], args[2],
+                                       masked.float().contiguous())
+        torch.testing.assert_close(got.float(), k2_32, rtol=2 ** -8,
+                                   atol=1e-5)
+        far = (got.float() - k2.float()).abs() > 1e-5
+        assert not (far & (bf16_steps(got, k2) > 1)).any()
     # weights the caller keeps masked: the same answer, bit for bit
     assert torch.equal(K.window_gather_matmul_bs(
         *args[:3], masked.contiguous(), args[4], block, masked=True), got)
@@ -519,3 +543,136 @@ def test_sparse_eval_on_card_matches_cpu(cuda, monkeypatch, case):
     assert torch.isfinite(outs[0][valid]).all()
     torch.testing.assert_close(outs[1][valid], outs[0][valid], rtol=1e-4,
                                atol=1e-4)
+
+
+def _tc_plan(seed, n_out, n_rows, g=9, m=3, tile=32, window=96):
+    """A random window plan on the CPU: int32 starts [G, nT] and idx
+    [G, nT, M, T] with a third of the entries absent, the first 64 rows
+    (one block of the core) all absent, and some ranks of the last tile
+    past the table."""
+    rng = np.random.default_rng(seed)
+    nt = -(-n_out // tile)
+    starts = np.sort(rng.integers(0, max(n_rows - window // 2, 1), (g, nt)),
+                     axis=1)
+    idx = rng.integers(0, window, (g, nt, m, tile))
+    idx[rng.random(idx.shape) < 0.33] = -1
+    idx[:, :64 // tile] = -1
+    starts[:, -1] = n_rows - 8
+    idx[:, -1, :, :5] = 40  # rows n_rows + 32: past the table
+    return (torch.as_tensor(starts, dtype=torch.int32),
+            torch.as_tensor(idx, dtype=torch.int32))
+
+
+def _tc_inputs(seed, n_rows, c, cout, g=9, m=3):
+    rng = np.random.default_rng(seed)
+    feats = torch.as_tensor(rng.normal(size=(n_rows, c)),
+                            dtype=torch.float32).to(torch.bfloat16)
+    w = torch.as_tensor(rng.normal(size=(g, m, c, cout)) / np.sqrt(g * m * c),
+                        dtype=torch.float32).to(torch.bfloat16)
+    return feats, w
+
+
+# (rows, C, Cout): row counts that are not a multiple of the core's 64
+# (23 and 31 tiles of 32) at every column tile, the C = 27 stem's element
+# staging, the split on (512 rows, Cout 256) and off (65,536 rows)
+TC_CASES = [(720, 27, 96), (720, 32, 256), (720, 96, 96), (720, 256, 96),
+            (990, 27, 256), (990, 96, 256), (512, 256, 256),
+            (512, 32, 96), (65536, 32, 96)]
+
+
+@pytest.mark.parametrize("n_out,c,cout", TC_CASES)
+def test_k2_tc_matches_plain(cuda, n_out, c, cout):
+    from nerf_downstream_tpu_torch.ops.kernels import tc
+
+    n_rows = n_out + 37
+    starts, idx = _tc_plan(20 + c, n_out, n_rows)
+    feats, w = _tc_inputs(21 + cout, n_rows, c, cout)
+    args = [t.contiguous().to(cuda) for t in (feats, starts, idx, w)]
+    want = K.window_gather_matmul_plain(args[0].float(), args[1], args[2],
+                                        args[3].float())
+    K.reset_launch_counts()
+    got = K.window_gather_matmul(*args)
+    assert K.core_counts()["window_gather_matmul"] == {"tensor": 1,
+                                                       "cuda": 0}
+    n_pad = idx.shape[1] * idx.shape[3]
+    choice = tc.gather_choice(torch.bfloat16, n_pad, c, cout, 27)
+    assert (choice.parts > 1) == (n_out < 65536)
+    assert got.dtype == torch.bfloat16 and got.shape == (n_pad, cout)
+    assert not got[:64].any()  # the all-absent block
+    torch.testing.assert_close(got.float(), want, rtol=2 ** -8, atol=1e-5)
+    assert torch.equal(K.window_gather_matmul(*args), got)
+
+
+@pytest.mark.parametrize("n_in,c,cout", [(720, 27, 96), (720, 96, 96),
+                                          (990, 256, 32), (512, 256, 256),
+                                          (65536, 96, 32)])
+def test_k3_tc_matches_plain(cuda, n_in, c, cout):
+    """Both halves of K3 in bf16 against the f32 plain version: d_feats as
+    K2, d_w within 1e-5 of its largest; repeats bit-identical."""
+    n_out = n_in + 21
+    inv_starts, inv_idx = _tc_plan(30 + c, n_in, n_out)
+    rng = np.random.default_rng(31 + cout)
+    g_out = torch.as_tensor(rng.normal(size=(n_out, cout)),
+                            dtype=torch.float32).to(torch.bfloat16)
+    n_pad = inv_idx.shape[1] * inv_idx.shape[3]
+    feats = torch.as_tensor(rng.normal(size=(n_pad, c)),
+                            dtype=torch.float32).to(torch.bfloat16)
+    w_t = torch.as_tensor(rng.normal(size=(9, 3, cout, c)) * 0.1,
+                          dtype=torch.float32).to(torch.bfloat16)
+    args = [t.contiguous().to(cuda) for t in (g_out, feats, inv_starts,
+                                              inv_idx, w_t)]
+    want_f, want_w = K.window_bwd_plain(
+        args[0].float(), args[1].float(), args[2], args[3], args[4].float())
+    K.reset_launch_counts()
+    got_f, got_w = K.window_bwd(*args)
+    assert K.core_counts()["window_bwd"] == {"tensor": 1, "cuda": 0}
+    assert got_f.dtype == torch.bfloat16 and got_w.dtype == torch.float32
+    torch.testing.assert_close(got_f.float(), want_f, rtol=2 ** -8,
+                               atol=1e-5)
+    _close_to_max(got_w.cpu(), want_w.cpu())
+    again_f, again_w = K.window_bwd(*args)
+    assert torch.equal(again_f, got_f) and torch.equal(again_w, got_w)
+
+
+@pytest.mark.parametrize("n_out,cout", [(512, 256), (720, 96)])
+def test_tc_nan_row_reaches_its_outputs(cuda, n_out, cout):
+    """A NaN input row poisons exactly the output rows whose plan names
+    it (K2, split on at 512 x 256) and, in K3, the d_feats rows and the
+    d_w slices of the members that name it."""
+    c = 64
+    n_rows = n_out + 37
+    starts, idx = _tc_plan(40, n_out, n_rows)
+    feats, w = _tc_inputs(41, n_rows, c, cout)
+    rows = starts[:, :, None, None].long() + idx.long()
+    present = (idx >= 0) & (rows < n_rows)
+    bad = int(rows[present][0])
+    feats[bad] = float("nan")
+    names = (present & (rows == bad))  # [G, nT, M, T]
+    want_rows = names.any(2).any(0).reshape(-1)
+    args = [t.contiguous().to(cuda) for t in (feats, starts, idx, w)]
+    got = K.window_gather_matmul(*args)
+    assert torch.equal(torch.isnan(got).any(1).cpu(), want_rows)
+    assert torch.equal(torch.isnan(got).all(1).cpu(), want_rows)
+
+    # K3 with the same plan as its inverse plan and g_out = feats
+    n_in = idx.shape[1] * idx.shape[3]
+    x = torch.ones(n_in, cout, dtype=torch.bfloat16, device=cuda)
+    d_f, d_w = K.window_bwd(args[0], x, args[1], args[2], args[3])
+    assert torch.equal(torch.isnan(d_f).any(1).cpu(), want_rows)
+    want_w = names.any(3).any(1)  # [G, M]
+    assert torch.equal(torch.isnan(d_w).flatten(2).any(2).cpu(), want_w)
+    assert torch.equal(torch.isnan(d_w).flatten(2).all(2).cpu(), want_w)
+
+
+def test_tc_refuses_misaligned_rows(cuda):
+    """The 16-byte copies need 16-byte aligned rows: a bf16 tensor that
+    starts 2 bytes into its storage is refused, not read askew."""
+    buf = torch.zeros(64 * 8 + 8, dtype=torch.bfloat16, device=cuda)
+    f = buf[1:513].view(64, 8)
+    starts = torch.zeros(1, 2, dtype=torch.int32, device=cuda)
+    idx = torch.full((1, 2, 1, 32), -1, dtype=torch.int32, device=cuda)
+    w = torch.zeros(1, 1, 8, 8, dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(ValueError, match="boundary"):
+        K.window_gather_matmul(f, starts, idx, w)
+    assert not K.window_gather_matmul(buf[8:520].view(64, 8), starts, idx,
+                                      w).any()
