@@ -86,12 +86,12 @@ paths give it. Phases:
 11. k5: every K5 call of one recorded forward at granularity 128 and at
     32 against its plain version (rtol 1e-5 in f32, 2^-8 in bf16 against
     the f32 sum), against K2 on the spec-masked weights, two launches
-    bit-identical. K5 sums on the CUDA cores and K2's bf16 path on the
-    tensor cores, so their two roundings into bf16 may be one bf16 step
-    apart where the f32 sums straddle a rounding point: K5 is held to K2's
-    f32 sum of the same values within K2's bf16 tolerance, and to K2's
-    bf16 output within one bf16 step (beyond 1e-5); ``identical_to_k2``
-    reports whether the bits agree. K5 against K2 on the same plans at
+    bit-identical. K2's f32 call runs K5's CUDA-core core in the same
+    chunk order, so K5's bf16 output must equal K2's f32 output on the
+    same values rounded once to bf16, bit for bit; K2's bf16 call runs
+    the tensor cores, and ``identical_to_k2`` and
+    ``elements_differing_from_k2`` only report how far K5's bits are from
+    it. K5 against K2 on the same plans at
     10, 25, 50 and 75 % dead blocks (the dead-block crossover). K5 is
     timed as one launch on weights already zero on every dead block (the
     block tier keeps them so; ``masked=True``), as K2 is on the same
@@ -102,9 +102,12 @@ paths give it. Phases:
 13. the ``kernels`` line, the card line, and the ``ok`` line.
 
 On the main paths (``serve``, ``train``, ``sparse_eval``, all bf16) every
-K2 and K3 launch must run on the tensor cores: each phase reads the
-launches by core (``kernels.core_counts``) with the launch counts and
-fails on any CUDA-core launch of K2 or K3 there.
+K2 and K3 launch must run on the tensor cores. The input type is the
+only switch (``tc.gather_choice``) and every conv casts its inputs to its
+compute type, so each phase fails unless every conv of its model
+computes in bf16, and reports its K2 and K3 launch counts under that
+core; phases ``k2`` and ``k3`` fail unless every recorded K2 and K3 call
+of a main path has bf16 inputs.
 
 Every phase prints one JSON line; any failure exits non-zero without the
 ``ok`` line. Without a GPU, or without the package beside this file, the
@@ -175,17 +178,25 @@ def emit(obj: dict) -> None:
     print(json.dumps(obj), flush=True)
 
 
-def tensor_core_check(where: str) -> dict:
-    """Launches of K2 and K3 by core since the counts were reset; raises
-    unless every one ran on the tensor cores (the bf16 main paths)."""
-    from nerf_downstream_tpu_torch.ops import kernels
+def tensor_core_check(where: str, model, counts: dict) -> dict:
+    """K2's and K3's launches in ``counts`` by core. The input type picks
+    the core and every conv casts its inputs to its compute type: raises
+    unless every conv of ``model`` computes in bf16 (the tensor cores)."""
+    import torch
 
-    cores = kernels.core_counts()
-    for name, by in cores.items():
-        if by["cuda"]:
-            raise PhaseError(f"{where}: {by['cuda']} launches of {name} on "
-                             "the CUDA cores, want the tensor cores")
-    return cores
+    from nerf_downstream_tpu_torch.models.mink.layers import (
+        SparseConv,
+        SparseConvTranspose,
+    )
+    from nerf_downstream_tpu_torch.ops.kernels import tc
+
+    types = {m.compute_dtype for m in model.modules()
+             if isinstance(m, (SparseConv, SparseConvTranspose))}
+    if types != {torch.bfloat16}:
+        raise PhaseError(f"{where}: convs compute in {types}, want bf16")
+    core = tc.gather_choice(torch.bfloat16, 0, 8, 8, 1).describe()["core"]
+    return {core: {k: counts[k] for k in ("window_gather_matmul",
+                                          "window_bwd")}}
 
 
 def device_rows(prof, n: int) -> list[tuple[float, float, str]]:
@@ -466,17 +477,6 @@ def bound(nbytes: int, flops: int, dtype) -> tuple[float, str]:
                                        else "operations")
 
 
-def bf16_steps(a, b):
-    """How many bf16 values lie between bf16 tensors a and b, elementwise
-    (0: equal; +0 and -0 are one value)."""
-    import torch
-
-    def key(x):  # the bit patterns, ordered as the values are
-        i = x.contiguous().view(torch.int16).to(torch.int32)
-        return torch.where(i < 0, -(i & 0x7FFF), i)
-    return (key(a) - key(b)).abs()
-
-
 def dfeats_bad(got, want, dtype) -> int:
     """Elements of d_feats outside DFEATS_TOL against the f32 plain sum."""
     rtol, atol = DFEATS_TOL[str(dtype).replace("torch.", "")]
@@ -543,7 +543,7 @@ def phase_serve(card: str, requests: dict, dtype) -> tuple[dict, dict]:
                 raise PhaseError(f"{preset}: non-finite loss")
             rows.append(int(valid.sum()))
         counts = kernels.launch_counts()
-        cores = tensor_core_check(preset)
+        cores = tensor_core_check(preset, model, counts)
         for name in WINDOW_KERNELS:
             if counts[name] <= 0:
                 raise PhaseError(f"{preset}: kernel {name} never launched")
@@ -734,6 +734,9 @@ def phase_k2(rec) -> tuple[dict, dict]:
         kernel_ms, plain_ms, bound_ms, composite_ms = (
             kernel_ms + t_k, plain_ms + t_p, bound_ms + b, composite_ms + t_c)
         choice = tc.gather_choice(feats.dtype, nt * tile, c, cout, g * m)
+        if choice.core != "tensor":
+            raise PhaseError(f"K2 at {key} of the bf16 forward has "
+                             f"{feats.dtype} inputs")
         s = shapes.setdefault(str(key), {
             "C": c, "Cout": cout, "G": g, "M": m, "tile": tile,
             "blocks": blocks, "rows": [], "calls": 0, "ms": 0.0,
@@ -837,7 +840,7 @@ def phase_train(card: str, dtype) -> tuple[dict, dict, tuple]:
         times.append((time.perf_counter() - t0) * 1e3)
         losses.append(float(mets["loss"]))
     counts = kernels.launch_counts()
-    cores = tensor_core_check("train_64k")
+    cores = tensor_core_check("train_64k", task.model, counts)
     line = {"phase": "train", "card": card, "preset": "train_64k",
             "dtype": str(dtype), "steps": TRAIN_STEPS,
             "valid_rows": int(batch["mask"].sum()), "ms": times,
@@ -974,6 +977,8 @@ def phase_k3(rec) -> tuple[dict, dict]:
         args = [c3[k] for k in ("g_out", "feats", "inv_starts", "inv_idx",
                                 "w_t")]
         dt = args[0].dtype
+        if {a.dtype for a in (args[0], args[1], args[4])} != {torch.bfloat16}:
+            raise PhaseError("K3 call of the bf16 step without bf16 inputs")
         a32 = [a.float() if a.is_floating_point() else a for a in args]
         want_f, want_w = window_bwd_plain(*a32)
         checks = []
@@ -1471,7 +1476,6 @@ def phase_sparse_eval(card: str) -> tuple[dict, dict, dict]:
             with contextlib.redirect_stdout(log):
                 res = eval3d.main(argv)
             counts = kernels.launch_counts()
-            cores = tensor_core_check(name)
             for k, v in counts.items():
                 launches[k] += v
             # the maps eval3d derived, for the route and launch checks
@@ -1500,7 +1504,6 @@ def phase_sparse_eval(card: str) -> tuple[dict, dict, dict]:
                         if ln.startswith(("num_params", "folded"))],
                 "results": res["results"], "ms": res["ms"],
                 "routes": routes, "launches": counts,
-                "launches_by_core": cores,
                 "launches_per_request": {k: v / SPARSE_BATCHES
                                          for k, v in counts.items()},
                 "offset_map_entries": len(vmap or {}),
@@ -1524,7 +1527,9 @@ def phase_sparse_eval(card: str) -> tuple[dict, dict, dict]:
             kw = dict(sparse_mode=modes, valid_offsets_map=vmap,
                       block_live_map=bmap, block_live_granularity=gran,
                       device="cuda")
+            # built as eval3d.main builds its model (its compute type)
             model = eval3d.build_evaluator("eval_64k", variables, **kw)
+            cfg["launches_by_core"] = tensor_core_check(name, model, counts)
             cfg["request_ms"] = spread(request_times(model, prof_batches,
                                                      SPARSE_REQUESTS))
             cfg["profile"] = profile_requests(model, prof_batches)
@@ -1630,7 +1635,7 @@ def phase_k5(recs: dict) -> tuple[dict, dict]:
     )
 
     configs: dict = {}
-    err32 = err16 = err_k2 = err_k2_32 = 0.0
+    err32 = err16 = err_k2 = 0.0
     differ = 0
     identical = deterministic = True
     for name, calls in recs.items():
@@ -1657,15 +1662,13 @@ def phase_k5(recs: dict) -> tuple[dict, dict]:
             d16 = (got16.float() - want).abs()
             bad16 = int((d16 > K2_BF16_ATOL + K2_BF16_RTOL
                          * want.abs()).sum())
-            # K2 in bf16 (tensor cores) and in f32 on the same values
-            k2 = window_gather_matmul(feats, starts, idx, masked)
+            # K2's f32 call runs K5's CUDA-core core in the same chunk
+            # order and bf16 widens to f32 exactly: K5 in bf16 is that sum
+            # rounded once. K2's bf16 call (tensor cores) only reported.
             k2_32 = window_gather_matmul(f32, starts, idx, masked.float())
-            dk2 = (got16.float() - k2_32).abs()
-            bad_k2 = int((dk2 > K2_BF16_ATOL + K2_BF16_RTOL
-                          * k2_32.abs()).sum())
+            bad_k2 = int((got16 != k2_32.to(torch.bfloat16)).sum())
+            k2 = window_gather_matmul(feats, starts, idx, masked)
             d_bf = (got16.float() - k2.float()).abs()
-            bad_k2 += int(((bf16_steps(got16, k2) > 1)
-                           & (d_bf > K2_BF16_ATOL)).sum())
             differ += int((got16 != k2).sum())
             identical &= bool(torch.equal(got16, k2))
             again = window_gather_matmul_bs(feats, starts, idx, w, live,
@@ -1674,7 +1677,6 @@ def phase_k5(recs: dict) -> tuple[dict, dict]:
             err32 = max(err32, float(d32.max()))
             err16 = max(err16, float(d16.max()))
             err_k2 = max(err_k2, float(d_bf.max()))
-            err_k2_32 = max(err_k2_32, float(dk2.max()))
             t_k = device_ms(lambda: window_gather_matmul_bs(
                 feats, starts, idx, w, live, block, masked=True))
             t_k2 = device_ms(lambda: window_gather_matmul(feats, starts, idx,
@@ -1702,7 +1704,8 @@ def phase_k5(recs: dict) -> tuple[dict, dict]:
             s["bound_ms"] += b
             if bad32 or bad16 or bad_k2:
                 raise PhaseError(f"K5 outside tolerance at {key}: {bad32} "
-                                 f"f32, {bad16} bf16, {bad_k2} against K2")
+                                 f"f32, {bad16} bf16, {bad_k2} differ from "
+                                 "K2's f32 sum rounded to bf16")
         configs[name] = acc
     if not deterministic:
         raise PhaseError("K5: two launches on the same inputs differ")
@@ -1745,7 +1748,8 @@ def phase_k5(recs: dict) -> tuple[dict, dict]:
     head = configs.get("blocks32_csr") or next(iter(configs.values()))
     line = {"phase": "k5", "configs": configs, "crossover": crossover,
             "max_abs_err_f32": err32, "max_abs_err_bf16": err16,
-            "max_abs_err_vs_k2": err_k2, "max_abs_err_vs_k2_f32": err_k2_32,
+            "equal_to_k2_f32_rounded": True,
+            "max_abs_err_vs_k2": err_k2,
             "elements_differing_from_k2": differ,
             "identical_to_k2": identical,
             "deterministic": deterministic,

@@ -40,30 +40,19 @@ from nerf_downstream_tpu_torch.ops.kernels.row_gather import (
 
 KERNELS = (window_match, window_gather_matmul, window_bwd, window_dw,
            window_gather_matmul_bs, row_gather_matmul)
-# kernels with two cores, counting their launches by core
-TWO_CORE = (window_gather_matmul, window_bwd)
 
 
 def reset_launch_counts() -> None:
     for k in KERNELS:
         k.launches = 0
-    for k in TWO_CORE:
-        k.core_launches = dict.fromkeys(k.core_launches, 0)
 
 
 def launch_counts() -> dict[str, int]:
     return {k.__name__: k.launches for k in KERNELS}
 
 
-def core_counts() -> dict[str, dict[str, int]]:
-    """Launches of K2 and K3 by core ("tensor": bf16, "cuda": f32)."""
-    return {k.__name__: dict(k.core_launches) for k in TWO_CORE}
-
-
 __all__ = [
     "KERNELS",
-    "TWO_CORE",
-    "core_counts",
     "launch_counts",
     "reset_launch_counts",
     "row_gather_matmul",

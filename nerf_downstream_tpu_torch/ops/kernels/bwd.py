@@ -14,8 +14,7 @@ gathered gradient rows for d_w.
 
 The wrapper dispatches on the device of its tensors: CPU tensors take the
 plain version, CUDA tensors launch the kernel, anything else raises.
-``window_bwd.launches`` counts kernel launches, and
-``window_bwd.core_launches`` the same launches by core.
+``window_bwd.launches`` counts kernel launches.
 """
 
 from __future__ import annotations
@@ -114,9 +113,7 @@ def window_bwd(g_out, feats, inv_starts, inv_idx, w_t):
     if err != 0:
         raise RuntimeError(f"window_bwd launch failed: CUDA error {err}")
     window_bwd.launches += 1
-    window_bwd.core_launches[choice.core] += 1
     return d_feats, d_w
 
 
 window_bwd.launches = 0
-window_bwd.core_launches = {"tensor": 0, "cuda": 0}

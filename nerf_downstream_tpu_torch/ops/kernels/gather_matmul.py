@@ -9,8 +9,7 @@ the CUDA cores, with the column tile and term split of ``tc.py``;
 
 The wrapper dispatches on the device of its tensors: CPU tensors take the
 plain version, CUDA tensors launch the kernel, anything else raises.
-``window_gather_matmul.launches`` counts kernel launches, and
-``window_gather_matmul.core_launches`` the same launches by core.
+``window_gather_matmul.launches`` counts kernel launches.
 """
 
 from __future__ import annotations
@@ -101,9 +100,7 @@ def window_gather_matmul(feats, starts, idx, w):
             f"window_gather_matmul launch failed: CUDA error {err}"
         )
     window_gather_matmul.launches += 1
-    window_gather_matmul.core_launches[choice.core] += 1
     return out
 
 
 window_gather_matmul.launches = 0
-window_gather_matmul.core_launches = {"tensor": 0, "cuda": 0}
