@@ -44,9 +44,10 @@ paths give it. Phases:
    device augmentation against its distribution (per-scene gate rates of
    the jitter and the elastic warp, the jitter's noise moments);
 8. k3 / k4: every K3 and K4 call of one more recorded step against the
-   plain versions, in f32 and in bf16. d_feats: as K2 (rtol 1e-5 in f32,
-   2^-8 in bf16 against the f32 plain version), with the absolute term
-   scaled by the largest value (gradients of a mean loss over 62,400
+   plain versions, in f32 and in bf16 (both on the tensor cores in bf16:
+   every recorded call must have bf16 inputs). d_feats: as K2 (rtol 1e-5
+   in f32, 2^-8 in bf16 against the f32 plain version), with the absolute
+   term scaled by the largest value (gradients of a mean loss over 62,400
    points are small). d_w is an f32 sum over up to 65,536 rows whose
    plain version takes the same inputs (bf16 ones cast up exactly), so
    only the order and fusing of the f32 sums differs: within 1e-5 x
@@ -55,7 +56,8 @@ paths give it. Phases:
    two launches on the same inputs bit-identical. Per K3 shape: the
    cores, d_feats' column tile and term split, d_w's tiles, the roofline
    share, and the d_feats half timed alone (K2's wrapper on the inverse
-   plan);
+   plan); per K4 call: the core, its tiles and row chunks, and the
+   roofline share;
 9. train_model: one f32 ``train_8k`` step (one scene at 8k rows),
    kernel path against plain path: the loss within 1e-5 relative and the
    running statistics within 1e-4 relative and 1e-5 absolute, from whole
@@ -84,30 +86,30 @@ paths give it. Phases:
     guard: the request of seed 0 whose first down conv overflows its
     window coverage (in the reference too) must come out all NaN;
 11. k5: every K5 call of one recorded forward at granularity 128 and at
-    32 against its plain version (rtol 1e-5 in f32, 2^-8 in bf16 against
-    the f32 sum), against K2 on the spec-masked weights, two launches
-    bit-identical. K2's f32 call runs K5's CUDA-core core in the same
-    chunk order, so K5's bf16 output must equal K2's f32 output on the
-    same values rounded once to bf16, bit for bit; K2's bf16 call runs
-    the tensor cores, and ``identical_to_k2`` and
-    ``elements_differing_from_k2`` only report how far K5's bits are from
-    it. K5 against K2 on the same plans at
-    10, 25, 50 and 75 % dead blocks (the dead-block crossover). K5 is
-    timed as one launch on weights already zero on every dead block (the
-    block tier keeps them so; ``masked=True``), as K2 is on the same
-    weights;
+    32 (each with bf16 inputs, so on the tensor cores) against its plain
+    version (rtol 1e-5 in f32, 2^-8 in bf16 against the f32 sum) and
+    against K2 on the spec-masked weights: K5 runs K2's core (tensor
+    cores in bf16, CUDA cores in f32) with K2's column tile and term
+    split and only skips steps that add exact zeros, so in both types it
+    must equal K2's output bit for bit; two launches bit-identical. Per
+    shape: the core, column tile and split, the share of the (term,
+    32-channel chunk, column tile) steps the spec keeps, K5 and K2 ms and
+    the roofline share. K5 against K2 on the same plans at 10, 25, 50 and
+    75 % dead blocks (the dead-block crossover). K5 is timed as one
+    launch on weights already zero on every dead block (the block tier
+    keeps them so; ``masked=True``), as K2 is on the same weights;
 12. k6: every K6 call of one recorded ZAXIS forward and one offset-pruned
     forward against its plain version (rtol 1e-5; bf16 inputs, f32
     output), two launches bit-identical;
 13. the ``kernels`` line, the card line, and the ``ok`` line.
 
 On the main paths (``serve``, ``train``, ``sparse_eval``, all bf16) every
-K2 and K3 launch must run on the tensor cores. The input type is the
-only switch (``tc.gather_choice``) and every conv casts its inputs to its
-compute type, so each phase fails unless every conv of its model
-computes in bf16, and reports its K2 and K3 launch counts under that
-core; phases ``k2`` and ``k3`` fail unless every recorded K2 and K3 call
-of a main path has bf16 inputs.
+K2, K3, K4 and K5 launch must run on the tensor cores. The input type is
+the only switch (``tc.gather_choice``, ``tc.dw_choice``) and every conv
+casts its inputs to its compute type, so each phase fails unless every
+conv of its model computes in bf16, and reports its K2-K5 launch counts
+under that core; phases ``k2``-``k5`` fail unless every recorded call of
+their kernel on a main path has bf16 inputs.
 
 Every phase prints one JSON line; any failure exits non-zero without the
 ``ok`` line. Without a GPU, or without the package beside this file, the
@@ -168,6 +170,9 @@ PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 
 WINDOW_KERNELS = ("window_match", "window_gather_matmul")
 TRAIN_KERNELS = WINDOW_KERNELS + ("window_bwd", "window_dw")
+# the kernels whose bf16 calls run on the tensor cores
+TENSOR_CORE_KERNELS = ("window_gather_matmul", "window_bwd", "window_dw",
+                       "window_gather_matmul_bs")
 
 
 class PhaseError(RuntimeError):
@@ -179,7 +184,7 @@ def emit(obj: dict) -> None:
 
 
 def tensor_core_check(where: str, model, counts: dict) -> dict:
-    """K2's and K3's launches in ``counts`` by core. The input type picks
+    """The launches in ``counts`` of K2-K5 by core. The input type picks
     the core and every conv casts its inputs to its compute type: raises
     unless every conv of ``model`` computes in bf16 (the tensor cores)."""
     import torch
@@ -194,9 +199,7 @@ def tensor_core_check(where: str, model, counts: dict) -> dict:
              if isinstance(m, (SparseConv, SparseConvTranspose))}
     if types != {torch.bfloat16}:
         raise PhaseError(f"{where}: convs compute in {types}, want bf16")
-    core = tc.gather_choice(torch.bfloat16, 0, 8, 8, 1).describe()["core"]
-    return {core: {k: counts[k] for k in ("window_gather_matmul",
-                                          "window_bwd")}}
+    return {tc.TENSOR_CORES: {k: counts[k] for k in TENSOR_CORE_KERNELS}}
 
 
 def device_rows(prof, n: int) -> list[tuple[float, float, str]]:
@@ -1020,14 +1023,9 @@ def phase_k3(rec) -> tuple[dict, dict]:
             "bound_by": by, "present": 0,
             "core": {"d_feats": tc.gather_choice(dt, nt * tile, cout, c,
                                                  g * m).describe(),
-                     "d_w": ({"core": "tensor cores (mma.sync bf16, f32 "
-                                      "accumulation)",
-                              "tiles": list(tc.dw_tiles(c, cout)),
-                              "row_chunks": -(-nt * tile // tc.dw_chunk_rows(
-                                  nt * tile, c, cout, g * m))}
-                             if dt == torch.bfloat16 else
-                             {"core": "cuda cores (f32 fmaf)"})},
-            "core_f32": "cuda cores (f32 fmaf)"})
+                     "d_w": tc.dw_choice(dt, nt * tile, c, cout,
+                                         g * m).describe(nt * tile)},
+            "core_f32": tc.CUDA_CORES})
         s["calls"] += 1
         s["ms"] += t_k
         s["d_feats_ms"] += t_f
@@ -1066,6 +1064,7 @@ def phase_k4(rec) -> tuple[dict, dict]:
     import torch
 
     from nerf_downstream_tpu_torch.ops.kernels import (
+        tc,
         window_dw,
         window_dw_plain,
     )
@@ -1076,6 +1075,8 @@ def phase_k4(rec) -> tuple[dict, dict]:
     kernel_ms = plain_ms = bound_ms = 0.0
     by = "bytes"
     for args in rec.k4:
+        if {args[0].dtype, args[3].dtype} != {torch.bfloat16}:
+            raise PhaseError("K4 call of the bf16 step without bf16 inputs")
         a32 = [a.float() if a.is_floating_point() else a for a in args]
         want = window_dw_plain(*a32)
         rels = {}
@@ -1091,23 +1092,34 @@ def phase_k4(rec) -> tuple[dict, dict]:
         kernel_ms, plain_ms, bound_ms = (kernel_ms + t_k, plain_ms + t_p,
                                          bound_ms + b)
         feats, starts, idx, g_out = args
-        calls.append({"C": feats.shape[1], "Cout": g_out.shape[1],
-                      "G": idx.shape[0], "M": idx.shape[2],
+        g, nt, m, tile = idx.shape
+        c, cout = feats.shape[1], g_out.shape[1]
+        calls.append({"C": c, "Cout": cout, "G": g, "M": m,
                       "rows": g_out.shape[0],
                       "present": present_entries(starts, idx,
                                                  feats.shape[0]),
+                      "core": tc.dw_choice(feats.dtype, nt * tile, c, cout,
+                                           g * m).describe(nt * tile),
+                      "core_f32": tc.dw_choice(torch.float32, nt * tile, c,
+                                               cout, g * m)
+                      .describe(nt * tile),
                       "ms": t_k, "plain_ms": t_p, "bound_ms": b,
-                      "bound_by": by, "d_w_of_max": rels})
+                      "bound_by": by, "roofline_share": b / t_k,
+                      "d_w_of_max": rels})
         if not max(rels.values()) <= DW_TOL:
             raise PhaseError(f"K4 outside tolerance: {calls[-1]}")
+    if not deterministic:
+        raise PhaseError("K4: two launches on the same inputs differ")
     line = {"phase": "k4", "calls": calls, "max_abs_err": err,
             "deterministic": deterministic, "ms": kernel_ms,
             "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "roofline_share": bound_ms / kernel_ms,
             "tolerance": {"d_w_of_max": DW_TOL}}
     return line, {"max_abs_err": err["f32"], "max_abs_err_bf16": err["bf16"],
                   "deterministic": deterministic, "ms": kernel_ms,
                   "plain_ms": plain_ms, "bound_ms": bound_ms,
-                  "bound_by": by, "calls_per_step": len(rec.k4)}
+                  "bound_by": by, "core": "tensor cores (bf16), CUDA cores "
+                  "(f32)", "calls_per_step": len(rec.k4)}
 
 
 def grad_gap(grads, ref) -> float:
@@ -1629,21 +1641,27 @@ def phase_k5(recs: dict) -> tuple[dict, dict]:
 
     from nerf_downstream_tpu_torch.ops.kernels import (
         gather_matmul_bs,
+        tc,
         window_gather_matmul,
         window_gather_matmul_bs,
         window_gather_matmul_bs_plain,
     )
 
     configs: dict = {}
-    err32 = err16 = err_k2 = 0.0
-    differ = 0
-    identical = deterministic = True
+    err32 = err16 = 0.0
+    deterministic = True
     for name, calls in recs.items():
         acc = {"calls": len(calls), "ms": 0.0, "plain_ms": 0.0,
                "k2_masked_ms": 0.0, "bound_ms": 0.0, "bytes_bound_ms": 0.0,
                "shapes": {}}
         for feats, starts, idx, w, live, block in calls:
             c, cout = w.shape[-2:]
+            g, nt, m, tile = idx.shape
+            key = f"{feats.shape[0]}x{c}->{nt * tile}x{cout} G{g} M{m}"
+            choice = tc.gather_choice(feats.dtype, nt * tile, c, cout, g * m)
+            if choice.core != "tensor":
+                raise PhaseError(f"K5 at {key} of the bf16 forward has "
+                                 f"{feats.dtype} inputs")
             # the block tier keeps its weights zero on every dead block, so
             # the wrapper launches K5 alone (masked=True), as K2 is timed
             masked = (w * gather_matmul_bs.live_mask(live, block, c, cout)
@@ -1662,21 +1680,18 @@ def phase_k5(recs: dict) -> tuple[dict, dict]:
             d16 = (got16.float() - want).abs()
             bad16 = int((d16 > K2_BF16_ATOL + K2_BF16_RTOL
                          * want.abs()).sum())
-            # K2's f32 call runs K5's CUDA-core core in the same chunk
-            # order and bf16 widens to f32 exactly: K5 in bf16 is that sum
-            # rounded once. K2's bf16 call (tensor cores) only reported.
-            k2_32 = window_gather_matmul(f32, starts, idx, masked.float())
-            bad_k2 = int((got16 != k2_32.to(torch.bfloat16)).sum())
+            # K5 is K2's core with K2's tile and split, skipping only steps
+            # that add exact zeros: equal to K2 on the masked weights, bit
+            # for bit, in each type
+            k2_32 = window_gather_matmul(f32, starts, idx, w32)
             k2 = window_gather_matmul(feats, starts, idx, masked)
-            d_bf = (got16.float() - k2.float()).abs()
-            differ += int((got16 != k2).sum())
-            identical &= bool(torch.equal(got16, k2))
+            bad_k2 = {"f32": int((got != k2_32).sum()),
+                      "bf16": int((got16 != k2).sum())}
             again = window_gather_matmul_bs(feats, starts, idx, w, live,
                                             block, masked=True)
             deterministic &= bool(torch.equal(again, got16))
             err32 = max(err32, float(d32.max()))
             err16 = max(err16, float(d16.max()))
-            err_k2 = max(err_k2, float(d_bf.max()))
             t_k = device_ms(lambda: window_gather_matmul_bs(
                 feats, starts, idx, w, live, block, masked=True))
             t_k2 = device_ms(lambda: window_gather_matmul(feats, starts, idx,
@@ -1690,22 +1705,26 @@ def phase_k5(recs: dict) -> tuple[dict, dict]:
             acc["k2_masked_ms"] += t_k2
             acc["bound_ms"] += b
             acc["bytes_bound_ms"] += b if by == "bytes" else 0.0
-            key = f"{feats.shape[0]}x{c}->{idx.shape[1] * idx.shape[3]}x" \
-                  f"{cout} G{idx.shape[0]} M{idx.shape[2]}"
             s = acc["shapes"].setdefault(key, {
-                "calls": 0, "block": block, "dead_share": 0.0, "ms": 0.0,
-                "k2_masked_ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
-                "bound_by": by})
+                "calls": 0, "block": block, "dead_share": 0.0,
+                "core": choice.describe(),
+                "live_step_share": gather_matmul_bs.live_step_share(
+                    live, block, c, cout, choice.column_tile),
+                "ms": 0.0, "k2_masked_ms": 0.0, "plain_ms": 0.0,
+                "bound_ms": 0.0, "bound_by": by})
             s["calls"] += 1
             s["dead_share"] = 1.0 - float(live.float().mean())
             s["ms"] += t_k
             s["k2_masked_ms"] += t_k2
             s["plain_ms"] += t_p
             s["bound_ms"] += b
-            if bad32 or bad16 or bad_k2:
+            s["roofline_share"] = s["bound_ms"] / s["ms"]
+            s["k5_over_k2"] = s["ms"] / s["k2_masked_ms"]
+            if bad32 or bad16 or any(bad_k2.values()):
                 raise PhaseError(f"K5 outside tolerance at {key}: {bad32} "
-                                 f"f32, {bad16} bf16, {bad_k2} differ from "
-                                 "K2's f32 sum rounded to bf16")
+                                 f"f32, {bad16} bf16 elements; differing "
+                                 f"from K2 on the masked weights {bad_k2}")
+        acc["roofline_share"] = acc["bound_ms"] / acc["ms"]
         configs[name] = acc
     if not deterministic:
         raise PhaseError("K5: two launches on the same inputs differ")
@@ -1744,19 +1763,19 @@ def phase_k5(recs: dict) -> tuple[dict, dict]:
                 "rows": idx.shape[1] * idx.shape[3], "C": c, "Cout": cout,
                 "block": block, "dead_share": 1.0 - float(spec.float()
                                                           .mean()),
+                "live_step_share": gather_matmul_bs.live_step_share(
+                    spec, block, c, cout, tc.column_tile(c, cout)),
                 "k2_ms": k2_ms, "k5_ms": k5_ms, "k5_over_k2": k5_ms / k2_ms})
     head = configs.get("blocks32_csr") or next(iter(configs.values()))
     line = {"phase": "k5", "configs": configs, "crossover": crossover,
             "max_abs_err_f32": err32, "max_abs_err_bf16": err16,
-            "equal_to_k2_f32_rounded": True,
-            "max_abs_err_vs_k2": err_k2,
-            "elements_differing_from_k2": differ,
-            "identical_to_k2": identical,
+            "equal_to_k2": {"f32": True, "bf16": True},
             "deterministic": deterministic,
             "tolerance": {"f32": [K2_F32_TOL, K2_F32_TOL],
                           "bf16": [K2_BF16_ATOL, K2_BF16_RTOL]}}
     return line, {"max_abs_err": err32, "max_abs_err_bf16": err16,
-                  "max_abs_err_vs_k2": err_k2, "identical_to_k2": identical,
+                  "equal_to_k2_on_masked_weights": True,
+                  "core": "tensor cores (bf16), CUDA cores (f32)",
                   "deterministic": deterministic, "ms": head["ms"],
                   "plain_ms": head["plain_ms"],
                   "k2_masked_ms": head["k2_masked_ms"],

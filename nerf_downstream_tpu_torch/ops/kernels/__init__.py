@@ -8,9 +8,10 @@ K1 ``window_match`` (``match.py``, ``window_match.cu``), K2
 ``window_bwd.cu``), K4 ``window_dw`` (``dw.py``, ``window_dw.cu``), K5
 ``window_gather_matmul_bs`` (``gather_matmul_bs.py``,
 ``window_gather_matmul_bs.cu``) and K6 ``row_gather_matmul``
-(``row_gather.py``, ``row_gather_matmul.cu``). K2 and K3 run bfloat16
-inputs on the tensor cores (``window_gather_tc.cuh``, ``window_dw_tc.cuh``;
-launch choices in ``tc.py``) and float32 inputs on the CUDA cores.
+(``row_gather.py``, ``row_gather_matmul.cu``). K2, K3, K4 and K5 run
+bfloat16 inputs on the tensor cores (``window_gather_tc.cuh``, K5 with a
+liveness policy; ``window_dw_tc.cuh``; launch choices in ``tc.py``) and
+float32 inputs on the CUDA cores; K1 and K6 run on the CUDA cores.
 """
 
 from nerf_downstream_tpu_torch.ops.kernels.bwd import (

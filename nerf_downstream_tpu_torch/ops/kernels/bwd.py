@@ -90,11 +90,10 @@ def window_bwd(g_out, feats, inv_starts, inv_idx, w_t):
     d_w = torch.empty((g_count, m, c, cout), dtype=torch.float32, device=dev)
     # d_feats is K2's core on g_out: input width cout, output width c
     choice = tc.gather_choice(dt, n_in, cout, c, g_count * m)
-    rows_per, part = dw_scratch(
-        n_in, d_w.shape, dev,
-        tc.dw_chunk_rows(n_in, c, cout, g_count * m)
-        if choice.core == "tensor" else None)
-    bc, bo = tc.dw_tiles(c, cout)
+    dw_choice = tc.dw_choice(dt, n_in, c, cout, g_count * m)
+    rows_per = dw_choice.chunk_rows
+    part = dw_scratch(n_in, d_w.shape, dev, rows_per)
+    bc, bo = dw_choice.tiles
     if choice.core == "tensor" and tc.vector_ok(c, cout):
         tc.check_aligned("window_bwd", g_out, feats, w_t)
     fpart = (torch.empty(choice.scratch_numel(n_in, c), dtype=torch.float32,

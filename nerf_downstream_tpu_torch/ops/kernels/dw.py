@@ -3,10 +3,13 @@ input takes no gradient (the stem conv).
 
 Replaces the Pallas TPU kernel ``window_dw_pallas``
 (``nerf_downstream_tpu/ops/pallas/window_gather.py:590``). The CUDA kernel
-is ``window_dw.cu`` (device code in ``window_dw.cuh``, shared with K3; its
-header states the bound on the H100 and the design); ``window_dw_plain``
-is the same function in plain PyTorch, mirroring the reference's
-``_window_dw`` (``nerf_downstream_tpu/ops/window_conv.py:716``).
+is ``window_dw.cu`` (its header states the bound on the H100 and the
+design): bfloat16 inputs run K3's tensor-core d_w (``window_dw_tc.cuh``)
+with the features as the gathered side, float32 ones the CUDA-core d_w
+(``window_dw.cuh``), with the tiles and row chunks of
+``tc.dw_choice``; ``window_dw_plain`` is the same function in plain
+PyTorch, mirroring the reference's ``_window_dw``
+(``nerf_downstream_tpu/ops/window_conv.py:716``).
 
 The wrapper dispatches on the device of its tensors: CPU tensors take the
 plain version, CUDA tensors launch the kernel, anything else raises.
@@ -19,39 +22,28 @@ import ctypes
 
 import torch
 
-from nerf_downstream_tpu_torch.ops.kernels import build
+from nerf_downstream_tpu_torch.ops.kernels import build, tc
 
 DTYPES = (torch.float32, torch.bfloat16)
-# d_w is summed over row chunks of about CHUNK_ROWS rows, at most
-# MAX_CHUNKS of them, each written to its own f32 partial and added in a
-# fixed order (window_dw.cuh)
-CHUNK_ROWS = 2048
-MAX_CHUNKS = 16
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # feats, n_in, c, starts, idx, g_out, cout, groups, n_tiles, members, tile,
-# chunk_rows, part, d_w, bf16, stream
-_ARGTYPES = (_P, _I, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _I, _P)
-
-
-def chunk_rows(rows: int) -> int:
-    """Rows per d_w partial for a reduction over ``rows`` rows: a multiple
-    of 64, about ``CHUNK_ROWS``, at most ``MAX_CHUNKS`` chunks."""
-    chunks = max(1, min(MAX_CHUNKS, -(-rows // CHUNK_ROWS)))
-    per = -(-rows // chunks)
-    return max(64, -(-per // 64) * 64)
+# chunk_rows, part, d_w, bf16, bc, bo, stream
+_ARGTYPES = (_P, _I, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _I, _I,
+             _I, _P)
 
 
 def dw_scratch(rows: int, d_w_shape, device,
-               per: int | None = None) -> tuple[int, torch.Tensor]:
-    """(chunk rows, f32 scratch for the per-chunk partials of d_w), with
-    ``per`` rows per chunk (default ``chunk_rows(rows)``)."""
-    per = per or chunk_rows(rows)
+               per: int) -> torch.Tensor:
+    """f32 scratch for the partials of d_w over ``rows`` rows in chunks
+    of ``per`` rows (one element when there is one chunk: the kernel then
+    writes d_w itself). d_w is summed per chunk, each partial added in a
+    fixed order afterwards (``dw_reduce_kernel``)."""
     chunks = -(-rows // per)
     numel = 1
     for s in d_w_shape:
         numel *= s
-    return per, torch.empty(numel * chunks if chunks > 1 else 1,
-                            dtype=torch.float32, device=device)
+    return torch.empty(numel * chunks if chunks > 1 else 1,
+                       dtype=torch.float32, device=device)
 
 
 def gathered_rows(src, starts, idx, g: int, j: int) -> torch.Tensor:
@@ -104,15 +96,19 @@ def window_dw(feats, starts, idx, g_out):
         (g_out, "g_out", feats.dtype, (nt * tile, cout)),
     ))
     d_w = torch.empty((g_count, m, c, cout), dtype=torch.float32, device=dev)
-    per, part = dw_scratch(nt * tile, d_w.shape, dev)
+    choice = tc.dw_choice(feats.dtype, nt * tile, c, cout, g_count * m)
+    part = dw_scratch(nt * tile, d_w.shape, dev, choice.chunk_rows)
+    if choice.core == "tensor" and tc.vector_ok(c, cout):
+        tc.check_aligned("window_dw", feats, g_out)
+    bc, bo = choice.tiles
     fn = build.function("window_dw", "window_dw_launch", _ARGTYPES)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(
             feats.data_ptr(), n_in, c, starts.data_ptr(), idx.data_ptr(),
-            g_out.data_ptr(), cout, g_count, nt, m, tile, per,
-            part.data_ptr(), d_w.data_ptr(),
-            int(feats.dtype == torch.bfloat16), stream,
+            g_out.data_ptr(), cout, g_count, nt, m, tile, choice.chunk_rows,
+            part.data_ptr(), d_w.data_ptr(), int(choice.core == "tensor"),
+            bc, bo, stream,
         )
     if err != 0:
         raise RuntimeError(f"window_dw launch failed: CUDA error {err}")

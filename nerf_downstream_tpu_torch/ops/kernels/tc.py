@@ -1,11 +1,12 @@
-"""Launch choices of the bf16 tensor-core path of K2 and K3.
+"""Launch choices of the gather-matmul and d_w kernels (K2, K3, K4, K5).
 
-bfloat16 calls of K2 (``window_gather_matmul``) and of both halves of K3
-(``window_bwd``) run on the tensor cores (``window_gather_tc.cuh``,
-``window_dw_tc.cuh``); float32 calls stay on the CUDA-core code. The
-input type is the only switch. Everything the kernels need beyond the
-tensors is chosen here, from the shapes alone, so that the CPU tests can
-check it:
+bfloat16 calls of K2 (``window_gather_matmul``), of both halves of K3
+(``window_bwd``), of K4 (``window_dw``) and of K5
+(``window_gather_matmul_bs``) run on the tensor cores
+(``window_gather_tc.cuh``, ``window_dw_tc.cuh``); float32 calls stay on
+the CUDA-core code. The input type is the only switch. Everything the
+kernels need beyond the tensors is chosen here, from the shapes alone, so
+that the CPU tests can check it:
 
 - the column tile of the gather-matmul core (``column_tile``): the width
   among 32, 64, 96 and 128 that pads Cout least (the larger on a tie), so
@@ -14,12 +15,15 @@ check it:
 - the split of the G x M terms over blocks (``term_split``): where the
   (rows / 64) x (Cout / tile) blocks would leave SMs idle, the terms go
   in contiguous runs to up to ``MAX_SPLIT`` blocks per output tile, whose
-  f32 partials a second kernel adds in a fixed order;
+  f32 partials a second kernel adds in a fixed order; K5 takes K2's tile
+  and split (``gather_choice``), so its sums are K2's;
 - the d_w tiles (``dw_tiles``), each among 32, 64 and 96 by the same rule,
   and d_w's rows per chunk (``dw_chunk_rows``): each chunk's f32 partial
   is added in a fixed order afterwards, so more chunks mean more blocks
   in flight; enough for about ``DW_TARGET_WARPS`` warps, and at most
-  ``DW_MAX_CHUNK_ROWS`` rows each.
+  ``DW_MAX_CHUNK_ROWS`` rows each (``dw_choice``; float32 d_w: 64 x 64
+  tiles and at most ``F32_DW_MAX_CHUNKS`` chunks of about
+  ``F32_DW_CHUNK_ROWS`` rows).
 """
 
 from __future__ import annotations
@@ -39,6 +43,10 @@ DW_TARGET_WARPS = 2048  # warps of the d_w grid: about 16 per SM
 DW_MAX_CHUNK_ROWS = 8192
 DW_MIN_CHUNK_ROWS = 128
 DW_MAX_CHUNKS = 128  # scratch <= 128 x the size of d_w
+F32_DW_CHUNK_ROWS = 2048  # CUDA-core d_w: about this many rows a chunk,
+F32_DW_MAX_CHUNKS = 16  # in at most this many chunks
+TENSOR_CORES = "tensor cores (mma.sync bf16, f32 accumulation)"
+CUDA_CORES = "cuda cores (f32 fmaf)"
 
 
 def vector_ok(c: int, cout: int) -> bool:
@@ -106,21 +114,54 @@ class CoreChoice:
 
     def describe(self) -> dict:
         if self.core == "cuda":
-            return {"core": "cuda cores (f32 fmaf)"}
-        return {"core": "tensor cores (mma.sync bf16, f32 accumulation)",
-                "column_tile": self.column_tile, "split": self.parts,
-                "terms_per_part": self.per}
+            return {"core": CUDA_CORES}
+        return {"core": TENSOR_CORES, "column_tile": self.column_tile,
+                "split": self.parts, "terms_per_part": self.per}
 
 
 def gather_choice(dtype, n_out: int, c: int, cout: int,
                   n_terms: int) -> CoreChoice:
-    """The core, column tile and term split of a K2 call (or of K3's
-    d_feats half) on ``dtype`` inputs with [n_out, cout] output."""
+    """The core, column tile and term split of a K2 or K5 call (or of
+    K3's d_feats half) on ``dtype`` inputs with [n_out, cout] output."""
     if dtype != torch.bfloat16:
         return CoreChoice("cuda")
     bn = column_tile(c, cout)
     parts, per = term_split(n_out, cout, n_terms, bn)
     return CoreChoice("tensor", bn, parts, per)
+
+
+@dataclasses.dataclass(frozen=True)
+class DwChoice:
+    """How a d_w call (K4, or K3's d_w half) runs: ``core`` "tensor"
+    (bf16) or "cuda" (float32), its (C tile, Cout tile) and its rows per
+    f32 partial."""
+
+    core: str
+    tiles: tuple[int, int]
+    chunk_rows: int
+
+    def chunks(self, rows: int) -> int:
+        return -(-rows // self.chunk_rows)
+
+    def describe(self, rows: int) -> dict:
+        return {"core": TENSOR_CORES if self.core == "tensor" else CUDA_CORES,
+                "tiles": list(self.tiles), "chunk_rows": self.chunk_rows,
+                "row_chunks": self.chunks(rows)}
+
+
+def dw_choice(dtype, rows: int, c: int, cout: int,
+              n_terms: int) -> DwChoice:
+    """The core, tiles and row chunks of a d_w call over ``rows`` rows on
+    ``dtype`` inputs: bf16 on the tensor cores (``dw_tiles``,
+    ``dw_chunk_rows``); float32 on the CUDA cores in 64 x 64 tiles, about
+    ``F32_DW_CHUNK_ROWS`` rows a chunk (a multiple of 64), at most
+    ``F32_DW_MAX_CHUNKS`` chunks."""
+    if dtype == torch.bfloat16:
+        return DwChoice("tensor", dw_tiles(c, cout),
+                        dw_chunk_rows(rows, c, cout, n_terms))
+    chunks = max(1, min(F32_DW_MAX_CHUNKS, -(-rows // F32_DW_CHUNK_ROWS)))
+    per = -(-rows // chunks)
+    return DwChoice("cuda", (64, 64), max(64, -(-per // 64) * 64))
 
 
 def check_aligned(name: str, *tensors) -> None:

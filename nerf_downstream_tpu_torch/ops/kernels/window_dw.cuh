@@ -1,7 +1,7 @@
 // Device code of the weight gradient of a windowed sparse convolution,
-// on the CUDA cores, shared by K4 (window_dw.cu, over the forward plan)
-// and the float32 calls of K3 (window_bwd.cu, over the inverse plan; its
-// bfloat16 calls run window_dw_tc.cuh):
+// on the CUDA cores, run by the float32 calls of K4 (window_dw.cu, over
+// the forward plan) and of K3 (window_bwd.cu, over the inverse plan);
+// their bfloat16 calls run window_dw_tc.cuh:
 //
 //   d_w[g, m][c, o] = sum over rows r of x[row_x(r)][c] * y[row_y(r)][o]
 //

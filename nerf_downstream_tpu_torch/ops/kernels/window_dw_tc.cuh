@@ -1,30 +1,35 @@
-// The bf16 tensor-core weight gradient of K3 (window_bwd.cu's d_w half):
+// The bf16 tensor-core weight gradient of K3 (window_bwd.cu's d_w half,
+// over the inverse plan) and of K4 (window_dw.cu, over the forward plan):
 //
-//   d_w[g, m][c, o] = sum over rows r of feats[r][c] * g_out[inv_row(r)][o]
+//   d_w[g, m][c, o] = sum over rows r of x[row_x(r)][c] * y[row_y(r)][o]
 //
-// with inv_row(r) = inv_starts[g, t] + inv_idx[g, t, m, i] for r = t*T + i
-// (nothing when the entry is absent or lands past the n_out rows of
-// g_out). The features are the direct side (row r), the output gradient
-// the gathered side. f32 products and sums; float32 calls and K4 stay on
+// One side is read through the plan (the gathered side: row
+// starts[g, t] + idx[g, t, m, i] for r = t*T + i, nothing when the entry is
+// absent or lands past the n_gather rows of its table), the other at row
+// r (the direct side). kGatherX picks which: K3 reads the features x
+// directly and gathers the output gradient y through the inverse plan;
+// K4 gathers the features through the forward plan and reads the output
+// gradient directly. f32 products and sums; float32 calls stay on
 // window_dw.cuh's CUDA-core kernel.
 //
 // Bound on the H100: operations at the fine levels (2 C Cout FLOP per
-// present entry at 989 TFLOP/s), the block count at the coarse ones.
+// present entry at 989 TFLOP/s), the block count at the coarse ones; K4's
+// stem call (C = 27, Cout = 32) is bound by its bytes.
 //
 // Design. A block owns one (row chunk, g, m, BC-wide C tile, BO-wide Cout
 // tile) slice (BC, BO in {32, 64, 96}, chosen per width by the wrapper)
 // and each warp a 32 x 32 piece of it. The reduction runs over rows, so
-// rows are the k dimension of mma.sync.m16n8k16: the features are staged
-// [rows][C] and the gathered gradient rows [rows][Cout] in shared memory,
-// and both operands come out of ldmatrix.trans (A = feats^T, B = g_out
-// rows). Rows are resolved 1,024 at a time (one bit per 32-row step that
-// has a present row; steps without one are skipped); then a ring of
-// cp.async stages (16-byte pieces, zero fill for absent rows, element by
-// element when a width is not a multiple of 8) feeds one mma step per
-// barrier. Every 4 steps the tensor-core sums are added to the running f32
-// sum with an ordinary rounded add. Each block writes its f32 partial, and
-// window_dw.cuh's dw_reduce_kernel adds the row chunks in a fixed order:
-// d_w is bit-identical from run to run.
+// rows are the k dimension of mma.sync.m16n8k16: x is staged [rows][C]
+// and y [rows][Cout] in shared memory, and both operands come out of
+// ldmatrix.trans (A = x^T, B = y rows). Rows are resolved 1,024 at a time
+// (one bit per 32-row step that has a present row; steps without one are
+// skipped); then a ring of cp.async stages (16-byte pieces, zero fill for
+// absent rows on both sides, element by element when a width is not a
+// multiple of 8) feeds one mma step per barrier. Every 4 steps the
+// tensor-core sums are added to the running f32 sum with an ordinary
+// rounded add. Each block writes its f32 partial, and window_dw.cuh's
+// dw_reduce_kernel adds the row chunks in a fixed order: d_w is
+// bit-identical from run to run.
 
 #pragma once
 
@@ -48,8 +53,9 @@ struct DwSmem {
 };
 
 // Grid: (ceil(c / BC) * ceil(cout / BO), G * M, chunks). Writes the f32
-// partial of its row chunk to part[chunk, g, m] ([c, cout]).
-template <int BC, int BO, bool kVec>
+// partial of its row chunk to part[chunk, g, m] ([c, cout]). kGatherX:
+// x is the gathered side (K4), else y is (K3).
+template <int BC, int BO, bool kVec, bool kGatherX>
 __global__ void __launch_bounds__(BC / 32 * BO)
     dw_mma_kernel(const bf16* __restrict__ x, int c,
                   const bf16* __restrict__ y, int cout, int n_gather,
@@ -124,9 +130,12 @@ __global__ void __launch_bounds__(BC / 32 * BO)
         for (int e = tid; e < kDwBK * (BC / 8); e += kThreads) {
           const int kr = e / (BC / 8);
           const int cc = (e - kr * (BC / 8)) * 8;
-          const bool ok = srow[kr] >= 0 && c0 + cc < c;
+          const int s = srow[kr];
+          const bool ok = s >= 0 && c0 + cc < c;
           cp_async16(xa + kr * S::kXS + cc,
-                     ok ? x + static_cast<long long>(rb + kr) * c + c0 + cc
+                     ok ? x + static_cast<long long>(kGatherX ? s : rb + kr) *
+                                  c +
+                              c0 + cc
                         : x,
                      ok);
         }
@@ -136,7 +145,10 @@ __global__ void __launch_bounds__(BC / 32 * BO)
           const int s = srow[kr];
           const bool ok = s >= 0 && o0 + cc < cout;
           cp_async16(ya + kr * S::kYS + cc,
-                     ok ? y + static_cast<long long>(s) * cout + o0 + cc : y,
+                     ok ? y + static_cast<long long>(kGatherX ? rb + kr : s) *
+                                  cout +
+                              o0 + cc
+                        : y,
                      ok);
         }
       } else {
@@ -151,8 +163,10 @@ __global__ void __launch_bounds__(BC / 32 * BO)
           const int e = tid + j * kThreads;
           const int kr = e / BC;
           const int cc = e - kr * BC;
-          vx[j] = (srow[kr] >= 0 && c0 + cc < c)
-                      ? x[static_cast<long long>(rb + kr) * c + c0 + cc]
+          const int s = srow[kr];
+          vx[j] = (s >= 0 && c0 + cc < c)
+                      ? x[static_cast<long long>(kGatherX ? s : rb + kr) * c +
+                          c0 + cc]
                       : __float2bfloat16(0.f);
         }
 #pragma unroll
@@ -162,7 +176,9 @@ __global__ void __launch_bounds__(BC / 32 * BO)
           const int cc = e - kr * BO;
           const int s = srow[kr];
           vy[j] = (s >= 0 && o0 + cc < cout)
-                      ? y[static_cast<long long>(s) * cout + o0 + cc]
+                      ? y[static_cast<long long>(kGatherX ? rb + kr : s) *
+                              cout +
+                          o0 + cc]
                       : __float2bfloat16(0.f);
         }
 #pragma unroll
@@ -193,7 +209,7 @@ __global__ void __launch_bounds__(BC / 32 * BO)
       const bf16* ya = y_s + slot * kDwBK * S::kYS + wn * 32;
 #pragma unroll
       for (int kk = 0; kk < kDwBK; kk += 16) {
-        // A = feats^T (stored [k = row][m = channel]), B = g_out rows
+        // A = x^T (stored [k = row][m = channel]), B = y rows
         uint32_t af[2][4], bfr[4][2];
         load_a_trans(af, xa + kk * S::kXS, S::kXS, lane);
         load_b_trans(bfr, ya + kk * S::kYS, S::kYS, lane);
@@ -211,13 +227,13 @@ __global__ void __launch_bounds__(BC / 32 * BO)
   store_tile(dst, acc, c0 + wm * 32, o0 + wn * 32, c, cout, lane);
 }
 
-template <int BC, int BO, bool kVec>
+template <int BC, int BO, bool kVec, bool kGatherX>
 int launch_dw_tiles(const bf16* x, int c, const bf16* y, int cout,
                     int n_gather, const int32_t* starts, const int32_t* idx,
                     int groups, int n_tiles, int members, int tile,
                     int chunk_rows, int chunks, float* dst,
                     cudaStream_t stream) {
-  auto kernel = dw_mma_kernel<BC, BO, kVec>;
+  auto kernel = dw_mma_kernel<BC, BO, kVec, kGatherX>;
   constexpr int kBytes = DwSmem<BC, BO>::kBytes;
   int err = static_cast<int>(cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kBytes));
@@ -232,11 +248,14 @@ int launch_dw_tiles(const bf16* x, int c, const bf16* y, int cout,
   return static_cast<int>(cudaGetLastError());
 }
 
-// K3's bf16 d_w [G, M, c, cout] f32: feats [n_tiles * tile, c] direct,
-// g_out [n_gather, cout] gathered through the inverse plan; bc, bo: tiles
-// (32, 64 or 96; 32 and 32 when c or cout is not a multiple of 8); part
-// holds [chunks, G, M, c, cout] f32 (unused with one chunk).
-inline int launch_dw(const void* feats, int c, const void* g_out, int cout,
+// The bf16 d_w [G, M, c, cout] f32 of K3 (kGatherX false: feats
+// [n_tiles * tile, c] direct, g_out [n_gather, cout] gathered through the
+// inverse plan) and of K4 (kGatherX true: feats [n_gather, c] gathered
+// through the forward plan, g_out [n_tiles * tile, cout] direct); bc, bo:
+// tiles (32, 64 or 96; 32 and 32 when c or cout is not a multiple of 8);
+// part holds [chunks, G, M, c, cout] f32 (unused with one chunk).
+template <bool kGatherX = false>
+int launch_dw(const void* feats, int c, const void* g_out, int cout,
                      int n_gather, const int32_t* starts, const int32_t* idx,
                      int groups, int n_tiles, int members, int tile,
                      int chunk_rows, int bc, int bo, float* part, float* d_w,
@@ -259,18 +278,37 @@ inline int launch_dw(const void* feats, int c, const void* g_out, int cout,
                   members, tile, chunk_rows, chunks, dst, stream);
   };
   if (!vec) {
-    if (bc == 32 && bo == 32) err = args(launch_dw_tiles<32, 32, false>);
+    if (bc == 32 && bo == 32)
+      err = args(launch_dw_tiles<32, 32, false, kGatherX>);
   } else {
     switch (bc * 1000 + bo) {
-      case 32032: err = args(launch_dw_tiles<32, 32, true>); break;
-      case 32064: err = args(launch_dw_tiles<32, 64, true>); break;
-      case 32096: err = args(launch_dw_tiles<32, 96, true>); break;
-      case 64032: err = args(launch_dw_tiles<64, 32, true>); break;
-      case 64064: err = args(launch_dw_tiles<64, 64, true>); break;
-      case 64096: err = args(launch_dw_tiles<64, 96, true>); break;
-      case 96032: err = args(launch_dw_tiles<96, 32, true>); break;
-      case 96064: err = args(launch_dw_tiles<96, 64, true>); break;
-      case 96096: err = args(launch_dw_tiles<96, 96, true>); break;
+      case 32032:
+        err = args(launch_dw_tiles<32, 32, true, kGatherX>);
+        break;
+      case 32064:
+        err = args(launch_dw_tiles<32, 64, true, kGatherX>);
+        break;
+      case 32096:
+        err = args(launch_dw_tiles<32, 96, true, kGatherX>);
+        break;
+      case 64032:
+        err = args(launch_dw_tiles<64, 32, true, kGatherX>);
+        break;
+      case 64064:
+        err = args(launch_dw_tiles<64, 64, true, kGatherX>);
+        break;
+      case 64096:
+        err = args(launch_dw_tiles<64, 96, true, kGatherX>);
+        break;
+      case 96032:
+        err = args(launch_dw_tiles<96, 32, true, kGatherX>);
+        break;
+      case 96064:
+        err = args(launch_dw_tiles<96, 64, true, kGatherX>);
+        break;
+      case 96096:
+        err = args(launch_dw_tiles<96, 96, true, kGatherX>);
+        break;
       default: break;
     }
   }

@@ -1,8 +1,9 @@
 // Device code shared by the gather-matmul kernels: typed loads and stores,
-// and one CUDA-core gather-matmul core that K5 (block-sparse windowed
-// forward), K6 (row gather-matmul), and the float32 calls of K2 (windowed
-// forward) and of K3's d_feats half (on the inverse plan) run; their
-// bfloat16 calls run the tensor-core core of window_gather_tc.cuh:
+// and one CUDA-core gather-matmul core that K6 (row gather-matmul, both
+// input types) and the float32 calls of K2 (windowed forward), of K3's
+// d_feats half (on the inverse plan) and of K5 (block-sparse windowed
+// forward) run; the bfloat16 calls of K2, K3 and K5 run the tensor-core
+// core of window_gather_tc.cuh:
 //
 //   out[r] = sum over terms q of src[rows(q, r)] @ w[q]
 //
@@ -11,7 +12,8 @@
 // window plan, rows(gm, t*T + i) = starts[g, t] + idx[g, t, m, i]; absent
 // entries (-1) and ranks that land past the table add nothing. A liveness
 // policy may skip whole terms and 16-channel input chunks per 64-column
-// output tile (K5). The design note is in window_gather_matmul.cu.
+// output tile (K5's float32 calls). The design note is in
+// window_gather_matmul.cu.
 
 #pragma once
 

@@ -1,5 +1,6 @@
-// The bf16 tensor-core gather-matmul core of K2 (windowed forward) and of
-// K3's d_feats half (the same function over the inverse plan):
+// The bf16 tensor-core gather-matmul core of K2 (windowed forward), of
+// K3's d_feats half (the same function over the inverse plan) and of K5
+// (K2 over the live weight blocks):
 //
 //   out[r] = sum over terms q = (g, m) of src[rows(q, r)] @ w[q]
 //
@@ -8,7 +9,7 @@
 // accumulation, one rounding into bf16 (or, when the terms are split over
 // several blocks, f32 partial sums that a second kernel adds in a fixed
 // order and rounds once). float32 calls stay on the CUDA-core core of
-// window_gather.cuh, as do K5 and K6.
+// window_gather.cuh, as do K6's.
 //
 // Bound on the H100 at the model's shapes: operations at the fine, wide
 // levels (2 C Cout FLOP per present plan entry, 989 TFLOP/s of bf16 tensor
@@ -29,11 +30,18 @@
 //   row of each (term, output row) into shared memory, every load in
 //   flight together, and ORs a per-warp bit mask of the terms with any
 //   present row. Terms with none are skipped, as in the CUDA-core core.
-// - Then one flattened loop over (live term, 32-channel chunk) through a
-//   ring of kStages shared-memory stages: cp.async copies of 16 bytes
-//   (8 channels) per gathered row piece and per weight row piece, the
-//   zero-fill form (src-size 0) for absent rows and ragged edges, issued
-//   kStages - 1 steps ahead of the multiply, one barrier per step.
+// - Liveness (a policy, the template's Live): AllLive (K2, K3) keeps every
+//   32-channel chunk of every term and adds no code. K5's policy has each
+//   warp, in the same pass, ballot one bit per 32-channel chunk of a term:
+//   whether any live weight block lies under the chunk and this block's
+//   column tile. The masks sit in shared memory (one word per term, so
+//   C <= 1,024); a term whose mask is empty is dropped with the absent
+//   ones. No barrier beyond the one that ends the pass.
+// - Then one flattened loop over (live term, live 32-channel chunk)
+//   through a ring of kStages shared-memory stages: cp.async copies of 16
+//   bytes (8 channels) per gathered row piece and per weight row piece,
+//   the zero-fill form (src-size 0) for absent rows and ragged edges,
+//   issued kStages - 1 steps ahead of the multiply, one barrier per step.
 //   Rows whose width is not a multiple of 8 (the stem, C = 27) go through
 //   the same loop with element-by-element staging; the zeros it writes past
 //   C are the zeros a Cin-padded input would copy, so the two agree bit
@@ -41,14 +49,18 @@
 // - Sums: each term's products accumulate in their own f32 registers
 //   (at most C / 16 mma steps) and are then added to the running f32 sum
 //   with an ordinary rounded add, so long chains never stay inside the
-//   tensor core's accumulator.
+//   tensor core's accumulator. A step K5 skips would have added exact
+//   zeros (its weights are zero on every dead block), so on finite inputs
+//   K5's sums are K2's on the masked weights, bit for bit.
 // - Coarse levels: when (rows / 64) x (Cout / BN) blocks would leave SMs
 //   idle, the wrapper splits the G x M terms into `parts` contiguous runs
 //   (blockIdx.z); each part writes an f32 partial [n_out, Cout] to a
 //   scratch buffer, and split_reduce_kernel adds the parts in ascending
 //   order and rounds once. No atomics: repeats are bit-identical.
 // - NaN in a present input row or in a weight reaches every output it is
-//   multiplied into, through the partials too.
+//   multiplied into, through the partials too; under K5's policy, every
+//   column of the tile of a step that runs (its dead blocks' zero weights
+//   carry it), and nothing through a step that is skipped.
 
 #pragma once
 
@@ -216,12 +228,15 @@ struct GatherSmem {
 
 // The core. Grid: (ceil(n_out / 64), ceil(cout / BN), parts); part p sums
 // terms [p * per, min(n_terms, (p + 1) * per)). With parts == 1 it writes
-// bf16 `out`, else f32 partials `part` [parts, n_out, cout].
-template <int BN, bool kVec>
+// bf16 `out`, else f32 partials `part` [parts, n_out, cout]. Live: AllLive,
+// or a policy whose live_under(q, k0, k1, col0, col1) says whether term q
+// has a live weight block under channels [k0, k1) and columns
+// [col0, col1) (K5's BlockLive).
+template <int BN, bool kVec, typename Live>
 __global__ void __launch_bounds__(2 * BN) gather_mma_kernel(
     const bf16* __restrict__ src, int c, PlanRows rows,
     const bf16* __restrict__ w, int n_terms, int per, int n_out, int cout,
-    bf16* __restrict__ out, float* __restrict__ part) {
+    bf16* __restrict__ out, float* __restrict__ part, Live lv) {
   using S = GatherSmem<BN>;
   constexpr int kThreads = 2 * BN;
   constexpr int kWarps = kThreads / 32;
@@ -230,6 +245,8 @@ __global__ void __launch_bounds__(2 * BN) gather_mma_kernel(
   bf16* b_s = reinterpret_cast<bf16*>(smem + S::kABytes);
   int* src_s = reinterpret_cast<int*>(smem + S::kABytes + S::kBBytes);
   __shared__ unsigned warp_live[kWarps];
+  // live 32-channel chunks of each term of the group (Live only)
+  __shared__ unsigned chunk_s[Live::kAlways ? 1 : kMaxTerms];
 
   const int tid = threadIdx.x;
   const int lane = tid & 31;
@@ -263,16 +280,41 @@ __global__ void __launch_bounds__(2 * BN) gather_mma_kernel(
     }
     mine = __reduce_or_sync(0xffffffffu, mine);
     if (lane == 0) warp_live[warp] = mine;
+    if constexpr (!Live::kAlways) {
+      // one warp per term, one lane per 32-channel chunk (nk <= 32)
+      for (int tl = warp; tl < nq; tl += kWarps) {
+        const unsigned bits = __ballot_sync(
+            0xffffffffu, lane < nk && lv.live_under(g0 + tl, lane * kBK,
+                                                    (lane + 1) * kBK, col0,
+                                                    col0 + BN));
+        if (lane == 0) chunk_s[tl] = bits;
+      }
+    }
     __syncthreads();
     unsigned live = 0;
 #pragma unroll
     for (int i = 0; i < kWarps; ++i) live |= warp_live[i];
-    const int steps = __popc(live) * nk;
+    int steps;
+    if constexpr (Live::kAlways) {
+      steps = __popc(live) * nk;
+    } else {
+      steps = 0;
+      for (unsigned r = live; r; r &= r - 1) {
+        const int n = __popc(chunk_s[__ffs(r) - 1]);
+        if (n == 0) live &= ~(1u << (__ffs(r) - 1));
+        steps += n;
+      }
+    }
 
-    // the issue side walks (live term, chunk) kStages - 1 steps ahead
+    // the issue side walks (live term, live chunk) kStages - 1 steps ahead
     unsigned rest = live;
     int it_term = rest ? __ffs(rest) - 1 : 0;
+    unsigned it_chunks = 0;  // Live only: chunks of it_term still to issue
     int it_k = 0;
+    if constexpr (!Live::kAlways) {
+      it_chunks = rest ? chunk_s[it_term] : 0u;
+      it_k = it_chunks ? __ffs(it_chunks) - 1 : 0;
+    }
     auto issue = [&](int slot) {
       const int k0 = it_k * kBK;
       const int* srow = src_s + it_term * kBM;
@@ -335,13 +377,29 @@ __global__ void __launch_bounds__(2 * BN) gather_mma_kernel(
           b[(e / BN) * S::kBS + e % BN] = vb[j];
         }
       }
-      if (++it_k == nk) {
-        it_k = 0;
-        rest &= rest - 1;
-        it_term = rest ? __ffs(rest) - 1 : 0;
+      if constexpr (Live::kAlways) {
+        if (++it_k == nk) {
+          it_k = 0;
+          rest &= rest - 1;
+          it_term = rest ? __ffs(rest) - 1 : 0;
+        }
+      } else {
+        it_chunks &= it_chunks - 1;
+        if (it_chunks == 0) {
+          rest &= rest - 1;
+          it_term = rest ? __ffs(rest) - 1 : 0;
+          it_chunks = rest ? chunk_s[it_term] : 0u;
+        }
+        it_k = it_chunks ? __ffs(it_chunks) - 1 : 0;
       }
     };
 
+    // Live only: the compute side's count of chunks left in its term
+    unsigned c_rest = live;
+    int c_left = 0;
+    if constexpr (!Live::kAlways) {
+      c_left = c_rest ? __popc(chunk_s[__ffs(c_rest) - 1]) : 0;
+    }
 #pragma unroll
     for (int s = 0; s < kStages - 1; ++s) {
       if (s < steps) issue(s);
@@ -362,10 +420,18 @@ __global__ void __launch_bounds__(2 * BN) gather_mma_kernel(
         load_b_trans(bfr, b + kk * S::kBS, S::kBS, lane);
         mma_32x32(tacc, af, bfr);
       }
-      if ((s + 1) % nk == 0) add_and_clear(acc, tacc);
+      if constexpr (Live::kAlways) {
+        if ((s + 1) % nk == 0) add_and_clear(acc, tacc);
+      } else {
+        if (--c_left == 0) {  // the term's last live chunk
+          add_and_clear(acc, tacc);
+          c_rest &= c_rest - 1;
+          c_left = c_rest ? __popc(chunk_s[__ffs(c_rest) - 1]) : 0;
+        }
+      }
     }
     cp_async_wait<0>();
-    __syncthreads();  // src_s and warp_live are rewritten by the next group
+    __syncthreads();  // src_s, warp_live and chunk_s are rewritten next
   }
 
   const int r0 = row0 + wm * 32;
@@ -390,11 +456,11 @@ __global__ void split_reduce_kernel(const float* __restrict__ part, int parts,
   }
 }
 
-template <int BN, bool kVec>
+template <int BN, bool kVec, typename Live>
 int launch_bn(const bf16* src, int c, PlanRows rows, const bf16* w,
               int n_terms, int parts, int per, int n_out, int cout,
-              bf16* out, float* part, cudaStream_t stream) {
-  auto kernel = gather_mma_kernel<BN, kVec>;
+              bf16* out, float* part, Live lv, cudaStream_t stream) {
+  auto kernel = gather_mma_kernel<BN, kVec, Live>;
   constexpr int kBytes = GatherSmem<BN>::kBytes;
   int err = static_cast<int>(cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kBytes));
@@ -404,7 +470,7 @@ int launch_bn(const bf16* src, int c, PlanRows rows, const bf16* w,
             static_cast<unsigned>(parts));
   kernel<<<grid, 2 * BN, kBytes, stream>>>(src, c, rows, w, n_terms, per,
                                            n_out, cout, out,
-                                           parts > 1 ? part : nullptr);
+                                           parts > 1 ? part : nullptr, lv);
   err = static_cast<int>(cudaGetLastError());
   if (err != 0 || parts <= 1) return err;
   const long long n = static_cast<long long>(n_out) * cout;
@@ -414,21 +480,24 @@ int launch_bn(const bf16* src, int c, PlanRows rows, const bf16* w,
   return static_cast<int>(cudaGetLastError());
 }
 
-// K2's bf16 kernel (and K3's d_feats half): the windowed gather-matmul over
-// a plan on tensor cores. bn: column tile (32, 64, 96 or 128; 32 when C or
-// Cout is not a multiple of 8); parts, per: the term split (parts == 1: no
-// scratch); part: f32 scratch [parts, n_tiles * tile, cout].
-inline int launch_gather_matmul(const void* feats, int n_rows, int c,
-                                const int32_t* starts, const int32_t* idx,
-                                const void* w, int groups, int n_tiles,
-                                int members, int tile, int cout, int bn,
-                                int parts, int per, float* part, void* out,
-                                cudaStream_t stream) {
+// K2's bf16 kernel (and K3's d_feats half, and K5's with its liveness
+// policy lv): the windowed gather-matmul over a plan on tensor cores. bn:
+// column tile (32, 64, 96 or 128; 32 when C or Cout is not a multiple of
+// 8); parts, per: the term split (parts == 1: no scratch); part: f32
+// scratch [parts, n_tiles * tile, cout].
+template <typename Live = AllLive>
+int launch_gather_matmul(const void* feats, int n_rows, int c,
+                         const int32_t* starts, const int32_t* idx,
+                         const void* w, int groups, int n_tiles, int members,
+                         int tile, int cout, int bn, int parts, int per,
+                         float* part, void* out, cudaStream_t stream,
+                         Live lv = Live{}) {
   const long long n_out = static_cast<long long>(n_tiles) * tile;
   if (n_out <= 0 || cout <= 0) return 0;
   const int n_terms = groups * members;
   if (parts < 1 || per < 1 || static_cast<long long>(parts) * per < n_terms ||
-      (parts > 1 && part == nullptr) || parts > 65535)
+      (parts > 1 && part == nullptr) || parts > 65535 ||
+      (!Live::kAlways && c > 32 * kBK))  // one mask bit per chunk
     return static_cast<int>(cudaErrorInvalidValue);
   const PlanRows rows{starts, idx, n_tiles, members, tile, n_rows};
   const auto* s = static_cast<const bf16*>(feats);
@@ -439,21 +508,21 @@ inline int launch_gather_matmul(const void* feats, int n_rows, int c,
   if (!vec) {
     if (bn != 32) return static_cast<int>(cudaErrorInvalidValue);
     return launch_bn<32, false>(s, c, rows, ww, n_terms, parts, per, n, cout,
-                                o, part, stream);
+                                o, part, lv, stream);
   }
   switch (bn) {
     case 32:
       return launch_bn<32, true>(s, c, rows, ww, n_terms, parts, per, n,
-                                 cout, o, part, stream);
+                                 cout, o, part, lv, stream);
     case 64:
       return launch_bn<64, true>(s, c, rows, ww, n_terms, parts, per, n,
-                                 cout, o, part, stream);
+                                 cout, o, part, lv, stream);
     case 96:
       return launch_bn<96, true>(s, c, rows, ww, n_terms, parts, per, n,
-                                 cout, o, part, stream);
+                                 cout, o, part, lv, stream);
     case 128:
       return launch_bn<128, true>(s, c, rows, ww, n_terms, parts, per, n,
-                                  cout, o, part, stream);
+                                  cout, o, part, lv, stream);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -20,12 +20,15 @@ within 1e-5 of its largest value in both types, and be bit-identical
 between two launches. A small training step on the card must match the same step on
 the CPU: the loss within 1e-5 relative, each gradient within 1e-4 of its
 largest value. K5 must match its plain version as K2 does, and equal K2
-on the spec-masked weights (in bf16, K2's f32 sum rounded once); K6 (f32 output for both input types) within
-atol = rtol = 1e-5; a small model in the pruned-eval modes on the card
-must match the CPU within 1e-4. The bf16 tensor-core path of K2 and K3
-is held to the same tolerances at ragged shapes, with and without its
-split of the terms over blocks, and must be bit-identical from launch to
-launch and carry a NaN input row to exactly the outputs that name it.
+on the spec-masked weights bit for bit in both types (in bf16 both run
+the tensor cores with the same column tile and term split); K6 (f32
+output for both input types) within atol = rtol = 1e-5; a small model in
+the pruned-eval modes on the card must match the CPU within 1e-4. The
+bf16 tensor-core path of K2, K3, K4 and K5 is held to the same tolerances
+at ragged shapes, with and without its split of the terms over blocks
+(K4 and K3's d_w over one and over many row chunks), and must be
+bit-identical from launch to launch and carry a NaN input row to exactly
+the outputs that name it (K5: that a live block multiplies it into).
 """
 
 import dataclasses
@@ -362,9 +365,10 @@ def test_k5_matches_plain(cuda, dtype, block, c, cout):
     """K5 at granularities 4, 16 and 128 with ragged channels: half the
     blocks dead, a member emptied in the spec and another in the plan, and
     a spec that also kills blocks whose weights are not zero. Against its
-    plain version, equal to K2 on the spec-masked weights (in bf16, to
-    K2's f32 sum of the same values rounded once), and equal to itself
-    given those weights with ``masked=True``."""
+    plain version, equal to K2 on the spec-masked weights bit for bit (in
+    bf16 both run the tensor cores with K2's tile and split; a step K5
+    skips adds exact zeros in K2), and equal to itself given those
+    weights with ``masked=True``."""
     (coords, mask), _ = level(10, n=480, valid=420)
     plan = wc.build_plan_direct(coords, mask, sk.kernel_offsets(3, 1),
                                 tile=32, window=32, blocks=4)
@@ -401,13 +405,8 @@ def test_k5_matches_plain(cuda, dtype, block, c, cout):
     if dtype == torch.float32:  # both on the CUDA-core core
         torch.testing.assert_close(got.float(), k2.float(), rtol=1e-6,
                                    atol=1e-6)
-    else:
-        # K2's bf16 call runs the tensor cores; its f32 call runs K5's
-        # CUDA-core core in the same chunk order, and bf16 widens to f32
-        # exactly: K5 is K2's f32 sum of the same values, rounded once
-        k2_32 = K.window_gather_matmul(args[0].float(), args[1], args[2],
-                                       masked.float().contiguous())
-        assert torch.equal(got, k2_32.to(torch.bfloat16))
+    else:  # both on the tensor cores, same tile, split and order
+        assert torch.equal(got, k2)
     # weights the caller keeps masked: the same answer, bit for bit
     assert torch.equal(K.window_gather_matmul_bs(
         *args[:3], masked.contiguous(), args[4], block, masked=True), got)
@@ -664,3 +663,147 @@ def test_tc_refuses_misaligned_rows(cuda):
         K.window_gather_matmul(f, starts, idx, w)
     assert not K.window_gather_matmul(buf[8:520].view(64, 8), starts, idx,
                                       w).any()
+
+
+def _k5_spec(seed, g, m, c, cout, block, dead=0.5):
+    """A random liveness spec with ``dead`` of the blocks dead and member
+    (0, 1) dead in full."""
+    rng = np.random.default_rng(seed)
+    live = torch.as_tensor(
+        rng.random((g, m, -(-c // block), -(-cout // block))) >= dead,
+        dtype=torch.uint8)
+    live[0, 1] = 0
+    return live
+
+
+# (rows, C, Cout, granularity): the term split on (512 x 256, 990 x 128)
+# and off (16,384 rows), granularities 4, 16, 32 and 128, Cout = 96 (one
+# 96-column tile), the element staging of C = 27
+K5_TC_CASES = [(512, 256, 256, 32), (512, 256, 256, 128), (990, 128, 128, 16),
+               (720, 96, 96, 32), (720, 96, 96, 4), (16384, 96, 96, 32),
+               (720, 40, 72, 16), (720, 27, 20, 4), (990, 128, 256, 128)]
+
+
+@pytest.mark.parametrize("n_out,c,cout,block", K5_TC_CASES)
+def test_k5_tc_equals_k2_on_masked_weights(cuda, n_out, c, cout, block):
+    """K5 in bf16 (tensor cores, K2's column tile and term split) equals
+    K2's bf16 output on the spec-masked weights bit for bit, with a member
+    dead in the spec and another absent from the plan; within 2^-8 of the
+    f32 plain version; repeats bit-identical; the same given weights
+    already masked."""
+    from nerf_downstream_tpu_torch.ops.kernels import tc
+
+    n_rows = n_out + 37
+    starts, idx = _tc_plan(50 + block, n_out, n_rows)
+    idx[2, :, 0, :] = -1  # member (2, 0) absent from the plan
+    feats, w = _tc_inputs(51 + c, n_rows, c, cout)
+    live = _k5_spec(52 + cout, 9, 3, c, cout, block)
+    args = [t.contiguous().to(cuda) for t in (feats, starts, idx, w, live)]
+    want = K.window_gather_matmul_bs_plain(
+        args[0].float(), args[1], args[2], args[3].float(), args[4], block)
+    K.reset_launch_counts()
+    got = K.window_gather_matmul_bs(*args, block)
+    assert K.launch_counts()["window_gather_matmul_bs"] == 1
+    n_pad = idx.shape[1] * idx.shape[3]
+    choice = tc.gather_choice(torch.bfloat16, n_pad, c, cout, 27)
+    assert choice.core == "tensor"
+    assert (choice.parts > 1) == (n_out < 16384)
+    assert got.dtype == torch.bfloat16 and got.shape == (n_pad, cout)
+    masked = (args[3] * K.gather_matmul_bs.live_mask(
+        args[4], block, c, cout).to(torch.bfloat16)).contiguous()
+    k2 = K.window_gather_matmul(*args[:3], masked)
+    assert torch.equal(got, k2)
+    torch.testing.assert_close(got.float(), want, rtol=2 ** -8, atol=1e-5)
+    assert torch.equal(K.window_gather_matmul_bs(*args, block), got)
+    assert torch.equal(K.window_gather_matmul_bs(*args[:3], masked, args[4],
+                                                 block, masked=True), got)
+    # a spec with nothing live gives zeros; one with everything live, K2
+    none = torch.zeros_like(args[4])
+    assert not K.window_gather_matmul_bs(*args[:4], none, block).any()
+    assert torch.equal(K.window_gather_matmul_bs(
+        *args[:4], torch.ones_like(args[4]), block),
+        K.window_gather_matmul(*args[:4]))
+
+
+@pytest.mark.parametrize("n_out,c,cout,block", [(512, 256, 256, 128),
+                                                (720, 64, 32, 32)])
+def test_k5_tc_nan_row_reaches_live_blocks_only(cuda, n_out, c, cout,
+                                                block):
+    """At a granularity that is a multiple of the 32-channel step and of
+    the column tile, a NaN input row reaches exactly the outputs that a
+    live block multiplies it into (the rows whose plan names it, the
+    columns of the live blocks of the naming members), through the split
+    (512 x 256) too, and nothing through a dead block."""
+    from nerf_downstream_tpu_torch.ops.kernels import tc
+
+    assert block % tc.column_tile(c, cout) == 0
+    n_rows = n_out + 37
+    starts, idx = _tc_plan(60, n_out, n_rows)
+    feats, w = _tc_inputs(61, n_rows, c, cout)
+    live = _k5_spec(62, 9, 3, c, cout, block)
+    rows = starts[:, :, None, None].long() + idx.long()
+    present = (idx >= 0) & (rows < n_rows)
+    bad = int(rows[present][0])
+    feats[bad] = float("nan")
+    names = (present & (rows == bad)).permute(0, 2, 1, 3).reshape(
+        9, 3, -1)  # [G, M, rows]
+    cols = live.bool().any(2).repeat_interleave(block, -1)[..., :cout]
+    want = (names[..., :, None] & cols[..., None, :]).flatten(0, 1).any(0)
+    args = [t.contiguous().to(cuda) for t in (feats, starts, idx, w, live)]
+    got = K.window_gather_matmul_bs(*args, block)
+    assert want.any() and not want.all()
+    assert torch.equal(torch.isnan(got).cpu(), want)
+
+
+def test_k5_tc_refuses_misaligned_rows(cuda):
+    """bf16 K5 copies 16-byte pieces: rows that start 2 bytes into their
+    storage are refused, not read askew."""
+    buf = torch.zeros(64 * 8 + 8, dtype=torch.bfloat16, device=cuda)
+    starts = torch.zeros(1, 2, dtype=torch.int32, device=cuda)
+    idx = torch.full((1, 2, 1, 32), -1, dtype=torch.int32, device=cuda)
+    w = torch.zeros(1, 1, 8, 8, dtype=torch.bfloat16, device=cuda)
+    live = torch.ones(1, 1, 1, 1, dtype=torch.uint8, device=cuda)
+    with pytest.raises(ValueError, match="boundary"):
+        K.window_gather_matmul_bs(buf[1:513].view(64, 8), starts, idx, w,
+                                  live, 8)
+    assert not K.window_gather_matmul_bs(buf[8:520].view(64, 8), starts,
+                                         idx, w, live, 8).any()
+
+
+def _close_per_slice(got, want, tol=1e-5):
+    """Every [C, Cout] slice of d_w within tol of its largest value."""
+    d = (got.cpu() - want.cpu()).abs().flatten(-2).amax(-1)
+    scale = want.cpu().abs().flatten(-2).amax(-1)
+    assert bool((d <= tol * scale).all()), (d / scale).max()
+
+
+@pytest.mark.parametrize("c,cout", [(27, 32), (27, 96), (96, 32)])
+def test_k4_tc_matches_plain(cuda, c, cout):
+    """K4 in bf16 over 65,536 rows (the stem's row count, so d_w is summed
+    over many row chunks), the stem's C = 27 with element staging among
+    them: within 1e-5 of the largest value of each (g, m) of the f32 plain
+    version on the same inputs, repeats bit-identical."""
+    from nerf_downstream_tpu_torch.ops.kernels import tc
+
+    n_out = 65536
+    n_rows = n_out + 37
+    starts, idx = _tc_plan(70 + c, n_out, n_rows)
+    idx[1, :, 2, :] = -1  # a member with no entry
+    feats, _ = _tc_inputs(71 + cout, n_rows, c, 8)
+    rng = np.random.default_rng(72)
+    g_out = torch.as_tensor(rng.normal(size=(n_out, cout)),
+                            dtype=torch.float32).to(torch.bfloat16)
+    args = [t.contiguous().to(cuda) for t in (feats, starts, idx, g_out)]
+    choice = tc.dw_choice(torch.bfloat16, n_out, c, cout, 27)
+    assert choice.core == "tensor" and choice.chunks(n_out) > 1
+    want = K.window_dw_plain(args[0].float(), args[1], args[2],
+                             args[3].float())
+    K.reset_launch_counts()
+    got = K.window_dw(*args)
+    assert K.launch_counts()["window_dw"] == 1
+    assert got.dtype == torch.float32 and got.shape == (9, 3, c, cout)
+    assert not got[1, 2].any()
+    keep = torch.ones(9, 3, dtype=torch.bool)
+    keep[1, 2] = False
+    _close_per_slice(got[keep], want[keep])
+    assert torch.equal(K.window_dw(*args), got)

@@ -1,15 +1,24 @@
-"""The launch choices of the bf16 tensor-core path of K2 and K3
+"""The launch choices of the bf16 tensor-core path of K2, K3, K4 and K5
 (``nerf_downstream_tpu_torch/ops/kernels/tc.py``), on the CPU: the column
 tile of the gather-matmul core, the split of the G x M terms over blocks
-at coarse levels, and the d_w tiles. The kernels themselves run on the
-card only (``tests/test_torch_port_cuda.py``)."""
+at coarse levels, the d_w tiles and row chunks, K5's launch arguments
+(K2's choice) and the share of its steps a liveness spec keeps. The
+kernels themselves run on the card only
+(``tests/test_torch_port_cuda.py``)."""
 
+import contextlib
+import types
+
+import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
 
 from nerf_downstream_tpu_torch.ops import kernels as K  # noqa: E402
-from nerf_downstream_tpu_torch.ops.kernels import tc  # noqa: E402
+from nerf_downstream_tpu_torch.ops.kernels import (  # noqa: E402
+    gather_matmul_bs,
+    tc,
+)
 
 # (rows, Cout, terms): the Res16UNet18A levels of the 64k batches (65,536,
 # 14,848, 3,584, 1,024 and 512 rows) at their widths, a 2x2x2 conv's 8
@@ -123,3 +132,129 @@ def test_cpu_tensors_count_no_launch():
     K.window_bwd(out, feats, starts, idx, w)
     counts = K.launch_counts()
     assert counts["window_gather_matmul"] == counts["window_bwd"] == 0
+
+
+def test_k4_stem_choice():
+    """K4's one call per training step (conv0a: 65,536 rows, C = 27,
+    Cout = 32, 27 terms): bf16 on the tensor cores in 32 x 32 tiles with
+    element staging, 76 row chunks of 864 rows; float32 on the CUDA cores
+    in 16 chunks of 4,096."""
+    bf = tc.dw_choice(torch.bfloat16, 65536, 27, 32, 27)
+    assert (bf.core, bf.tiles, bf.chunk_rows) == ("tensor", (32, 32), 864)
+    assert bf.chunks(65536) == 76 and not tc.vector_ok(27, 32)
+    assert bf.describe(65536)["row_chunks"] == 76
+    f32 = tc.dw_choice(torch.float32, 65536, 27, 32, 27)
+    assert (f32.core, f32.chunk_rows, f32.chunks(65536)) == ("cuda", 4096,
+                                                             16)
+    # K3's d_w half takes the same rule
+    assert tc.dw_choice(torch.bfloat16, 65536, 32, 32, 27).chunk_rows == 864
+
+
+class _FakeLaunch:
+    """Stands in for the C entry point: records its arguments."""
+
+    def __init__(self):
+        self.args = None
+
+    def __call__(self, *args):
+        self.args = args
+        return 0
+
+
+@pytest.fixture
+def fake_k5(monkeypatch):
+    fake = _FakeLaunch()
+    monkeypatch.setattr(gather_matmul_bs.build, "function",
+                        lambda *a: fake)
+    monkeypatch.setattr(torch.cuda, "device",
+                        lambda dev: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda dev: types.SimpleNamespace(cuda_stream=0))
+    return fake
+
+
+def _k5_inputs(n_out, c, cout, block, dtype, g=9, m=3, tile=32):
+    nt = -(-n_out // tile)
+    return (torch.zeros(n_out + 5, c, dtype=dtype),
+            torch.zeros(g, nt, dtype=torch.int32),
+            torch.full((g, nt, m, tile), -1, dtype=torch.int32),
+            torch.zeros(g, m, c, cout, dtype=dtype),
+            torch.ones(g, m, -(-c // block), -(-cout // block),
+                       dtype=torch.uint8))
+
+
+@pytest.mark.parametrize("n_out,c,cout,block", [
+    (512, 256, 256, 32), (512, 128, 128, 128), (3584, 64, 64, 32),
+    (65536, 96, 96, 32), (2048, 27, 32, 4)])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_k5_takes_k2s_choice(fake_k5, n_out, c, cout, block, dtype):
+    """K5's launch carries exactly K2's core, column tile and term split
+    (``tc.gather_choice``), with f32 scratch for the split's partials, so
+    its sums are added as K2's are."""
+    args = _k5_inputs(n_out, c, cout, block, dtype)
+    K.reset_launch_counts()
+    out = gather_matmul_bs._launch(*args, block, masked=True)
+    assert out.shape == (n_out, cout) and out.dtype == dtype
+    assert K.launch_counts()["window_gather_matmul_bs"] == 1
+    choice = tc.gather_choice(dtype, n_out, c, cout, 27)
+    bf16, bn, parts, per, part = fake_k5.args[16:21]
+    assert bf16 == int(dtype == torch.bfloat16) == int(choice.core
+                                                       == "tensor")
+    assert (bn, parts, per) == (choice.column_tile, choice.parts, choice.per)
+    assert (part is None) == (parts == 1)
+    K.reset_launch_counts()
+
+
+def test_k5_refuses_what_the_tensor_core_cannot_take(fake_k5):
+    """bf16: rows that do not start on a 16-byte boundary, and more than
+    ``MAX_C`` channels (one mask bit per 32-channel chunk)."""
+    feats, starts, idx, w, live = _k5_inputs(512, 64, 64, 32,
+                                             torch.bfloat16)
+    buf = torch.zeros(feats.numel() + 8, dtype=torch.bfloat16)
+    for off in range(8):  # one of them is misaligned
+        f = buf[off:off + feats.numel()].view(feats.shape)
+        if f.data_ptr() % tc.ALIGN:
+            break
+    with pytest.raises(ValueError, match="boundary"):
+        gather_matmul_bs._launch(f, starts, idx, w, live, 32, True)
+    big = _k5_inputs(64, gather_matmul_bs.MAX_C + 8, 8, 128, torch.bfloat16,
+                     g=1, m=1)
+    with pytest.raises(ValueError, match="MAX_C|> 1024"):
+        gather_matmul_bs._launch(*big, 128, True)
+    assert fake_k5.args is None
+
+
+def _brute_share(live, block, c, cout, bn):
+    live = live.numpy()
+    total = hit = 0
+    for q in live.reshape(-1, *live.shape[-2:]):
+        for k0 in range(0, c, 32):
+            for col0 in range(0, cout, bn):
+                total += 1
+                hit += any(q[bi, bo]
+                           for bi in range(k0 // block,
+                                           (min(k0 + 32, c) - 1) // block + 1)
+                           for bo in range(col0 // block,
+                                           (min(col0 + bn, cout) - 1)
+                                           // block + 1))
+    return hit / total
+
+
+@pytest.mark.parametrize("block,c,cout,dead", [
+    (4, 27, 20, 0.5), (16, 40, 72, 0.5), (32, 256, 256, 0.5),
+    (32, 96, 96, 0.75), (128, 256, 128, 0.5), (128, 200, 264, 0.3)])
+def test_live_step_share_counts_the_steps(block, c, cout, dead):
+    """The live-step share of a spec under K2's column tile equals a
+    brute-force count of the (term, 32-channel chunk, column tile) steps
+    with a live block under them."""
+    rng = np.random.default_rng(block + c)
+    live = torch.as_tensor(
+        rng.random((3, 3, -(-c // block), -(-cout // block))) >= dead,
+        dtype=torch.uint8)
+    live[0, 1] = 0
+    bn = tc.column_tile(c, cout)
+    got = gather_matmul_bs.live_step_share(live, block, c, cout, bn)
+    assert got == pytest.approx(_brute_share(live, block, c, cout, bn),
+                                abs=1e-12)
+    full = torch.ones_like(live)
+    assert gather_matmul_bs.live_step_share(full, block, c, cout, bn) == 1.0
