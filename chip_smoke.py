@@ -68,7 +68,9 @@ paths give it. Phases:
    and through the plain versions. The whole steps' gradient gaps are
    reported beside a plain step whose K2 sums run in reverse order, with
    the ReLU gates each pair's forwards put on different sides (why:
-   ``phase_train_model``);
+   ``phase_train_model``); and the ops PyTorch names as nondeterministic
+   over one kernel-path step under
+   ``torch.use_deterministic_algorithms(True, warn_only=True)``;
 10. sparse_eval: ``eval3d`` at ``eval_64k`` (bf16, 3 batches) over
     checkpoints this phase writes with the port's ``save_checkpoint`` from
     seeded weights: dense; ZAXIS (``--sparsify``, mode 2); mode 1 with
@@ -80,6 +82,7 @@ paths give it. Phases:
     share and device ops from a profile, host wall time in 10 turns of
     (dense, config, config, dense) over 3 requests with the paired gap's
     median and range (resolved only where the range excludes zero), the
+    synchronising calls of one request as in phase 3, the
     convs on each route (windowed, block-sparse, row), and the f32 logits
     against the dense model on the same zeroed weights within
     1e-4 x max|logit| (the bf16 gap is reported); then the capacity
@@ -99,17 +102,21 @@ paths give it. Phases:
     launch on weights already zero on every dead block (the block tier
     keeps them so; ``masked=True``), as K2 is on the same weights;
 12. k6: every K6 call of one recorded ZAXIS forward and one offset-pruned
-    forward against its plain version (rtol 1e-5; bf16 inputs, f32
-    output), two launches bit-identical;
+    forward (each with bf16 inputs, so on the tensor cores) against its
+    plain version (rtol 1e-5 of the f32 sum, in f32 and in bf16 inputs,
+    f32 output), two launches bit-identical; per call the core, column
+    tile and step split, and for information an im2col plus one
+    ``torch.matmul``; the ptxas lines of K2, K3, K5 and K6, per kernel;
 13. the ``kernels`` line, the card line, and the ``ok`` line.
 
 On the main paths (``serve``, ``train``, ``sparse_eval``, all bf16) every
-K2, K3, K4 and K5 launch must run on the tensor cores. The input type is
-the only switch (``tc.gather_choice``, ``tc.dw_choice``) and every conv
-casts its inputs to its compute type, so each phase fails unless every
-conv of its model computes in bf16, and reports its K2-K5 launch counts
-under that core; phases ``k2``-``k5`` fail unless every recorded call of
-their kernel on a main path has bf16 inputs.
+K2, K3, K4, K5 and K6 launch must run on the tensor cores. The input type
+is the only switch (``tc.gather_choice``, ``tc.dw_choice``,
+``tc.row_choice``) and every conv casts its inputs to its compute type, so
+each phase fails unless every conv of its model computes in bf16, and
+reports its K2-K6 launch counts under that core; phases ``k2``-``k6`` fail
+unless every recorded call of their kernel on a main path has bf16
+inputs.
 
 Every phase prints one JSON line; any failure exits non-zero without the
 ``ok`` line. Without a GPU, or without the package beside this file, the
@@ -168,11 +175,19 @@ HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 
 
-WINDOW_KERNELS = ("window_match", "window_gather_matmul")
+WINDOW_KERNELS = ("window_starts", "window_match", "window_gather_matmul")
+# the files of the plan and conv path, which may not synchronise the host
+# with the card during a request or step
+NO_SYNC_FILES = ("nerf_downstream_tpu_torch/ops/window_conv.py",
+                 "nerf_downstream_tpu_torch/sparse/kernels.py",
+                 "nerf_downstream_tpu_torch/models/mink/layers.py")
+# the plans whose arrays phase k1 holds against the plain versions' plans
+PLAN_ARRAYS = ("starts", "idx", "n_escaped", "esc_k", "esc_i", "esc_j",
+               "esc_stats")
 TRAIN_KERNELS = WINDOW_KERNELS + ("window_bwd", "window_dw")
 # the kernels whose bf16 calls run on the tensor cores
 TENSOR_CORE_KERNELS = ("window_gather_matmul", "window_bwd", "window_dw",
-                       "window_gather_matmul_bs")
+                       "window_gather_matmul_bs", "row_gather_matmul")
 
 
 class PhaseError(RuntimeError):
@@ -181,6 +196,41 @@ class PhaseError(RuntimeError):
 
 def emit(obj: dict) -> None:
     print(json.dumps(obj), flush=True)
+
+
+def sync_count(where: str, fn) -> dict:
+    """Synchronising calls of ``fn()`` on the card (the warnings of
+    ``torch.cuda.set_sync_debug_mode("warn")``), by file and line; raises
+    when one comes from ``NO_SYNC_FILES``."""
+    import collections
+    import warnings
+
+    import torch
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    sites = collections.Counter()
+    for w in caught:
+        if "synchroniz" not in str(w.message):
+            continue
+        path = os.path.relpath(w.filename, REPO)
+        sites[f"{path}:{w.lineno}"] += 1
+    ours = {k: v for k, v in sites.items()
+            if k.split(":")[0] in NO_SYNC_FILES}
+    out = {"synchronising_calls": sum(sites.values()),
+           "from_plan_and_conv_files": sum(ours.values()),
+           "sites": dict(sites.most_common())}
+    if ours:
+        raise PhaseError(f"{where}: synchronising calls from the plan and "
+                         f"conv path: {ours}")
+    return out
 
 
 def tensor_core_check(where: str, model, counts: dict) -> dict:
@@ -243,13 +293,63 @@ def device_ms(fn, reps: int = 5) -> float:
     return start.elapsed_time(end) / reps
 
 
-class Recorder:
-    """Records the inputs of every K1 and K2 call of a forward (and the
-    window blocks of each windowed conv's plan), by wrapping the names the
-    package's modules call. Calls go on to the real wrappers."""
+def _cloned(args):
+    return tuple(a.clone() if hasattr(a, "clone") else a for a in args)
+
+
+class PlanRecorder:
+    """Records the inputs of every plan built (``build_plan_direct``), of
+    every window-starts pass and of every K1 call inside it, by wrapping
+    the names the package's modules call. Calls go on to the real
+    functions."""
 
     def __init__(self):
+        self.plans: list[tuple] = []
+        self.starts: list[tuple] = []
         self.k1: list[tuple] = []
+
+    def __enter__(self):
+        from nerf_downstream_tpu_torch.ops import window_conv
+
+        self._plan_saved = (window_conv.build_plan_direct,
+                            window_conv.window_starts,
+                            window_conv.window_match)
+        build, starts, match = self._plan_saved
+
+        def rec_build(*args, **kwargs):
+            self.plans.append((_cloned(args), dict(zip(
+                kwargs, _cloned(kwargs.values())))))
+            return build(*args, **kwargs)
+
+        def rec_starts(*args):
+            self.starts.append(_cloned(args))
+            return starts(*args)
+
+        def rec_match(*args):
+            self.k1.append(_cloned(args))
+            return match(*args)
+
+        window_conv.build_plan_direct = rec_build
+        window_conv.window_starts = rec_starts
+        window_conv.window_match = rec_match
+        return self
+
+    def __exit__(self, *exc):
+        from nerf_downstream_tpu_torch.ops import window_conv
+
+        (window_conv.build_plan_direct, window_conv.window_starts,
+         window_conv.window_match) = self._plan_saved
+        return False
+
+
+class Recorder(PlanRecorder):
+    """Records what ``PlanRecorder`` records, and the inputs of every K2
+    call of a forward (and the window blocks of each windowed conv's
+    plan), by wrapping the names the package's modules call. Calls go on
+    to the real wrappers."""
+
+    def __init__(self):
+        super().__init__()
         self.k2: list[tuple] = []
         self.blocks: list[int] = []
 
@@ -257,15 +357,10 @@ class Recorder:
         from nerf_downstream_tpu_torch.models.mink import layers
         from nerf_downstream_tpu_torch.ops import window_conv
 
-        self._saved = (window_conv.window_match,
-                       window_conv.window_gather_matmul,
+        super().__enter__()
+        self._saved = (window_conv.window_gather_matmul,
                        layers.window_conv_apply)
-        match, gmm, apply = self._saved
-
-        def rec_match(*args):
-            self.k1.append(tuple(a.clone() if hasattr(a, "clone") else a
-                                 for a in args))
-            return match(*args)
+        gmm, apply = self._saved
 
         def rec_gmm(feats, starts, idx, w):
             self.k2.append((feats.clone(), starts.clone(), idx.clone(),
@@ -276,7 +371,6 @@ class Recorder:
             self.blocks.append(plan.blocks)
             return apply(feats, plan, *args, **kwargs)
 
-        window_conv.window_match = rec_match
         window_conv.window_gather_matmul = rec_gmm
         layers.window_conv_apply = rec_apply
         return self
@@ -285,8 +379,9 @@ class Recorder:
         from nerf_downstream_tpu_torch.models.mink import layers
         from nerf_downstream_tpu_torch.ops import window_conv
 
-        (window_conv.window_match, window_conv.window_gather_matmul,
-         layers.window_conv_apply) = self._saved
+        window_conv.window_gather_matmul, layers.window_conv_apply = (
+            self._saved)
+        super().__exit__(*exc)
         return False
 
 
@@ -295,8 +390,8 @@ class PlainPath:
     reference side of the whole-model comparison on the card), or to the
     functions ``override`` names."""
 
-    NAMES = ("window_match", "window_gather_matmul", "window_bwd",
-             "window_dw")
+    NAMES = ("window_starts", "window_match", "window_gather_matmul",
+             "window_bwd", "window_dw")
 
     def __init__(self, **override):
         self.override = override
@@ -362,19 +457,21 @@ class GateRecorder:
         return False
 
 
-class TrainRecorder:
-    """Records the inputs of every K3 and K4 call of a training step, with
-    the forward plan of each K3 call (kept by a subclass of the conv's
-    autograd Function that the recorder puts in its place). Calls go on to
-    the real kernels."""
+class TrainRecorder(PlanRecorder):
+    """Records what ``PlanRecorder`` records, and the inputs of every K3
+    and K4 call of a training step, with the forward plan of each K3 call
+    (kept by a subclass of the conv's autograd Function that the recorder
+    puts in its place). Calls go on to the real kernels."""
 
     def __init__(self):
+        super().__init__()
         self.k3: list[dict] = []
         self.k4: list[tuple] = []
 
     def __enter__(self):
         from nerf_downstream_tpu_torch.ops import window_conv as wc
 
+        super().__enter__()
         self._saved = (wc._WindowConvCore, wc.window_dw)
         core, dw = self._saved
         rec = self
@@ -411,18 +508,28 @@ class TrainRecorder:
         from nerf_downstream_tpu_torch.ops import window_conv as wc
 
         wc._WindowConvCore, wc.window_dw = self._saved
+        super().__exit__(*exc)
         return False
 
 
 def k1_bytes(args) -> int:
     """Bytes K1 must move: the key table and the query keys and mask read
-    once, starts and deltas read once, idx written once."""
+    once, starts read once, idx written once (the deltas are parameters)."""
     hi, lo, o_hi, o_lo, out_mask, deltas, starts = args[:7]
     tile = args[7]
     g, nt = starts.shape
-    m = deltas.shape[1]
+    m = len(deltas[0])
     return int(8 * hi.numel() + 9 * o_hi.numel() + 4 * starts.numel()
-               + 4 * deltas.numel() + 4 * g * nt * m * tile)
+               + 4 * g * nt * m * tile)
+
+
+def starts_bytes(args) -> int:
+    """Bytes the window-starts pass must move: the key table read once,
+    the query key of each tile's first row read once, starts and emax
+    written once, the counts written once."""
+    hi, o_hi, deltas, tile = args[0], args[2], args[6], args[7]
+    g, nt = len(deltas), o_hi.shape[0] // tile
+    return int(8 * hi.numel() + 8 * nt + 8 * g * nt + 4 * (g + 1) + 8)
 
 
 def k2_work(feats, starts, idx, w) -> tuple[int, int]:
@@ -496,6 +603,20 @@ def dw_err(got, want) -> tuple[float, float]:
     return float((d / scale).max()), float(d.max())
 
 
+def ptxas_by_kernel(log: str) -> dict:
+    """nvcc's ptxas report of one source as {entry function: its register,
+    shared-memory and spill lines}."""
+    out: dict = {}
+    name = None
+    for ln in log.splitlines():
+        if "Compiling entry function" in ln:
+            name = ln.split("'")[1]
+            out.setdefault(name, [])  # a name nvcc reports twice keeps both
+        elif name is not None and ("registers" in ln or "spill" in ln):
+            out[name].append(ln.strip().replace("ptxas info    : ", ""))
+    return out
+
+
 def phase_build() -> dict:
     from nerf_downstream_tpu_torch.ops.kernels import build
 
@@ -505,8 +626,7 @@ def phase_build() -> dict:
         build.library(stem)
     return {"phase": "build", "seconds": time.perf_counter() - t0,
             "libraries": sorted(os.path.basename(p) for p in libs.values()),
-            "ptxas": {k: [ln.strip() for ln in v.splitlines()
-                          if "registers" in ln or "spill" in ln]
+            "ptxas": {k: ptxas_by_kernel(v)
                       for k, v in build.ptxas_report().items()}}
 
 
@@ -557,6 +677,8 @@ def phase_serve(card: str, requests: dict, dtype) -> tuple[dict, dict]:
             "ms_median_after_first": float(np.median(times[1:])),
             "launches": counts, "launches_by_core": cores,
             "launches_per_request": {k: v / n for k, v in counts.items()},
+            "sync": sync_count(preset, lambda: serve.eval_step(model,
+                                                              batches[0])),
         }
     return out, launches
 
@@ -629,38 +751,110 @@ def record_forward(preset: str, dtype):
     return rec
 
 
-def phase_k1(rec) -> tuple[dict, dict]:
+def plan_mismatches(a, b) -> dict:
+    """Elements that differ per array of two window plans."""
+    import torch
+
+    out = {}
+    for name in PLAN_ARRAYS:
+        x, y = getattr(a, name), getattr(b, name)
+        if (x is None) != (y is None):
+            out[name] = "present in one plan only"
+        elif x is not None:
+            out[name] = (int((x != y).sum()) if x.shape == y.shape
+                         else f"shapes {tuple(x.shape)}, {tuple(y.shape)}")
+    if (a.perm, a.tile, a.window, a.blocks) != (b.perm, b.tile, b.window,
+                                                b.blocks):
+        out["layout"] = "differs"
+    return {k: v for k, v in out.items() if v}
+
+
+def phase_k1(recs: dict) -> tuple[dict, dict, dict]:
+    """K1 and the window-starts pass. Every plan that one forward of
+    ``serving_8k`` and of ``eval_64k`` and one ``train_64k`` step built on
+    the card is built again on the card by the kernels and by the plain
+    versions: the two must be equal element for element (starts, idx,
+    n_escaped, the escape lists and their statistics), every pass's
+    starts, emax and n_escaped must equal its plain version's, and every
+    K1 call its plain version's. Each pass and K1 call of the eval_64k
+    forward is timed beside its plain version and its bytes bound."""
+    import torch
+
+    from nerf_downstream_tpu_torch.ops import window_conv
     from nerf_downstream_tpu_torch.ops.kernels import (
+        match,
         window_match,
         window_match_plain,
+        window_starts,
+        window_starts_plain,
     )
 
-    plans, kernel_ms, plain_ms, bound_ms = [], 0.0, 0.0, 0.0
-    for args in rec.k1:
-        got = window_match(*args)
-        want = window_match_plain(*args)
-        n_diff = int((got != want).sum())
+    checked = {}
+    for path, rec in recs.items():
+        n_plans = len(rec.plans)
+        if not (n_plans == len(rec.starts) == len(rec.k1) > 0):
+            raise PhaseError(f"{path}: {n_plans} plans, {len(rec.starts)} "
+                             f"passes, {len(rec.k1)} K1 calls recorded")
+        for args, kwargs in rec.plans:
+            got = window_conv.build_plan_direct(*args, **kwargs)
+            with PlainPath():
+                want = window_conv.build_plan_direct(*args, **kwargs)
+            bad = plan_mismatches(got, want)
+            if bad:
+                raise PhaseError(f"{path}: a plan built by the kernels "
+                                 f"differs from the plain versions' plan: "
+                                 f"{bad}")
+        for args in rec.starts:
+            for name, x, y in zip(("starts", "emax", "n_escaped"),
+                                  window_starts(*args),
+                                  window_starts_plain(*args)):
+                if not torch.equal(x, y):
+                    raise PhaseError(f"{path}: the pass's {name} differs "
+                                     "from its plain version")
+        for args in rec.k1:
+            if not torch.equal(window_match(*args), window_match_plain(*args)):
+                raise PhaseError(f"{path}: K1 differs from its plain version")
+        checked[path] = {"plans": n_plans, "escape_lists": sum(
+            kw.get("escape_cap", 0) > 0 for _, kw in rec.plans)}
+
+    rec = recs["eval_64k"]
+    plans = []
+    tot = dict.fromkeys(("ms", "plain_ms", "bound_ms", "starts_ms",
+                         "starts_plain_ms", "starts_bound_ms"), 0.0)
+    for s_args, args in zip(rec.starts, rec.k1):
         hi, _, o_hi, _, _, deltas, starts, tile, window, blocks = args
         kind = ("same-set" if o_hi.shape == hi.shape
                 and bool((o_hi == hi).all()) else "cross")
+        t_s = device_ms(lambda: window_starts(*s_args))
+        t_sp = device_ms(lambda: window_starts_plain(*s_args), reps=2)
         t_k = device_ms(lambda: window_match(*args))
         t_p = device_ms(lambda: window_match_plain(*args), reps=2)
+        b_s = starts_bytes(s_args) / HBM_BYTES_PER_S * 1e3
         b = k1_bytes(args) / HBM_BYTES_PER_S * 1e3
-        kernel_ms, plain_ms, bound_ms = (kernel_ms + t_k, plain_ms + t_p,
-                                         bound_ms + b)
+        for k, v in (("ms", t_k), ("plain_ms", t_p), ("bound_ms", b),
+                     ("starts_ms", t_s), ("starts_plain_ms", t_sp),
+                     ("starts_bound_ms", b_s)):
+            tot[k] += v
+        g, nt = starts.shape
+        idx = window_match(*args)
         plans.append({
             "kind": kind, "n_in": hi.shape[0], "n_out": o_hi.shape[0],
-            "G": starts.shape[0], "M": deltas.shape[1], "tile": tile,
-            "coverage": blocks * window, "mismatches": n_diff,
-            "present": int((got >= 0).sum()), "ms": t_k, "plain_ms": t_p,
-            "bound_ms": b,
-        })
-        if n_diff:
-            raise PhaseError(f"K1 differs from its plain version: {plans[-1]}")
-    line = {"phase": "k1", "plans": plans, "ms": kernel_ms,
-            "plain_ms": plain_ms, "bound_ms": bound_ms}
-    return line, {"max_abs_err": 0, "ms": kernel_ms, "plain_ms": plain_ms,
-                  "bound_ms": bound_ms, "calls_per_forward": len(plans)}
+            "G": g, "M": len(deltas[0]), "tile": tile,
+            "coverage": blocks * window,
+            "k1_rows_per_block": match.rows_per_block(nt, tile, g),
+            "present": int((idx >= 0).sum()),
+            "starts_ms": t_s, "starts_plain_ms": t_sp, "starts_bound_ms": b_s,
+            "ms": t_k, "plain_ms": t_p, "bound_ms": b,
+            "k1_plus_pass_ms": t_k + t_s})
+    line = {"phase": "k1", "plans_checked": checked, "plans": plans, **tot,
+            "k1_plus_pass_ms": tot["ms"] + tot["starts_ms"],
+            "roofline_share": tot["bound_ms"] / tot["ms"]}
+    k1 = {"max_abs_err": 0, "ms": tot["ms"], "plain_ms": tot["plain_ms"],
+          "bound_ms": tot["bound_ms"], "calls_per_forward": len(plans)}
+    ws = {"max_abs_err": 0, "ms": tot["starts_ms"],
+          "plain_ms": tot["starts_plain_ms"],
+          "bound_ms": tot["starts_bound_ms"], "calls_per_forward": len(plans)}
+    return line, k1, ws
 
 
 def im2col_matmul(feats, starts, idx, w):
@@ -872,6 +1066,11 @@ def phase_train(card: str, dtype) -> tuple[dict, dict, tuple]:
         torch.cuda.synchronize()
         return (time.perf_counter() - t0) * 1e3 / n
 
+    def step() -> None:
+        nonlocal state
+        state, _ = train3d.train_step(task, state, batch)
+
+    line["sync"] = sync_count("train_64k", step)
     n = TRAIN_PROFILE_STEPS
     wall = run(n)
     with profile(activities=[ProfilerActivity.CPU,
@@ -1129,6 +1328,54 @@ def grad_gap(grads, ref) -> float:
                for g, r in zip(grads, ref))
 
 
+def nondeterministic_ops(build, batch) -> dict:
+    """Which ops make whole training steps differ. Two kernel-path steps
+    from the same fresh model run under
+    ``torch.use_deterministic_algorithms(True, warn_only=True)``: the ops
+    PyTorch names as nondeterministic (each warning's first sentence,
+    where it was raised — a backward op's at the ``backward`` call — and
+    how often), a control op that must be named (``torch.histc``), and
+    whether the two steps' gradients are then bit-identical (in this mode
+    the ops that have a deterministic implementation take it without a
+    warning)."""
+    import collections
+    import warnings
+
+    import torch
+
+    from nerf_downstream_tpu_torch import train3d
+
+    sites = collections.Counter()
+    grads = []
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            for _ in range(2):
+                task, state = build()
+                state, _ = train3d.train_step(task, state, batch)
+                grads.append([p.grad.clone()
+                              for p in state.model.parameters()])
+            control = len(caught)
+            torch.histc(torch.ones(8, device="cuda"))
+            control = len(caught) > control
+            torch.cuda.synchronize()
+        finally:
+            torch.use_deterministic_algorithms(False)
+    for w in caught[:-1] if control else caught:
+        msg = str(w.message)
+        if "determinis" not in msg:
+            continue
+        where = f"{os.path.relpath(w.filename, REPO)}:{w.lineno}"
+        sites[(msg.split(". ")[0][:200], where)] += 1
+    return {"named": [{"op": op, "raised_at": where, "count": n}
+                      for (op, where), n in sites.most_common()],
+            "control_histc_named": bool(control),
+            "two_steps_bit_identical": all(
+                torch.equal(a, b) for a, b in zip(*grads)),
+            "two_steps_grad_gap_of_max": grad_gap(grads[0], grads[1])}
+
+
 def phase_train_model() -> dict:
     """One f32 ``train_8k`` step, kernel path against plain path.
 
@@ -1195,6 +1442,7 @@ def phase_train_model() -> dict:
         ("kernel", "plain"), ("kernel", "kernel_again"),
         ("plain", "plain_reordered"))}
 
+    nondet = nondeterministic_ops(build, batch)
     task, state = build()
     b = task.augment(batch, state.step)
     logits = state.model(PointField(coords=b["coordinates"],
@@ -1226,6 +1474,7 @@ def phase_train_model() -> dict:
             "grad_err_of_max": max(errs),
             "worst_grad": names[int(np.argmax(errs))],
             "param_err_of_tol": param_err,
+            "nondeterministic_ops": nondet,
             "tolerance": {"loss": TRAIN_LOSS_TOL, "grad": TRAIN_GRAD_TOL,
                           "param": "lr x grad tolerance + 1e-6 (1 + |p|)",
                           "running": [1e-4, 1e-5]}}
@@ -1545,6 +1794,8 @@ def phase_sparse_eval(card: str) -> tuple[dict, dict, dict]:
             cfg["request_ms"] = spread(request_times(model, prof_batches,
                                                      SPARSE_REQUESTS))
             cfg["profile"] = profile_requests(model, prof_batches)
+            cfg["sync"] = sync_count(name, lambda: serve.eval_step(
+                model, prof_batches[0]))
             if how is not None:  # a = dense, b = this configuration
                 cfg["wall_ms_in_turns"] = wall_in_turns(dense16, model,
                                                         prof_batches)
@@ -1786,11 +2037,21 @@ def phase_k5(recs: dict) -> tuple[dict, dict]:
 
 
 def phase_k6(recs: dict) -> tuple[dict, dict]:
+    """Every K6 call of the recorded ZAXIS and strided forwards (each with
+    bf16 inputs, so on the tensor cores) against its plain version: in f32
+    (CUDA cores) and in bf16 within atol = rtol = 1e-5 of the f32 sum; two
+    bf16 launches bit-identical. Per call: the core, column tile and step
+    split, the time beside the bound, the plain version and, for
+    information, an im2col (``x_ext[km.T]``) plus one ``torch.matmul``,
+    which the port never calls. Also the ptxas lines of K2, K3 and K5,
+    whose core K6's now shares."""
     import torch
 
     from nerf_downstream_tpu_torch.ops.kernels import (
+        build,
         row_gather_matmul,
         row_gather_matmul_plain,
+        tc,
     )
 
     configs: dict = {}
@@ -1798,8 +2059,18 @@ def phase_k6(recs: dict) -> tuple[dict, dict]:
     deterministic = True
     for name, calls in recs.items():
         acc = {"calls": [], "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
-               "bytes_bound_ms": 0.0}
+               "im2col_matmul_ms": 0.0, "bytes_bound_ms": 0.0}
         for x_ext, km, w in calls:
+            if {x_ext.dtype, w.dtype} != {torch.bfloat16}:
+                raise PhaseError(f"K6 call of the bf16 {name} forward with "
+                                 f"{x_ext.dtype} inputs")
+            k, n_out = km.shape
+            c, cout = w.shape[-2:]
+            choice = tc.row_choice(x_ext.dtype, n_out, c, cout, k,
+                                   tc.aligned(x_ext, w))
+            if choice.core != "tensor":
+                raise PhaseError(f"K6 of the {name} forward is not on the "
+                                 "tensor cores")
             want = row_gather_matmul_plain(x_ext.float(), km, w.float())
             errs = {}
             for dt, (x, ww) in (("f32", (x_ext.float(), w.float())),
@@ -1810,39 +2081,53 @@ def phase_k6(recs: dict) -> tuple[dict, dict]:
                 errs[dt] = float((got - want).abs().max())
                 if bad:
                     raise PhaseError(f"K6 ({dt}) outside tolerance: {bad} "
-                                     f"elements, K={km.shape[0]}")
+                                     f"elements, K={k}")
                 if dt == "bf16":
                     deterministic &= bool(torch.equal(
                         row_gather_matmul(x, km, ww), got))
             err32, err16 = max(err32, errs["f32"]), max(err16, errs["bf16"])
+            cols = km.t().long().contiguous()
+            wm = w.reshape(k * c, cout)
             t_k = device_ms(lambda: row_gather_matmul(x_ext, km, w))
             t_p = device_ms(lambda: row_gather_matmul_plain(x_ext, km, w),
                             reps=2)
+            t_c = device_ms(lambda: torch.matmul(
+                x_ext[cols].reshape(n_out, k * c), wm), reps=2)
             nbytes, flops = k6_work(x_ext, km, w)
             b, by = bound(nbytes, flops, x_ext.dtype)
             acc["ms"] += t_k
             acc["plain_ms"] += t_p
+            acc["im2col_matmul_ms"] += t_c
             acc["bound_ms"] += b
             acc["bytes_bound_ms"] += b if by == "bytes" else 0.0
             acc["calls"].append({
-                "K": km.shape[0], "n_in": x_ext.shape[0] - 1,
-                "n_out": km.shape[1], "C": w.shape[-2], "Cout": w.shape[-1],
-                "pairs": int((km < x_ext.shape[0] - 1).sum()), "ms": t_k,
-                "plain_ms": t_p, "bound_ms": b, "bound_by": by,
-                "max_abs_err": errs})
+                "K": k, "n_in": x_ext.shape[0] - 1, "n_out": n_out, "C": c,
+                "Cout": cout, "pairs": int((km < x_ext.shape[0] - 1).sum()),
+                "core": choice.describe_steps(), "ms": t_k, "plain_ms": t_p,
+                "im2col_matmul_ms": t_c, "bound_ms": b, "bound_by": by,
+                "roofline_share": b / t_k, "max_abs_err": errs})
         configs[name] = acc
     if not deterministic:
         raise PhaseError("K6: two launches on the same inputs differ")
+    # per source, each kernel's lines, sorted (the order in which nvcc
+    # emits the kernels is not the code)
+    ptxas = {stem: sorted(" | ".join(v) for v in ptxas_by_kernel(log)
+                          .values())
+             for stem, log in build.ptxas_report().items()
+             if stem in ("window_gather_matmul", "window_bwd",
+                         "window_gather_matmul_bs", "row_gather_matmul")}
     head = configs.get("zaxis") or next(iter(configs.values()))
     line = {"phase": "k6", "configs": configs, "max_abs_err_f32": err32,
             "max_abs_err_bf16_inputs": err16,
-            "deterministic": deterministic,
+            "deterministic": deterministic, "ptxas": ptxas,
             "tolerance": [K2_F32_TOL, K2_F32_TOL]}
     return line, {"max_abs_err": err32, "max_abs_err_bf16_inputs": err16,
                   "deterministic": deterministic, "ms": head["ms"],
                   "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
+                  "im2col_matmul_ms": head["im2col_matmul_ms"],
                   "bound_by": ("bytes" if head["bytes_bound_ms"]
                                >= head["bound_ms"] / 2 else "operations"),
+                  "core": "tensor cores (bf16), CUDA cores (f32)",
                   "calls_per_forward": len(head["calls"])}
 
 
@@ -1883,12 +2168,14 @@ def main() -> int:
         emit(phase_profile("eval_64k", 3, torch.bfloat16))
         phase = "record"
         rec = record_forward("eval_64k", torch.bfloat16)
-        phase = "k1"
-        line, k1 = phase_k1(rec)
-        emit(line)
+        plan_recs = {"serving_8k": record_forward("serving_8k",
+                                                  torch.bfloat16),
+                     "eval_64k": rec}
+        plan_recs["serving_8k"].k2 = []  # its plans are what phase k1 needs
         phase = "k2"
         line, k2 = phase_k2(rec)
         emit(line)
+        rec.k2 = []
         del rec
         phase = "model"
         emit(phase_model())
@@ -1900,6 +2187,11 @@ def main() -> int:
         phase = "record_train"
         rec = record_train_step(train)
         del train
+        plan_recs["train_64k"] = rec
+        phase = "k1"
+        line, k1, ws = phase_k1(plan_recs)
+        emit(line)
+        del plan_recs
         phase = "k3"
         line, k3 = phase_k3(rec)
         emit(line)
@@ -1934,6 +2226,9 @@ def main() -> int:
     tpu = "nerf_downstream_tpu/ops/pallas/window_gather.py"
     # why library_ms is null: no single PyTorch call computes these
     no_library = {
+        "window_starts": "a searchsorted of the tile-boundary keys, then a "
+                         "min and max over the members, a running max, a "
+                         "floor and a count: several calls",
         "window_match": "searchsorted ranks in the whole table, not the "
                         "in-window rank or -1",
         "window_gather_matmul": "a per-offset gather and product summed "
@@ -1950,6 +2245,14 @@ def main() -> int:
                              "materialise the [K, N, Cin] gathers)",
     }
     kernels = [
+        dict(name="window_starts", route="cuda",
+             source=src + "window_match.cu",
+             replaces="nerf_downstream_tpu/ops/window_conv.py:241 (the "
+                      "window starts around window_match_pallas, XLA ops "
+                      "under jit)",
+             bound_by="bytes", library_ms=None,
+             shapes="one eval_64k forward (bf16)", **paths("window_starts"),
+             **ws),
         dict(name="window_match", route="cuda",
              source=src + "window_match.cu", replaces=f"{tpu}:387",
              bound_by="bytes", library_ms=None,

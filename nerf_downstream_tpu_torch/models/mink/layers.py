@@ -31,6 +31,7 @@ import torch
 from torch import nn
 from torch.nn import functional as F
 
+from nerf_downstream_tpu_torch.ops.consts import const
 from nerf_downstream_tpu_torch.ops.norm import (
     batch_norm_apply,
     masked_mean_var,
@@ -186,11 +187,11 @@ class SparseConv(nn.Module):
         w = self.kernel
         if w_rows is not None:
             return torch.where(
-                torch.as_tensor(w_rows >= 0, device=w.device)[:, None, None],
-                w[torch.as_tensor(np.clip(w_rows, 0, None), device=w.device)],
+                const(w_rows >= 0, torch.bool, w.device)[:, None, None],
+                w[const(np.clip(w_rows, 0, None), torch.int64, w.device)],
                 0.0)
         if subset is not None:
-            return w[torch.as_tensor(subset, device=w.device)]
+            return w[const(subset, torch.int64, w.device)]
         return w
 
     def _block_live(self, ctx, subset, w_rows):
@@ -248,7 +249,7 @@ class SparseConv(nn.Module):
             inv = ctx.kernel_map(out_sv.coords, out_sv.mask, sv.coords,
                                  sv.mask, offs, transpose=True,
                                  in_stride=out_sv.stride)
-        w = self.kernel[torch.as_tensor(subset, device=self.kernel.device)]
+        w = self.kernel[const(subset, torch.int64, self.kernel.device)]
         out_f = sparse_conv_apply(sv.feats, km, w, self.bias,
                                   compute_dtype=self.compute_dtype,
                                   inv_map=inv).to(self.compute_dtype)

@@ -2,7 +2,8 @@
 version. Importing this package builds nothing: a kernel is compiled on
 its first launch (``build.library``).
 
-K1 ``window_match`` (``match.py``, ``window_match.cu``), K2
+K1 ``window_match`` and its window-starts pass ``window_starts``
+(``match.py``, ``window_match.cu``), K2
 ``window_gather_matmul`` (``gather_matmul.py``,
 ``window_gather_matmul.cu``), K3 ``window_bwd`` (``bwd.py``,
 ``window_bwd.cu``), K4 ``window_dw`` (``dw.py``, ``window_dw.cu``), K5
@@ -11,7 +12,8 @@ K1 ``window_match`` (``match.py``, ``window_match.cu``), K2
 (``row_gather.py``, ``row_gather_matmul.cu``). K2, K3, K4 and K5 run
 bfloat16 inputs on the tensor cores (``window_gather_tc.cuh``, K5 with a
 liveness policy; ``window_dw_tc.cuh``; launch choices in ``tc.py``) and
-float32 inputs on the CUDA cores; K1 and K6 run on the CUDA cores.
+float32 inputs on the CUDA cores; so does K6 (``row_gather.py``, its
+split in ``tc.row_choice``); K1 and the pass run on the CUDA cores.
 """
 
 from nerf_downstream_tpu_torch.ops.kernels.bwd import (
@@ -33,14 +35,16 @@ from nerf_downstream_tpu_torch.ops.kernels.gather_matmul_bs import (
 from nerf_downstream_tpu_torch.ops.kernels.match import (
     window_match,
     window_match_plain,
+    window_starts,
+    window_starts_plain,
 )
 from nerf_downstream_tpu_torch.ops.kernels.row_gather import (
     row_gather_matmul,
     row_gather_matmul_plain,
 )
 
-KERNELS = (window_match, window_gather_matmul, window_bwd, window_dw,
-           window_gather_matmul_bs, row_gather_matmul)
+KERNELS = (window_starts, window_match, window_gather_matmul, window_bwd,
+           window_dw, window_gather_matmul_bs, row_gather_matmul)
 
 
 def reset_launch_counts() -> None:
@@ -68,4 +72,6 @@ __all__ = [
     "window_gather_matmul_plain",
     "window_match",
     "window_match_plain",
+    "window_starts",
+    "window_starts_plain",
 ]

@@ -4,8 +4,11 @@ kernel map.
 Replaces the Pallas TPU kernel ``gather_matmul``
 (``nerf_downstream_tpu/ops/pallas/gather_matmul.py:76``). The CUDA kernel
 is ``row_gather_matmul.cu`` (its header states the bound on the H100 and
-the design); ``row_gather_matmul_plain`` is the same function in plain
-PyTorch, written from the reference's ``gather_matmul_reference``.
+the design): bfloat16 inputs run on the tensor cores with the column tile
+and (term, channel chunk) step split of ``tc.row_choice``, float32 ones on
+the CUDA cores; the output is float32 either way.
+``row_gather_matmul_plain`` is the same function in plain PyTorch,
+written from the reference's ``gather_matmul_reference``.
 
 The wrapper dispatches on the device of its tensors: CPU tensors take the
 plain version, CUDA tensors launch the kernel, anything else raises.
@@ -18,12 +21,14 @@ import ctypes
 
 import torch
 
-from nerf_downstream_tpu_torch.ops.kernels import build
+from nerf_downstream_tpu_torch.ops.kernels import build, tc
 
 _DTYPES = (torch.float32, torch.bfloat16)
 _P, _I = ctypes.c_void_p, ctypes.c_int
-# x_ext, n_in, c, km, k, n_out, w, cout, out, bf16, stream
-_ARGTYPES = (_P, _I, _I, _P, _I, _I, _P, _I, _P, _I, _P)
+# x_ext, n_in, c, km, k, n_out, w, cout, out, bf16, bn, vec, parts, per,
+# part, stream
+_ARGTYPES = (_P, _I, _I, _P, _I, _I, _P, _I, _P, _I, _I, _I, _I, _I, _P,
+             _P)
 
 
 def row_gather_matmul_plain(x_ext, km, w):
@@ -49,6 +54,12 @@ def row_gather_matmul(x_ext, km, w):
         return row_gather_matmul_plain(x_ext, km, w)
     if dev.type != "cuda":
         raise ValueError(f"row_gather_matmul: unsupported device {dev}")
+    return _launch(x_ext, km, w)
+
+
+def _launch(x_ext, km, w):
+    """Checks, the launch choice, and one launch of the kernel."""
+    dev = x_ext.device
     n_ext, c = x_ext.shape
     k, n_out = km.shape
     cout = w.shape[-1]
@@ -60,14 +71,21 @@ def row_gather_matmul(x_ext, km, w):
         (km, "km", torch.int32, (k, n_out)),
         (w, "w", x_ext.dtype, (k, c, cout)),
     ))
+    choice = tc.row_choice(x_ext.dtype, n_out, c, cout, k,
+                           tc.aligned(x_ext, w))
     out = torch.empty((n_out, cout), dtype=torch.float32, device=dev)
+    part = (torch.empty(choice.scratch_numel(n_out, cout),
+                        dtype=torch.float32, device=dev)
+            if choice.parts > 1 else None)
     fn = build.function("row_gather_matmul", "row_gather_matmul_launch",
                         _ARGTYPES)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(x_ext.data_ptr(), n_ext - 1, c, km.data_ptr(), k, n_out,
                  w.data_ptr(), cout, out.data_ptr(),
-                 int(x_ext.dtype == torch.bfloat16), stream)
+                 int(choice.core == "tensor"), choice.column_tile,
+                 int(choice.vec), choice.parts, choice.per,
+                 None if part is None else part.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"row_gather_matmul launch failed: CUDA error {err}")
     row_gather_matmul.launches += 1

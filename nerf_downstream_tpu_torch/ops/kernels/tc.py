@@ -1,8 +1,9 @@
-"""Launch choices of the gather-matmul and d_w kernels (K2, K3, K4, K5).
+"""Launch choices of the gather-matmul and d_w kernels (K2-K6).
 
 bfloat16 calls of K2 (``window_gather_matmul``), of both halves of K3
 (``window_bwd``), of K4 (``window_dw``) and of K5
-(``window_gather_matmul_bs``) run on the tensor cores
+(``window_gather_matmul_bs``) and of K6 (``row_gather_matmul``) run on
+the tensor cores
 (``window_gather_tc.cuh``, ``window_dw_tc.cuh``); float32 calls stay on
 the CUDA-core code. The input type is the only switch. Everything the
 kernels need beyond the tensors is chosen here, from the shapes alone, so
@@ -17,6 +18,11 @@ that the CPU tests can check it:
   in contiguous runs to up to ``MAX_SPLIT`` blocks per output tile, whose
   f32 partials a second kernel adds in a fixed order; K5 takes K2's tile
   and split (``gather_choice``), so its sums are K2's;
+- K6's split (``row_choice``): its 2-8 terms are too few to fill the
+  SMs at the coarse levels, so the (term, 32-channel chunk) steps go in
+  contiguous runs of ``per`` steps to up to ``MAX_SPLIT`` parts per output
+  tile, by the rule of ``term_split`` over steps; its f32 partials are
+  added in a fixed order into K6's f32 output;
 - the d_w tiles (``dw_tiles``), each among 32, 64 and 96 by the same rule,
   and d_w's rows per chunk (``dw_chunk_rows``): each chunk's f32 partial
   is added in a fixed order afterwards, so more chunks mean more blocks
@@ -107,6 +113,7 @@ class CoreChoice:
     column_tile: int = 0
     parts: int = 1
     per: int = 0
+    vec: bool = True
 
     def scratch_numel(self, n_out: int, cout: int) -> int:
         """f32 elements of the split's scratch (0 without a split)."""
@@ -118,6 +125,14 @@ class CoreChoice:
         return {"core": TENSOR_CORES, "column_tile": self.column_tile,
                 "split": self.parts, "terms_per_part": self.per}
 
+    def describe_steps(self) -> dict:
+        """``describe`` of a K6 choice, whose parts run steps."""
+        if self.core == "cuda":
+            return self.describe()
+        return {"core": TENSOR_CORES, "column_tile": self.column_tile,
+                "split": self.parts, "steps_per_part": self.per,
+                "staging": "16-byte" if self.vec else "element"}
+
 
 def gather_choice(dtype, n_out: int, c: int, cout: int,
                   n_terms: int) -> CoreChoice:
@@ -128,6 +143,30 @@ def gather_choice(dtype, n_out: int, c: int, cout: int,
     bn = column_tile(c, cout)
     parts, per = term_split(n_out, cout, n_terms, bn)
     return CoreChoice("tensor", bn, parts, per)
+
+
+CHUNK = 32  # input channels per step of the tensor-core core
+
+
+def row_choice(dtype, n_out: int, c: int, cout: int, n_terms: int,
+               aligned: bool = True) -> CoreChoice:
+    """The core, column tile and step split of a K6 call on ``dtype``
+    inputs with [n_out, cout] output over ``n_terms`` kernel offsets:
+    bf16 on the tensor cores, its ``n_terms x ceil(c / CHUNK)`` (term,
+    chunk) steps split into ``parts`` runs of ``per`` steps (``term_split``
+    over steps); the 16-byte staging where ``vector_ok`` and ``aligned``
+    (both operands on 16-byte boundaries), else element staging with the
+    32-column tile; float32 on the CUDA cores."""
+    if dtype != torch.bfloat16:
+        return CoreChoice("cuda")
+    vec = vector_ok(c, cout) and aligned
+    bn = column_tile(c, cout) if vec else 32
+    steps = n_terms * -(-c // CHUNK)
+    if c > 32 * CHUNK:  # the split marks a term's chunks in one 32-bit word
+        parts, per = 1, steps
+    else:
+        parts, per = term_split(n_out, cout, steps, bn)
+    return CoreChoice("tensor", bn, parts, per, vec)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -164,10 +203,15 @@ def dw_choice(dtype, rows: int, c: int, cout: int,
     return DwChoice("cuda", (64, 64), max(64, -(-per // 64) * 64))
 
 
+def aligned(*tensors) -> bool:
+    """Whether every tensor starts on a 16-byte boundary."""
+    return all(t.data_ptr() % ALIGN == 0 for t in tensors)
+
+
 def check_aligned(name: str, *tensors) -> None:
     """Raise unless every tensor starts on a 16-byte boundary, as the
     16-byte copies of the vector staging need."""
     for t in tensors:
-        if t.data_ptr() % ALIGN:
+        if not aligned(t):
             raise ValueError(f"{name}: a tensor starts at {t.data_ptr():#x},"
                              f" not on a {ALIGN}-byte boundary")

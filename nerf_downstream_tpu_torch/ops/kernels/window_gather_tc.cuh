@@ -1,15 +1,19 @@
 // The bf16 tensor-core gather-matmul core of K2 (windowed forward), of
-// K3's d_feats half (the same function over the inverse plan) and of K5
-// (K2 over the live weight blocks):
+// K3's d_feats half (the same function over the inverse plan), of K5
+// (K2 over the live weight blocks) and of K6 (row gather-matmul):
 //
-//   out[r] = sum over terms q = (g, m) of src[rows(q, r)] @ w[q]
+//   out[r] = sum over terms q of src[rows(q, r)] @ w[q]
 //
-// with rows(gm, t*T + i) = starts[g, t] + idx[g, t, m, i], or nothing when
-// the entry is absent (-1) or its rank lands past the table. bf16 in, f32
-// accumulation, one rounding into bf16 (or, when the terms are split over
-// several blocks, f32 partial sums that a second kernel adds in a fixed
-// order and rounds once). float32 calls stay on the CUDA-core core of
-// window_gather.cuh, as do K6's.
+// The row source is a template parameter: for a window plan (K2, K3, K5)
+// a term is a member (g, m) and rows(gm, t*T + i) = starts[g, t] +
+// idx[g, t, m, i], or nothing when the entry is absent (-1) or its rank
+// lands past the table (PlanRows); for K6 a term is a kernel offset k and
+// rows(k, n) = km[k, n], or nothing at the sentinel (MapRows,
+// row_gather_matmul.cu). bf16 in, f32 accumulation, one rounding into
+// bf16 (or, when the terms are split over several blocks, f32 partial
+// sums that a second kernel adds in a fixed order and rounds once); K6
+// writes its sums in f32. float32 calls stay on the CUDA-core core of
+// window_gather.cuh.
 //
 // Bound on the H100 at the model's shapes: operations at the fine, wide
 // levels (2 C Cout FLOP per present plan entry, 989 TFLOP/s of bf16 tensor
@@ -56,7 +60,11 @@
 //   idle, the wrapper splits the G x M terms into `parts` contiguous runs
 //   (blockIdx.z); each part writes an f32 partial [n_out, Cout] to a
 //   scratch buffer, and split_reduce_kernel adds the parts in ascending
-//   order and rounds once. No atomics: repeats are bit-identical.
+//   order and rounds once. No atomics: repeats are bit-identical. K6's
+//   few terms (2-8 kernel offsets) split finer, over (term, 32-channel
+//   chunk) steps: its StepRange policy (row_gather_matmul.cu) marks, as
+//   K5's liveness does, the steps of a part live and the rest dead, and
+//   gives the part's term range; its parts add in the same fixed order.
 // - NaN in a present input row or in a weight reaches every output it is
 //   multiplied into, through the partials too; under K5's policy, every
 //   column of the tile of a step that runs (its dead blocks' zero weights
@@ -67,6 +75,7 @@
 #include <cstdint>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <type_traits>
 
 #include "window_gather.cuh"
 
@@ -217,6 +226,15 @@ __device__ __forceinline__ void store_tile(T* __restrict__ dst,
     }
 }
 
+// Whether a liveness policy splits a block's work over steps and names
+// its term range itself (Live::kStepSplit, Live::terms); otherwise part z
+// takes terms [z * per, (z + 1) * per).
+template <typename L, typename = void>
+struct SplitsSteps : std::false_type {};
+template <typename L>
+struct SplitsSteps<L, std::void_t<decltype(L::kStepSplit)>>
+    : std::bool_constant<L::kStepSplit> {};
+
 template <int BN>
 struct GatherSmem {
   static constexpr int kBS = BN + kPad;
@@ -231,10 +249,11 @@ struct GatherSmem {
 // bf16 `out`, else f32 partials `part` [parts, n_out, cout]. Live: AllLive,
 // or a policy whose live_under(q, k0, k1, col0, col1) says whether term q
 // has a live weight block under channels [k0, k1) and columns
-// [col0, col1) (K5's BlockLive).
-template <int BN, bool kVec, typename Live>
+// [col0, col1) (K5's BlockLive, K6's StepRange). Rows: the row source
+// (PlanRows, MapRows).
+template <int BN, bool kVec, typename Live, typename Rows>
 __global__ void __launch_bounds__(2 * BN) gather_mma_kernel(
-    const bf16* __restrict__ src, int c, PlanRows rows,
+    const bf16* __restrict__ src, int c, Rows rows,
     const bf16* __restrict__ w, int n_terms, int per, int n_out, int cout,
     bf16* __restrict__ out, float* __restrict__ part, Live lv) {
   using S = GatherSmem<BN>;
@@ -255,8 +274,13 @@ __global__ void __launch_bounds__(2 * BN) gather_mma_kernel(
   const int wn = warp >> 1;  // 32-column slice of the block
   const int row0 = blockIdx.x * kBM;
   const int col0 = blockIdx.y * BN;
-  const int q_begin = blockIdx.z * per;
-  const int q_end = min(n_terms, q_begin + per);
+  int q_begin, q_end;
+  if constexpr (SplitsSteps<Live>::value) {
+    lv.terms(n_terms, q_begin, q_end);
+  } else {
+    q_begin = blockIdx.z * per;
+    q_end = min(n_terms, q_begin + per);
+  }
   const int nk = (c + kBK - 1) / kBK;
 
   float acc[2][4][4], tacc[2][4][4];
@@ -444,23 +468,28 @@ __global__ void __launch_bounds__(2 * BN) gather_mma_kernel(
   }
 }
 
-// out[e] = round(sum over k < parts of part[k * n + e]), k ascending.
+// out[e] = sum over k < parts of part[k * n + e], k ascending, stored in
+// TOut (bf16: rounded once).
+template <typename TOut>
 __global__ void split_reduce_kernel(const float* __restrict__ part, int parts,
-                                    long long n, bf16* __restrict__ out) {
+                                    long long n, TOut* __restrict__ out) {
   for (long long e = static_cast<long long>(blockIdx.x) * blockDim.x +
                      threadIdx.x;
        e < n; e += static_cast<long long>(gridDim.x) * blockDim.x) {
     float s = 0.f;
     for (int k = 0; k < parts; ++k) s += part[k * n + e];
-    out[e] = __float2bfloat16(s);
+    store_f(out + e, s);
   }
 }
 
-template <int BN, bool kVec, typename Live>
-int launch_bn(const bf16* src, int c, PlanRows rows, const bf16* w,
+// One launch of the core (and of the reduction when parts > 1) into out
+// of type TOut: bf16 (the core rounds once), or float (K6: the core
+// stores its f32 sums, straight into out when parts == 1).
+template <int BN, bool kVec, typename Live, typename Rows, typename TOut>
+int launch_bn(const bf16* src, int c, Rows rows, const bf16* w,
               int n_terms, int parts, int per, int n_out, int cout,
-              bf16* out, float* part, Live lv, cudaStream_t stream) {
-  auto kernel = gather_mma_kernel<BN, kVec, Live>;
+              TOut* out, float* part, Live lv, cudaStream_t stream) {
+  auto kernel = gather_mma_kernel<BN, kVec, Live, Rows>;
   constexpr int kBytes = GatherSmem<BN>::kBytes;
   int err = static_cast<int>(cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kBytes));
@@ -468,9 +497,16 @@ int launch_bn(const bf16* src, int c, PlanRows rows, const bf16* w,
   dim3 grid(static_cast<unsigned>((n_out + kBM - 1) / kBM),
             static_cast<unsigned>((cout + BN - 1) / BN),
             static_cast<unsigned>(parts));
+  bf16* out_bf16 = nullptr;
+  float* out_f32 = parts > 1 ? part : nullptr;
+  if constexpr (std::is_same_v<TOut, float>) {
+    if (parts <= 1) out_f32 = out;
+  } else {
+    out_bf16 = out;
+  }
   kernel<<<grid, 2 * BN, kBytes, stream>>>(src, c, rows, w, n_terms, per,
-                                           n_out, cout, out,
-                                           parts > 1 ? part : nullptr, lv);
+                                           n_out, cout, out_bf16, out_f32,
+                                           lv);
   err = static_cast<int>(cudaGetLastError());
   if (err != 0 || parts <= 1) return err;
   const long long n = static_cast<long long>(n_out) * cout;
@@ -480,31 +516,27 @@ int launch_bn(const bf16* src, int c, PlanRows rows, const bf16* w,
   return static_cast<int>(cudaGetLastError());
 }
 
-// K2's bf16 kernel (and K3's d_feats half, and K5's with its liveness
-// policy lv): the windowed gather-matmul over a plan on tensor cores. bn:
-// column tile (32, 64, 96 or 128; 32 when C or Cout is not a multiple of
-// 8); parts, per: the term split (parts == 1: no scratch); part: f32
-// scratch [parts, n_tiles * tile, cout].
-template <typename Live = AllLive>
-int launch_gather_matmul(const void* feats, int n_rows, int c,
-                         const int32_t* starts, const int32_t* idx,
-                         const void* w, int groups, int n_tiles, int members,
-                         int tile, int cout, int bn, int parts, int per,
-                         float* part, void* out, cudaStream_t stream,
-                         Live lv = Live{}) {
-  const long long n_out = static_cast<long long>(n_tiles) * tile;
+// The core over any row source: n_terms terms into out [n_out, cout] of
+// type TOut. bn: column tile (32, 64, 96 or 128; 32 when vec is false,
+// the element-by-element staging); parts, per: the split (parts == 1: no
+// scratch; per: terms per part, or under a step-splitting policy steps
+// per part, which the policy reads); part: f32 scratch
+// [parts, n_out, cout].
+template <typename Rows, typename Live, typename TOut>
+int launch_rows(const void* src_v, int c, Rows rows, const void* w,
+                int n_terms, long long n_out, int cout, int bn, bool vec,
+                int parts, int per, float* part, TOut* o, cudaStream_t stream,
+                Live lv) {
   if (n_out <= 0 || cout <= 0) return 0;
-  const int n_terms = groups * members;
-  if (parts < 1 || per < 1 || static_cast<long long>(parts) * per < n_terms ||
-      (parts > 1 && part == nullptr) || parts > 65535 ||
+  if (parts < 1 || per < 1 || (parts > 1 && part == nullptr) ||
+      parts > 65535 || n_out > 0x7fffffff ||
+      (!SplitsSteps<Live>::value &&
+       static_cast<long long>(parts) * per < n_terms) ||
       (!Live::kAlways && c > 32 * kBK))  // one mask bit per chunk
     return static_cast<int>(cudaErrorInvalidValue);
-  const PlanRows rows{starts, idx, n_tiles, members, tile, n_rows};
-  const auto* s = static_cast<const bf16*>(feats);
+  const auto* s = static_cast<const bf16*>(src_v);
   const auto* ww = static_cast<const bf16*>(w);
-  auto* o = static_cast<bf16*>(out);
   const int n = static_cast<int>(n_out);
-  const bool vec = c % 8 == 0 && cout % 8 == 0;
   if (!vec) {
     if (bn != 32) return static_cast<int>(cudaErrorInvalidValue);
     return launch_bn<32, false>(s, c, rows, ww, n_terms, parts, per, n, cout,
@@ -526,6 +558,25 @@ int launch_gather_matmul(const void* feats, int n_rows, int c,
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
+}
+
+// K2's bf16 kernel (and K3's d_feats half, and K5's with its liveness
+// policy lv): the windowed gather-matmul over a plan on tensor cores,
+// bf16 out. bn: column tile (32, 64, 96 or 128; 32 when C or Cout is not
+// a multiple of 8); parts, per: the term split (parts == 1: no scratch);
+// part: f32 scratch [parts, n_tiles * tile, cout].
+template <typename Live = AllLive>
+int launch_gather_matmul(const void* feats, int n_rows, int c,
+                         const int32_t* starts, const int32_t* idx,
+                         const void* w, int groups, int n_tiles, int members,
+                         int tile, int cout, int bn, int parts, int per,
+                         float* part, void* out, cudaStream_t stream,
+                         Live lv = Live{}) {
+  const PlanRows rows{starts, idx, n_tiles, members, tile, n_rows};
+  return launch_rows(feats, c, rows, w, groups * members,
+                     static_cast<long long>(n_tiles) * tile, cout, bn,
+                     c % 8 == 0 && cout % 8 == 0, parts, per, part,
+                     static_cast<bf16*>(out), stream, lv);
 }
 
 }  // namespace tc

@@ -11,7 +11,11 @@ starts and each entry's rank inside its window; the conv gathers and
 multiplies by those ranks.
 
 Plan side: ``build_plan_direct`` finds window starts from tile-boundary
-lower bounds and the in-window ranks with K1 (``window_match``). With an
+lower bounds (the window-starts pass, ``window_starts``) and the
+in-window ranks with K1 (``window_match``): two launches on the card, no
+host round trip. The offset order and key deltas of a plan are static
+(``plan_layout``), and the index tables derived from them reach the card
+through ``consts.const``, once per offset set. With an
 escape cap, the few entries whose neighbour falls outside the window (and
 entries whose partner in the transpose plan would) go to a short entry
 list instead of poisoning the output. ``transpose_plan`` relabels a
@@ -35,16 +39,19 @@ NaN-poisons the conv output (fail loud, never a silent truncation).
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import numpy as np
 import torch
 
+from nerf_downstream_tpu_torch.ops.consts import const
 from nerf_downstream_tpu_torch.ops.kernels import (
     window_bwd,
     window_dw,
     window_gather_matmul,
     window_gather_matmul_bs,
     window_match,
+    window_starts,
 )
 from nerf_downstream_tpu_torch.ops.kernels.gather_matmul_bs import live_mask
 from nerf_downstream_tpu_torch.sparse import packing
@@ -80,10 +87,19 @@ class WindowPlan:
     blocks: int = 2
 
 
+def _key(offsets) -> tuple:
+    return tuple(tuple(int(v) for v in o) for o in np.asarray(offsets))
+
+
 def group_offsets(offsets: np.ndarray) -> tuple[tuple[int, ...], ...]:
     """Partition offset indices into equal-size groups sharing (dx, dy)."""
+    return _group_offsets(_key(offsets))
+
+
+@functools.lru_cache(maxsize=None)
+def _group_offsets(offsets: tuple) -> tuple[tuple[int, ...], ...]:
     keys: dict[tuple[int, int], list[int]] = {}
-    for i, (dx, dy, _dz) in enumerate(np.asarray(offsets)):
+    for i, (dx, dy, _dz) in enumerate(offsets):
         keys.setdefault((int(dx), int(dy)), []).append(i)
     groups = tuple(tuple(v) for v in keys.values())
     if len({len(g) for g in groups}) != 1:
@@ -96,12 +112,45 @@ def _i32(v: int) -> int:
     return v - (1 << 32) if v >= (1 << 31) else v
 
 
+def plan_layout(offsets: np.ndarray, transpose: bool = False) -> tuple:
+    """(perm, deltas) of a plan over ``offsets``: the kernel-offset order
+    of its G x M (group, member) slots, and each slot's 64-bit packed-key
+    delta (of the negated offset when ``transpose``) as nested [G][M]
+    (hi, lo) int32 words. Static, so computed once per offset set."""
+    return _plan_layout(_key(offsets), bool(transpose))
+
+
+@functools.lru_cache(maxsize=None)
+def _plan_layout(offsets: tuple, transpose: bool) -> tuple:
+    groups = _group_offsets(offsets)
+    perm = tuple(i for g in groups for i in g)
+    m = len(groups[0])
+    sign = -1 if transpose else 1
+    d64 = [((dh << 32) + dl) & ((1 << 64) - 1) for dh, dl in (
+        packing.offset_delta([sign * v for v in o]) for o in offsets)]
+    deltas = tuple(
+        tuple((_i32(d64[perm[g * m + j]] >> 32), _i32(d64[perm[g * m + j]]))
+              for j in range(m))
+        for g in range(len(groups)))
+    return perm, deltas
+
+
 def _top_indices(flags: torch.Tensor, k: int) -> torch.Tensor:
     """Indices of the k largest flags, ties in ascending index order —
     the order the reference's ``lax.top_k`` returns (``torch.topk`` does
     not fix an order on ties)."""
     return torch.sort(flags.to(torch.int32), descending=True,
                       stable=True).indices[:k]
+
+
+def window_tile(n: int, tile: int) -> int:
+    """The tile of a plan over ``n`` query rows: ``tile``, halved down to 8
+    while it does not divide ``n`` (small capacities)."""
+    while n % tile and tile > 8:
+        tile //= 2
+    if n % tile:
+        raise ValueError(f"capacity {n} not divisible by window tile {tile}")
+    return tile
 
 
 def build_plan_direct(
@@ -127,7 +176,6 @@ def build_plan_direct(
         out_coords, out_mask = coords, mask
     dev = coords.device
     n = out_coords.shape[0]
-    k = len(offsets)
     hi, lo = packing.pack(coords, mask)
     o_hi, o_lo = (
         (hi, lo) if out_coords is coords
@@ -135,47 +183,18 @@ def build_plan_direct(
     )
     n_valid_in = mask.sum(dtype=torch.int32)
     n_valid_out = out_mask.sum(dtype=torch.int32)
-    offs = np.asarray(offsets)
-    if transpose:
-        offs = -offs
-    while n % tile and tile > 8:  # small capacities
-        tile //= 2
-    if n % tile:
-        raise ValueError(f"capacity {n} not divisible by window tile {tile}")
+    tile = window_tile(n, tile)
     nt = n // tile
-    groups = group_offsets(offsets)
-    perm = tuple(i for g in groups for i in g)
-    g_count, m = len(groups), len(groups[0])
-    deltas = [packing.offset_delta(offs[i]) for i in range(k)]
-    perm_t = torch.as_tensor(perm, device=dev)
+    perm, deltas = plan_layout(offsets, transpose)
+    g_count, m = len(deltas), len(deltas[0])
 
-    # tile-boundary bounds: K x nT lower bounds of the shifted first keys
-    b_hi, b_lo = o_hi[::tile], o_lo[::tile]
-    b_valid = torch.arange(nt, device=dev) * tile < n_valid_out
-    qb = [packing.shift_keys(b_hi, b_lo, dh, dl, mask=b_valid)
-          for dh, dl in deltas]
-    bnd = packing.lower_bound_hier(
-        hi, lo, torch.stack([q[0] for q in qb]).reshape(-1),
-        torch.stack([q[1] for q in qb]).reshape(-1),
-    ).reshape(k, nt)
-    bnd = torch.where(b_valid[None, :], bnd, n_valid_in)
-    bnd = torch.cat([bnd, n_valid_in.expand(k, 1)], 1).to(torch.int32)
-    bnd_g = bnd[perm_t].reshape(g_count, m, nt + 1)
-    smin = bnd_g[:, :, :-1].amin(1)
-    emax = bnd_g[:, :, 1:].amax(1)
-    starts = torch.cummax(smin, 1).values.clamp(min=0)
-    starts = (torch.div(starts, window, rounding_mode="floor") * window).to(
-        torch.int32).contiguous()
-    n_escaped = ((emax - starts) > blocks * window).sum(dtype=torch.int32)
-
-    # in-window ranks: K1 shifts each query key by its (g, m) 64-bit delta
-    d64 = [((dh << 32) + dl) & ((1 << 64) - 1) for dh, dl in deltas]
-    dw = [[d64[perm[g * m + j]] for j in range(m)] for g in range(g_count)]
-    deltas_gm = torch.tensor(
-        [[[_i32(d >> 32), _i32(d)] for d in row] for row in dw],
-        dtype=torch.int32, device=dev,
-    )
-    idx = window_match(hi, lo, o_hi, o_lo, out_mask.contiguous(), deltas_gm,
+    # window starts from tile-boundary lower bounds, then the in-window
+    # ranks (K1 shifts each query key by its (g, m) 64-bit delta): two
+    # launches on the card, with the deltas passed by value
+    starts, emax, n_escaped = window_starts(
+        hi, lo, o_hi, o_lo, n_valid_in, n_valid_out, deltas, tile, window,
+        blocks)
+    idx = window_match(hi, lo, o_hi, o_lo, out_mask.contiguous(), deltas,
                        starts, tile, window, blocks)
 
     esc_k = esc_i = esc_j = esc_stats = None
@@ -188,7 +207,7 @@ def build_plan_direct(
         nperm = negation_perm(offsets)
         if nperm is None:
             raise ValueError("the escape list needs a symmetric offset set")
-        gp = torch.as_tensor(nperm[0], device=dev)
+        gp = const(nperm[0], torch.int64, dev)
         cov = blocks * window
 
         def ar(size):
@@ -232,7 +251,7 @@ def build_plan_direct(
         pad = torch.full((slice_w,), -1, dtype=torch.int32, device=dev)
         hi_pad, lo_pad = torch.cat([hi, pad]), torch.cat([lo, pad])
         st_c = starts[cg, ct].to(torch.int64)
-        d_c = packing.to_u32(deltas_gm)[cg]  # [TE, M, 2]
+        d_c = packing.to_u32(const(deltas, torch.int32, dev))[cg]  # [TE, M, 2]
         q64 = packing.shifted_key64(  # [TE, M, T]
             o_hi[rows][:, None, :], o_lo[rows][:, None, :],
             out_mask[rows][:, None, :], d_c[:, :, 0, None], d_c[:, :, 1, None],
@@ -286,9 +305,14 @@ def build_plan_direct(
 def negation_perm(offsets: np.ndarray) -> tuple | None:
     """(group_perm, member_perm) relabeling a same-set plan into its
     transpose for a symmetric offset set (every d has -d); None when the
-    set is not symmetric or holds duplicates."""
-    offs = np.asarray(offsets)
-    groups = group_offsets(offs)
+    set is not symmetric or holds duplicates. Callers do not write to the
+    arrays (they are computed once per offset set)."""
+    return _negation_perm(_key(offsets))
+
+
+@functools.lru_cache(maxsize=None)
+def _negation_perm(offs: tuple) -> tuple | None:
+    groups = _group_offsets(offs)
     if len({tuple(int(v) for v in o) for o in offs}) != len(offs):
         return None
     pos: dict[tuple, tuple[int, int]] = {}
@@ -319,10 +343,8 @@ def transpose_plan(plan: WindowPlan, offsets: np.ndarray) -> WindowPlan | None:
     esc_k = esc_i = esc_j = None
     m = m_perm.shape[1]
     if plan.esc_k is not None:
-        lut = torch.as_tensor(
-            (g_perm[:, None] * m + m_perm).reshape(-1), dtype=torch.int32,
-            device=dev,
-        )
+        lut = const((g_perm[:, None] * m + m_perm).reshape(-1), torch.int32,
+                    dev)
         ok = plan.esc_k >= 0
         esc_k = torch.where(ok, lut[plan.esc_k.clamp(min=0).long()], -1).to(
             torch.int32)
@@ -334,7 +356,7 @@ def transpose_plan(plan: WindowPlan, offsets: np.ndarray) -> WindowPlan | None:
     ])
     return dataclasses.replace(
         plan,
-        starts=plan.starts[torch.as_tensor(g_perm, device=dev)].contiguous(),
+        starts=plan.starts[const(g_perm, torch.int64, dev)].contiguous(),
         idx=idx_t.contiguous(),
         esc_k=esc_k, esc_i=esc_i, esc_j=esc_j,
     )
@@ -423,7 +445,7 @@ def window_conv_apply(
     # K2 reads ranks past the table as zero rows, so unlike the reference
     # no blocks * window padding rows are appended
     f = feats.to(compute_dtype).contiguous()
-    perm = torch.as_tensor(plan.perm, device=feats.device)
+    perm = const(plan.perm, torch.int64, feats.device)
     w = weights.to(compute_dtype)[perm].reshape(
         g_count, m, cin, weights.shape[-1]).contiguous()
     if input_grad:
@@ -517,7 +539,7 @@ def window_conv_apply_blocksparse(
     cin = feats.shape[1]
     g_count, _, m, _ = plan.idx.shape
     f = feats.to(compute_dtype).contiguous()
-    perm = torch.as_tensor(plan.perm, device=feats.device)
+    perm = const(plan.perm, torch.int64, feats.device)
     w = weights.to(compute_dtype)[perm].reshape(
         g_count, m, cin, weights.shape[-1]).contiguous()
     if live is None:

@@ -14,6 +14,7 @@ import itertools
 import numpy as np
 import torch
 
+from nerf_downstream_tpu_torch.ops.consts import const
 from nerf_downstream_tpu_torch.sparse import packing
 from nerf_downstream_tpu_torch.sparse.types import PointField, SparseVoxels
 
@@ -148,10 +149,9 @@ def lookup_grid(grid, origin, num_batches: int, extent: int, stride: int,
 def _map_queries(out_coords, out_mask, offsets, transpose: bool):
     """[K * N_out, 4] query coordinates (output coordinate + offset, or -
     offset for a transposed map) and their mask."""
-    offs = torch.as_tensor(np.asarray(offsets), dtype=torch.int32,
-                           device=out_coords.device)
-    if transpose:
-        offs = -offs
+    offs = np.asarray(offsets)
+    offs = const(-offs if transpose else offs, torch.int32,
+                 out_coords.device)
     k, n_out = offs.shape[0], out_coords.shape[0]
     q_xyz = out_coords[None, :, 1:].to(torch.int32) + offs[:, None, :]
     q = torch.cat([out_coords[None, :, :1].to(torch.int32).expand(k, n_out, 1),

@@ -77,9 +77,13 @@ def lower_bound(s_hi, s_lo, q_hi, q_lo):
     gathers clamped to the last row), so every result is bit-identical —
     including its overshoot to N + 1 when a query exceeds every key of a
     table without padding rows."""
-    n = s_hi.shape[0]
-    s = key64(s_hi, s_lo)
-    q = key64(q_hi, q_lo)
+    return lower_bound_keys(key64(s_hi, s_lo), key64(q_hi, q_lo))
+
+
+def lower_bound_keys(s, q):
+    """``lower_bound`` over ``key64`` values: table ``s`` [N], queries
+    ``q`` of any shape."""
+    n = s.shape[0]
     lo_i = torch.zeros(q.shape, dtype=torch.int64, device=q.device)
     hi_i = torch.full(q.shape, n, dtype=torch.int64, device=q.device)
     for _ in range(max(1, n.bit_length())):
@@ -98,15 +102,23 @@ def lower_bound_hier(s_hi, s_lo, q_hi, q_lo, block: int = 256):
     n = s_hi.shape[0]
     if n % block or n <= block:
         return lower_bound(s_hi, s_lo, q_hi, q_lo)
+    return lower_bound_hier_keys(
+        key64(s_hi, s_lo), key64(q_hi.reshape(-1), q_lo.reshape(-1)),
+        block).reshape(q_hi.shape)
+
+
+def lower_bound_hier_keys(s, q, block: int = 256):
+    """``lower_bound_hier`` over ``key64`` values: table ``s`` [N], queries
+    ``q`` [Q]."""
+    n = s.shape[0]
+    if n % block or n <= block:
+        return lower_bound_keys(s, q)
     nb = n // block
-    shape = q_hi.shape
-    s = key64(s_hi, s_lo)
-    q = key64(q_hi.reshape(-1), q_lo.reshape(-1))
     top = s[::block]
     b_idx = ((top[None, :] < q[:, None]).sum(1) - 1).clamp(0, nb - 1)
     rows = s.reshape(nb, block)[b_idx]
     pos = b_idx * block + (rows < q[:, None]).sum(1)
-    return pos.to(torch.int32).reshape(shape)
+    return pos.to(torch.int32)
 
 
 def find(s_hi, s_lo, q_hi, q_lo, *, missing: int | None = None):
@@ -167,9 +179,8 @@ def shifted_key64(hi, lo, valid, d_hi, d_lo):
 def unique_first_occurrence(s_hi, s_lo, s_valid):
     """Flags [N] marking the first row of each distinct valid key in a
     sorted key table."""
-    inval = torch.full((1,), INVALID_KEY, dtype=s_hi.dtype, device=s_hi.device)
-    prev_hi = torch.cat([inval, s_hi[:-1]])
-    prev_lo = torch.cat([inval, s_lo[:-1]])
-    is_new = (s_hi != prev_hi) | (s_lo != prev_lo)
-    is_new[0] = True
+    # the first row is new; writing a tensor (not a Python scalar) into
+    # the rest keeps the host from waiting on a copy to the card
+    is_new = torch.ones_like(s_valid)
+    is_new[1:] = (s_hi[1:] != s_hi[:-1]) | (s_lo[1:] != s_lo[:-1])
     return is_new & s_valid

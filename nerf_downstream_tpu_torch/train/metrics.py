@@ -15,7 +15,11 @@ def fast_hist(pred: torch.Tensor, label: torch.Tensor, n: int):
     k = (label >= 0) & (label < n)
     idx = torch.where(k, n * label + pred, n * n).to(torch.int64)
     idx = torch.where((idx >= 0) & (idx <= n * n), idx, n * n)
-    return torch.bincount(idx, minlength=n * n + 1)[: n * n].reshape(n, n)
+    # a scatter-add of ones: bincount sizes its output from the data's
+    # maximum, which makes the host wait for the card
+    counts = torch.zeros(n * n + 1, dtype=torch.int64, device=idx.device)
+    return counts.scatter_add_(0, idx, torch.ones_like(idx))[: n * n].reshape(
+        n, n)
 
 
 def per_class_iu(hist: torch.Tensor) -> torch.Tensor:

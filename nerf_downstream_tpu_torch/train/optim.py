@@ -2,8 +2,11 @@
 ``nerf_downstream_tpu/train/optim.py``, SGD only).
 
 ``sgd`` is ``torch.optim.SGD`` with torch's coupled weight decay,
-momentum, dampening and Nesterov: the reference's optax chain
-(``add_decayed_weights`` then ``sgd``) computes the same update. Every
+momentum and Nesterov: the reference's optax chain (``add_decayed_weights``
+then ``sgd``) computes the same update. The reference has no dampening
+(optax's momentum trace takes none, and its ``sgd`` drops the argument), so
+``sgd`` refuses a nonzero ``dampening`` where it would act, with momentum;
+without momentum torch ignores it too. Every
 schedule is a plain ``step -> lr`` function; the training step sets the
 group's lr from it with the step count before the update, as optax indexes
 its schedules. Values the reference reads back from its gin configuration
@@ -21,6 +24,11 @@ import torch
 def sgd(params: Iterable, lr: float, weight_decay: float = 0.0,
         momentum: float = 0.0, dampening: float = 0.0,
         nesterov: bool = False) -> torch.optim.SGD:
+    if dampening != 0 and momentum != 0:
+        raise ValueError(
+            f"SGD dampening {dampening} with momentum {momentum}: the "
+            "reference's SGD has no dampening (optax), so the updates would "
+            "differ")
     return torch.optim.SGD(params, lr=lr, momentum=momentum,
                            dampening=dampening, weight_decay=weight_decay,
                            nesterov=nesterov)

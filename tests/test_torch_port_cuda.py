@@ -71,6 +71,73 @@ def level(seed, n=640, valid=560, extent=12, batches=2):
     return (sv.coords, sv.mask), (coarse.coords, coarse.mask)
 
 
+def unique_level(seed, n, extent=12, batches=2):
+    """(coords, mask) of a sorted level whose n rows are all valid and
+    distinct: no padding rows, so a query above every key overshoots the
+    fixed-step lower bound to n + 1."""
+    rng = np.random.default_rng(seed)
+    cells = rng.choice(batches * extent ** 3, n, replace=False)
+    b, rest = np.divmod(cells, extent ** 3)
+    x, rest = np.divmod(rest, extent ** 2)
+    y, z = np.divmod(rest, extent)
+    coords = np.stack([b, x, y, z], 1).astype(np.float32)
+    coords[:, 1:] -= extent // 2
+    field = PointField(coords=torch.as_tensor(coords),
+                       feats=torch.zeros(n, 1),
+                       mask=torch.ones(n, dtype=torch.bool))
+    sv, _ = sk.field_to_sparse(field)
+    return sv.coords, sv.mask
+
+
+# the window-starts pass's cases: the hierarchical lower bound (a table of
+# a multiple of 256 rows), the fixed-step one with its n + 1 overshoot
+# (1,000 and 200 rows, all valid), masked tail tiles, a cross plan at tile
+# 128 and blocks 6, and a transposed (negated) offset set
+STARTS_CASES = {
+    "hier_512": dict(n=512, valid=450, tile=32, window=16, blocks=2),
+    "fixed_1000": dict(n=1000, unique=True, tile=32, window=16, blocks=2),
+    "fixed_200": dict(n=200, unique=True, tile=32, window=16, blocks=2),
+    "masked_tail": dict(n=512, valid=200, tile=32, window=16, blocks=2),
+    "cross_tile128": dict(n=1024, valid=900, tile=128, window=32, blocks=6,
+                          cross="expanding"),
+    "transposed": dict(n=512, valid=450, tile=64, window=32, blocks=4,
+                       cross="contracting"),
+}
+
+
+def starts_case(name, seed=0):
+    """(table, query or None, offsets, build_plan_direct keywords) of a
+    window-starts case, on the CPU."""
+    kw = dict(STARTS_CASES[name])
+    n = kw.pop("n")
+    valid = kw.pop("valid", n)
+    cross = kw.pop("cross", None)
+    if kw.pop("unique", False):
+        fine, coarse = unique_level(seed, n), None
+    else:
+        fine, coarse = level(seed, n=n, valid=valid)
+    if cross is None:
+        return fine, None, sk.kernel_offsets(3, 1), kw
+    if cross == "expanding":
+        return fine, coarse, sk.kernel_offsets(2, 1), kw
+    return coarse, fine, sk.kernel_offsets(2, 1), dict(kw, transpose=True)
+
+
+def starts_args(table, query, offs, tile, window, blocks, transpose=False,
+                device="cpu"):
+    """``window_starts``'s arguments for the plan ``build_plan_direct``
+    would build from these inputs."""
+    coords, mask = (t.to(device) for t in table)
+    q_coords, q_mask = ((coords, mask) if query is None
+                        else (t.to(device) for t in query))
+    hi, lo = packing.pack(coords, mask)
+    o_hi, o_lo = packing.pack(q_coords, q_mask)
+    _, deltas = wc.plan_layout(offs, transpose)
+    return (hi, lo, o_hi, o_lo, mask.sum(dtype=torch.int32),
+            q_mask.sum(dtype=torch.int32), deltas,
+            wc.window_tile(q_coords.shape[0], tile), window, blocks)
+
+
 def plans_equal(a, b):
     for f in dataclasses.fields(a):
         x, y = getattr(a, f.name), getattr(b, f.name)
@@ -125,11 +192,10 @@ def test_k1_launch_matches_plain(cuda):
     starts = torch.as_tensor(
         np.sort(rng.integers(0, n, (g, n // tile)), 1) // window * window,
         dtype=torch.int32).contiguous().to(cuda)
-    deltas = torch.as_tensor(rng.integers(-2 ** 31, 2 ** 31, (g, mm, 2)),
-                             dtype=torch.int32)
-    deltas[:, :, 0] = torch.as_tensor(rng.integers(-1, 2, (g, mm)))
+    deltas = rng.integers(-2 ** 31, 2 ** 31, (g, mm, 2))
+    deltas[:, :, 0] = rng.integers(-1, 2, (g, mm))
     deltas[:, 0] = 0  # the identity offset: every valid query matches
-    deltas = deltas.to(cuda)
+    deltas = tuple(tuple((int(h), int(lw)) for h, lw in row) for row in deltas)
     mask = m.to(cuda).clone()
     mask[::7] = False
     args = (hi, lo, hi, lo, mask, deltas, starts, tile, window, blocks)
@@ -137,6 +203,48 @@ def test_k1_launch_matches_plain(cuda):
     want = K.window_match_plain(*args)
     assert torch.equal(got, want)
     assert (got[:, :, 0] >= 0).any()
+
+
+@pytest.mark.parametrize("case", sorted(STARTS_CASES) + ["rows_65536"])
+def test_window_starts_matches_plain(cuda, case):
+    """The window-starts pass on the card equals its plain version on the
+    card bit for bit (starts, emax, n_escaped), and repeats exactly."""
+    if case == "rows_65536":
+        table, _ = level(9, n=65536, valid=62400, extent=48, batches=8)
+        query, offs = None, sk.kernel_offsets(3, 1)
+        kw = dict(tile=256, window=512, blocks=2)
+    else:
+        table, query, offs, kw = starts_case(case)
+    args = starts_args(table, query, offs, device=cuda, **kw)
+    got = K.window_starts(*args)
+    want = K.window_starts_plain(*args)
+    for name, a, b in zip(("starts", "emax", "n_escaped"), got, want):
+        assert a.dtype == b.dtype == torch.int32, name
+        assert torch.equal(a, b), name
+    assert all(torch.equal(a, b) for a, b in zip(K.window_starts(*args),
+                                                  got))
+    if case.startswith("fixed"):  # the fixed-step search's overshoot
+        assert int(got[1].max()) == args[0].shape[0] + 1
+
+
+@pytest.mark.parametrize("n,valid,tile", [(512, 450, 256), (3584, 3300, 256),
+                                          (65536, 62400, 256),
+                                          (1024, 900, 128)])
+def test_k1_rows_per_block_matches_plain(cuda, n, valid, tile):
+    """K1 over the pass's starts, with whole tiles per block at the big
+    plans and split tiles at the small ones, equals its plain version."""
+    table, _ = level(10, n=n, valid=valid, extent=48, batches=8)
+    offs = sk.kernel_offsets(3, 1)
+    args = starts_args(table, None, offs, tile, 512, 2, device=cuda)
+    starts = K.window_starts(*args)[0]
+    hi, lo, _, _, _, _, deltas, tile, window, blocks = args
+    mask = table[1].to(cuda)
+    rows = K.match.rows_per_block(starts.shape[1], tile, len(deltas))
+    assert (rows < tile) == (n <= 3584)
+    margs = (hi, lo, hi, lo, mask, deltas, starts, tile, window, blocks)
+    got = K.window_match(*margs)
+    assert torch.equal(got, K.window_match_plain(*margs))
+    assert (got >= 0).any()
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -440,6 +548,74 @@ def test_k6_matches_plain(cuda, dtype, k):
     assert torch.equal(K.row_gather_matmul(*args), got)
     empty = torch.full_like(args[1], n_in)
     assert not K.row_gather_matmul(args[0], empty, args[2]).any()
+
+
+# the row path's shapes at eval_64k: (N_in, N_out, C = Cout) of the four
+# down convs of Res16UNet18A
+ROW_SHAPES = [(65536, 14848, 32), (14848, 3584, 32), (3584, 1024, 64),
+              (1024, 512, 128)]
+
+
+def k6_inputs(seed, n_in, n_out, c, cout, k, sentinels=0.4):
+    rng = np.random.default_rng(seed)
+    x = torch.as_tensor(rng.normal(size=(n_in + 1, c)), dtype=torch.float32)
+    x[-1] = 0
+    km = torch.as_tensor(rng.integers(0, n_in, (k, n_out)), dtype=torch.int32)
+    km[torch.as_tensor(rng.random((k, n_out)) < sentinels)] = n_in
+    w = torch.as_tensor(rng.normal(size=(k, c, cout)) * 0.1,
+                        dtype=torch.float32)
+    return x.to(torch.bfloat16), km, w.to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("k", [2, 4])
+@pytest.mark.parametrize("n_in,n_out,c", ROW_SHAPES)
+def test_k6_tc_matches_plain_at_row_path_shapes(cuda, n_in, n_out, c, k):
+    """bf16 K6 on the tensor cores, with its (term, chunk) split where the
+    grid is small, against the plain f32 sum within atol = rtol = 1e-5,
+    and bit-identical on repeat."""
+    x, km, w = (t.to(cuda) for t in k6_inputs(20 + k, n_in, n_out, c, c, k))
+    choice = K.tc.row_choice(x.dtype, n_out, c, c, k, K.tc.aligned(x, w))
+    assert choice.core == "tensor" and choice.vec
+    assert (choice.parts > 1) == (n_out < 14848)
+    got = K.row_gather_matmul(x, km, w)
+    want = K.row_gather_matmul_plain(x.float(), km, w.float())
+    assert got.dtype == torch.float32
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    assert torch.equal(K.row_gather_matmul(x, km, w), got)
+
+
+def test_k6_tc_nan_row_reaches_the_rows_that_name_it(cuda):
+    """A NaN input row reaches exactly the output rows whose map names it,
+    through the split's partials, as in the plain version."""
+    x, km, w = k6_inputs(30, 1024, 512, 128, 128, 4)
+    x[7, 3] = float("nan")
+    km[2, :40] = 7
+    x, km, w = (t.to(cuda) for t in (x, km, w))
+    assert K.tc.row_choice(x.dtype, 512, 128, 128, 4).parts > 1
+    got = K.row_gather_matmul(x, km, w)
+    want = K.row_gather_matmul_plain(x.float(), km, w.float())
+    nan_rows = (km == 7).any(0)
+    assert torch.equal(torch.isnan(got), nan_rows[:, None].expand_as(got))
+    assert torch.equal(torch.isnan(want), torch.isnan(got))
+    torch.testing.assert_close(got[~nan_rows], want[~nan_rows], rtol=1e-5,
+                               atol=1e-5)
+
+
+def test_k6_tc_misaligned_input_takes_element_staging(cuda):
+    """x_ext starting off a 16-byte boundary goes through the element
+    staging (32-column tile) and still matches the plain version."""
+    x, km, w = k6_inputs(31, 3584, 1024, 64, 64, 2)
+    buf = torch.zeros(x.numel() + 8, dtype=torch.bfloat16, device=cuda)
+    xm = buf[1:1 + x.numel()].view(x.shape)
+    xm.copy_(x.to(cuda))
+    km, w = km.to(cuda), w.to(cuda)
+    assert not K.tc.aligned(xm)
+    choice = K.tc.row_choice(xm.dtype, 1024, 64, 64, 2, K.tc.aligned(xm, w))
+    assert not choice.vec and choice.column_tile == 32
+    got = K.row_gather_matmul(xm, km, w)
+    want = K.row_gather_matmul_plain(xm.float(), km, w.float())
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    assert torch.equal(K.row_gather_matmul(xm, km, w), got)
 
 
 def test_k5_k6_refuse_bad_inputs_on_card(cuda):

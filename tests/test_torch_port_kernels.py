@@ -77,8 +77,7 @@ def run_k1_both(args):
         *a[:5], deltas, a[5], tile, window, blocks))(
         *(jnp.asarray(x.numpy()) for x in (hi, lo, o_hi, o_lo, o_mask,
                                            starts)))
-    port = tker.window_match_plain(hi, lo, o_hi, o_lo, o_mask,
-                                   torch.tensor(deltas, dtype=torch.int32),
+    port = tker.window_match_plain(hi, lo, o_hi, o_lo, o_mask, deltas,
                                    starts, tile, window, blocks)
     return port, ref
 
@@ -175,10 +174,8 @@ def test_wrappers_take_plain_version_on_cpu(rng):
     lvl = sorted_level(rng)
     args, plan = match_inputs(lvl, lvl, tk.kernel_offsets(3, 1), 32, 16, 2)
     tker.reset_launch_counts()
-    deltas = torch.tensor(args[5], dtype=torch.int32)
-    idx = tker.window_match(*args[:5], deltas, *args[6:])
-    assert torch.equal(idx, tker.window_match_plain(*args[:5], deltas,
-                                                    *args[6:]))
+    idx = tker.window_match(*args)
+    assert torch.equal(idx, tker.window_match_plain(*args))
     feats = torch.as_tensor(rng.normal(size=(256, 4)).astype(np.float32))
     w = torch.ones(9, 3, 4, 2)
     for dt in (torch.float32, torch.bfloat16):
@@ -187,7 +184,7 @@ def test_wrappers_take_plain_version_on_cpu(rng):
         assert out.dtype == dt
         assert torch.equal(out, tker.window_gather_matmul_plain(
             feats.to(dt), plan.starts, idx, w.to(dt)))
-    assert tker.launch_counts() == {"window_match": 0,
+    assert tker.launch_counts() == {"window_starts": 0, "window_match": 0,
                                     "window_gather_matmul": 0,
                                     "window_bwd": 0, "window_dw": 0,
                                     "window_gather_matmul_bs": 0,
@@ -202,8 +199,8 @@ def test_wrappers_refuse_other_devices():
                                   torch.empty(1, 1, 3, 2, device="meta"))
     k = torch.empty(4, dtype=torch.int32, device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
-        tker.window_match(k, k, k, k, k.bool(), torch.empty(
-            1, 1, 2, device="meta"), torch.empty(1, 1, device="meta"), 4, 4)
+        tker.window_match(k, k, k, k, k.bool(), ((0, 0),),
+                          torch.empty(1, 1, device="meta"), 4, 4)
 
 
 def test_kernel_build_needs_nvcc(monkeypatch, tmp_path):

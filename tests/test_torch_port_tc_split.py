@@ -1,10 +1,13 @@
-"""The launch choices of the bf16 tensor-core path of K2, K3, K4 and K5
+"""The launch choices of the bf16 tensor-core path of K2-K6
 (``nerf_downstream_tpu_torch/ops/kernels/tc.py``), on the CPU: the column
 tile of the gather-matmul core, the split of the G x M terms over blocks
 at coarse levels, the d_w tiles and row chunks, K5's launch arguments
-(K2's choice) and the share of its steps a liveness spec keeps. The
+(K2's choice), the share of its steps a liveness spec keeps, and K6's
+column tile and (term, chunk) step split with its launch arguments. The
 kernels themselves run on the card only
-(``tests/test_torch_port_cuda.py``)."""
+(``tests/test_torch_port_cuda.py``). Also the port's SGD against the JAX
+package's (optax) where both are defined, and its refusal where they
+differ (dampening with momentum)."""
 
 import contextlib
 import types
@@ -14,11 +17,17 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+import jax.numpy as jnp  # noqa: E402
+import optax  # noqa: E402
+
+from nerf_downstream_tpu.train import optim as JO  # noqa: E402
 from nerf_downstream_tpu_torch.ops import kernels as K  # noqa: E402
 from nerf_downstream_tpu_torch.ops.kernels import (  # noqa: E402
     gather_matmul_bs,
+    row_gather,
     tc,
 )
+from nerf_downstream_tpu_torch.train import optim as TO  # noqa: E402
 
 # (rows, Cout, terms): the Res16UNet18A levels of the 64k batches (65,536,
 # 14,848, 3,584, 1,024 and 512 rows) at their widths, a 2x2x2 conv's 8
@@ -258,3 +267,105 @@ def test_live_step_share_counts_the_steps(block, c, cout, dead):
                                 abs=1e-12)
     full = torch.ones_like(live)
     assert gather_matmul_bs.live_step_share(full, block, c, cout, bn) == 1.0
+
+
+# K6 on the row path of eval_64k: (N_out, C = Cout, K) -> (column tile,
+# parts, steps per part); 2 (ZAXIS) or 4 (strided offsets) terms of
+# ceil(C / 32) chunks each; and a ragged Cout
+ROW_CHOICES = [
+    ((14848, 32, 32, 2), (32, 1, 2)), ((14848, 32, 32, 4), (32, 1, 4)),
+    ((3584, 32, 32, 2), (32, 2, 1)), ((3584, 32, 32, 4), (32, 4, 1)),
+    ((1024, 64, 64, 2), (64, 4, 1)), ((1024, 64, 64, 4), (64, 8, 1)),
+    ((512, 128, 128, 2), (128, 8, 1)), ((512, 128, 128, 4), (128, 16, 1)),
+    ((512, 40, 72, 3), (96, 6, 1)), ((333, 40, 72, 27), (96, 14, 4)),
+]
+
+
+@pytest.mark.parametrize("shape,want", ROW_CHOICES)
+def test_k6_row_choice_covers_every_step_once(shape, want):
+    """bf16 K6 runs on the tensor cores; where its grid would leave SMs
+    idle, its (term, 32-channel chunk) steps go in contiguous runs to
+    several parts (at most ``MAX_SPLIT``, none empty), and the runs cover
+    every step once."""
+    n_out, c, cout, k = shape
+    ch = tc.row_choice(torch.bfloat16, n_out, c, cout, k)
+    assert (ch.core, ch.vec) == ("tensor", True)
+    assert (ch.column_tile, ch.parts, ch.per) == want
+    steps = k * -(-c // tc.CHUNK)
+    runs = [range(p * ch.per, min(steps, (p + 1) * ch.per))
+            for p in range(ch.parts)]
+    assert all(len(r) for r in runs) and ch.parts <= tc.MAX_SPLIT
+    assert sorted(s for r in runs for s in r) == list(range(steps))
+    blocks = -(-n_out // tc.ROW_TILE) * -(-cout // ch.column_tile)
+    assert ch.parts == 1 or blocks < tc.SMS
+    assert tc.row_choice(torch.float32, n_out, c, cout, k).core == "cuda"
+    # off a 16-byte boundary: element staging in the 32-column tile
+    mis = tc.row_choice(torch.bfloat16, n_out, c, cout, k, aligned=False)
+    assert (mis.vec, mis.column_tile) == (False, 32)
+
+
+@pytest.fixture
+def fake_k6(monkeypatch):
+    fake = _FakeLaunch()
+    monkeypatch.setattr(row_gather.build, "function", lambda *a: fake)
+    monkeypatch.setattr(torch.cuda, "device",
+                        lambda dev: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda dev: types.SimpleNamespace(cuda_stream=0))
+    return fake
+
+
+@pytest.mark.parametrize("shape,_", ROW_CHOICES[:8])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_k6_launch_carries_its_choice(fake_k6, shape, _, dtype):
+    """K6's launch carries ``row_choice``'s core, tile, staging and split,
+    with f32 scratch for the split's partials and an f32 output."""
+    n_out, c, cout, k = shape
+    x = torch.zeros(n_out + 1, c, dtype=dtype)
+    km = torch.zeros(k, n_out, dtype=torch.int32)
+    w = torch.zeros(k, c, cout, dtype=dtype)
+    K.reset_launch_counts()
+    out = row_gather._launch(x, km, w)
+    assert out.shape == (n_out, cout) and out.dtype == torch.float32
+    assert K.launch_counts()["row_gather_matmul"] == 1
+    ch = tc.row_choice(dtype, n_out, c, cout, k, tc.aligned(x, w))
+    bf16, bn, vec, parts, per, part = fake_k6.args[9:15]
+    assert bf16 == int(ch.core == "tensor") == int(dtype == torch.bfloat16)
+    assert (bn, vec, parts, per) == (ch.column_tile, int(ch.vec), ch.parts,
+                                     ch.per)
+    assert (part is None) == (parts == 1)
+    K.reset_launch_counts()
+
+
+@pytest.mark.parametrize("nesterov", [False, True])
+@pytest.mark.parametrize("weight_decay", [0.0, 1e-4])
+def test_sgd_matches_reference_sgd(nesterov, weight_decay):
+    """Five steps of momentum 0.9 SGD, with and without Nesterov and
+    weight decay: the port's update equals the JAX package's (optax)."""
+    rng = np.random.default_rng(3)
+    p0 = rng.normal(size=(6, 5)).astype(np.float32)
+    grads = [rng.normal(size=(6, 5)).astype(np.float32) for _ in range(5)]
+    tx = JO.sgd(0.1, weight_decay=weight_decay, momentum=0.9,
+                nesterov=nesterov)
+    p_ref = jnp.asarray(p0)
+    state = tx.init(p_ref)
+    p = torch.nn.Parameter(torch.as_tensor(p0.copy()))
+    opt = TO.sgd([p], 0.1, weight_decay=weight_decay, momentum=0.9,
+                 nesterov=nesterov)
+    for g in grads:
+        upd, state = tx.update(jnp.asarray(g), state, p_ref)
+        p_ref = optax.apply_updates(p_ref, upd)
+        p.grad = torch.as_tensor(g)
+        opt.step()
+        np.testing.assert_allclose(p.detach().numpy(), np.asarray(p_ref),
+                                   rtol=1e-6, atol=1e-6)
+
+
+def test_sgd_refuses_dampening_with_momentum():
+    """The reference's SGD has no dampening: the port refuses it where it
+    would change the update, and takes it where torch ignores it too."""
+    p = torch.nn.Parameter(torch.zeros(3))
+    with pytest.raises(ValueError, match="dampening"):
+        TO.sgd([p], 0.1, momentum=0.9, dampening=0.1)
+    TO.sgd([p], 0.1, momentum=0.0, dampening=0.1)
+    TO.sgd([p], 0.1, momentum=0.9)
