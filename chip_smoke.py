@@ -3,10 +3,12 @@
 
     python3 chip_smoke.py
 
-Drives the port's three main paths on the card at full width:
+Drives the port's four main paths on the card at full width:
 Res16UNet18A sparse-voxel serving (``nerf_downstream_tpu_torch.serve``),
-its training step (``nerf_downstream_tpu_torch.train3d``) and the
-evaluation of pruned checkpoints (``nerf_downstream_tpu_torch.eval3d``),
+its training step (``nerf_downstream_tpu_torch.train3d``), the training
+CLI on the flagship configs (``nerf_downstream_tpu_torch.co3d_3d.train``)
+and the evaluation of pruned checkpoints
+(``nerf_downstream_tpu_torch.eval3d``),
 with the hand-written CUDA kernels K1 ``window_match``, K2
 ``window_gather_matmul`` (forward), K3 ``window_bwd`` and K4
 ``window_dw`` (backward), K5 ``window_gather_matmul_bs`` (block-sparse
@@ -70,7 +72,24 @@ paths give it. Phases:
    the ReLU gates each pair's forwards put on different sides (why:
    ``phase_train_model``); and the ops PyTorch names as nondeterministic
    over one kernel-path step under
-   ``torch.use_deterministic_algorithms(True, warn_only=True)``;
+   ``torch.use_deterministic_algorithms(True, warn_only=True)``. Every
+   accumulating scatter of the step adds in a fixed order, so the two
+   kernel-path steps (in PyTorch's default mode) must give bit-identical
+   losses, gradients, updated weights and running statistics;
+9b. cli_train: the training CLI as a user runs it, on the two flagship
+   configs unchanged (full width, batch 8, SGD with momentum 0.9, cosine
+   lr, the host transforms and the device jitter and elastic warp, f32
+   as the configs bind no compute type) over a synthetic
+   PeRFception-ScanNet tree the port writes (``CLI_TREE``: batches of
+   50,000-65,536 valid finest rows): 6 steps validating every 3 and
+   testing the best checkpoint, then ``--resume`` to 8, launch counts
+   reset before and read after; finite losses, the checkpoints, the
+   result and metric files, the resumed run starting at step 6 from the
+   checkpoint's momentum buffers bit for bit, and every conv in f32.
+   Reports wall ms per step, host ms per batch, ms per validation pass,
+   then for one more step its synchronising calls, device time and ops
+   (profile), and each K1-K4 call held against its plain version and
+   timed, with its bound (f32, CUDA cores);
 10. sparse_eval: ``eval3d`` at ``eval_64k`` (bf16, 3 batches) over
     checkpoints this phase writes with the port's ``save_checkpoint`` from
     seeded weights: dense; ZAXIS (``--sparsify``, mode 2); mode 1 with
@@ -109,8 +128,9 @@ paths give it. Phases:
     ``torch.matmul``; the ptxas lines of K2, K3, K5 and K6, per kernel;
 13. the ``kernels`` line, the card line, and the ``ok`` line.
 
-On the main paths (``serve``, ``train``, ``sparse_eval``, all bf16) every
-K2, K3, K4, K5 and K6 launch must run on the tensor cores. The input type
+On the bf16 main paths (``serve``, ``train``, ``sparse_eval``) every
+K2, K3, K4, K5 and K6 launch must run on the tensor cores; ``cli_train``
+computes in f32 by its configuration, and its line says so. The input type
 is the only switch (``tc.gather_choice``, ``tc.dw_choice``,
 ``tc.row_choice``) and every conv casts its inputs to its compute type, so
 each phase fails unless every conv of its model computes in bf16, and
@@ -1421,7 +1441,8 @@ def phase_train_model() -> dict:
         runs[name] = dict(
             loss=float(mets["loss"]), gates=gates.inputs,
             stats={k: v.clone() for k, v in state.model.named_buffers()},
-            grads=[p.grad.clone() for p in state.model.parameters()])
+            grads=[p.grad.clone() for p in state.model.parameters()],
+            params=[p.detach().clone() for p in state.model.parameters()])
 
     def compare(a, b) -> dict:
         ra, rb = runs[a], runs[b]
@@ -1441,6 +1462,18 @@ def phase_train_model() -> dict:
     whole = {f"{a}_vs_{b}": compare(a, b) for a, b in (
         ("kernel", "plain"), ("kernel", "kernel_again"),
         ("plain", "plain_reordered"))}
+    # every accumulating scatter of the step adds in a fixed order: two
+    # kernel-path steps from the same state must agree bit for bit
+    ka, kb = runs["kernel"], runs["kernel_again"]
+    repro = {
+        "loss": ka["loss"] == kb["loss"],
+        "grads": all(torch.equal(x, y)
+                     for x, y in zip(ka["grads"], kb["grads"])),
+        "updated_weights": all(torch.equal(x, y)
+                               for x, y in zip(ka["params"], kb["params"])),
+        "running_stats": all(torch.equal(v, kb["stats"][k])
+                             for k, v in ka["stats"].items()),
+    }
 
     nondet = nondeterministic_ops(build, batch)
     task, state = build()
@@ -1474,6 +1507,7 @@ def phase_train_model() -> dict:
             "grad_err_of_max": max(errs),
             "worst_grad": names[int(np.argmax(errs))],
             "param_err_of_tol": param_err,
+            "kernel_steps_bit_identical": repro,
             "nondeterministic_ops": nondet,
             "tolerance": {"loss": TRAIN_LOSS_TOL, "grad": TRAIN_GRAD_TOL,
                           "param": "lr x grad tolerance + 1e-6 (1 + |p|)",
@@ -1485,7 +1519,424 @@ def phase_train_model() -> dict:
                   and h["running_stat_elements_outside"] == 0 for h in held))
     if not ok:
         raise PhaseError(f"training step, kernel vs plain path: {line}")
+    if not all(repro.values()):
+        raise PhaseError(f"two kernel-path training steps differ: {repro}")
     return line
+
+
+# the cli_train phase's synthetic PeRFception-ScanNet tree: 12 train and 4
+# val surface shells of 9,000 voxels at reso 128, scene scale 100 / 128 (one
+# voxel per finest-level unit), so a batch of 8 holds 50,000-65,536 valid
+# finest rows (train_64k's scale, on which the config's caps were measured)
+CLI_TREE = dict(n_train=12, n_val=4, n_voxels=9000, reso=(128, 128, 128),
+                scene_scale=100 / 128)
+CLI_ROWS = (50_000, 65_536)
+CLI_STEPS, CLI_RESUME_STEPS, CLI_VAL_EVERY = 6, 8, 3
+CLI_KERNELS = ("window_starts", "window_match", "window_gather_matmul",
+               "window_bwd", "window_dw")
+
+
+class CliStepRecorder(TrainRecorder):
+    """Records what ``TrainRecorder`` records, and the inputs of every K2
+    call of the step's forward."""
+
+    def __enter__(self):
+        from nerf_downstream_tpu_torch.ops import window_conv
+
+        super().__enter__()
+        self.k2 = []
+        self._gmm = window_conv.window_gather_matmul
+        gmm = self._gmm
+
+        def rec_gmm(feats, starts, idx, w):
+            self.k2.append((feats.detach().clone(), starts, idx,
+                            w.detach().clone()))
+            return gmm(feats, starts, idx, w)
+
+        window_conv.window_gather_matmul = rec_gmm
+        return self
+
+    def __exit__(self, *exc):
+        from nerf_downstream_tpu_torch.ops import window_conv
+
+        window_conv.window_gather_matmul = self._gmm
+        return super().__exit__(*exc)
+
+
+class CliProbe:
+    """Wraps the training step, the validation pass and the profiler of
+    the port's training CLI: each step's wall time (a synchronise on
+    either side), its batch's valid finest-level rows after the device
+    augmentation, the last (task, state, batch), each validation pass's
+    wall time, and the momentum buffers the first step of a resumed run
+    starts from against ``resume_trace`` (the checkpoint's)."""
+
+    def __init__(self):
+        self.steps: list[tuple[int, float]] = []
+        self.rows: list[int] = []
+        self.val_ms: list[float] = []
+        self.profilers: list = []
+        self.last = None
+        self.resume_trace = None
+        self.resume_check = None
+
+    def __enter__(self):
+        import torch
+
+        from nerf_downstream_tpu_torch.co3d_3d import train as cli
+        from nerf_downstream_tpu_torch.train import loop, modules
+
+        probe = self
+        task_cls = modules.SegmentationTraining
+        self._saved = (task_cls.train_step, loop.Trainer.validate,
+                       cli.SumProfiler)
+        step_fn, validate, prof_cls = self._saved
+
+        def train_step(task, state, batch):
+            if probe.resume_trace is not None and probe.resume_check is None:
+                probe.resume_check = {
+                    "step": int(state.step),
+                    "momentum_bit_equal": all(
+                        torch.equal(state.optimizer.state[p][
+                            "momentum_buffer"].cpu(), probe.resume_trace[n])
+                        for n, p in state.model.named_parameters())}
+            aug = task.augment(batch, state.step)
+            vox = torch.floor(aug["coordinates"][aug["mask"]])
+            probe.rows.append(int(torch.unique(vox, dim=0).shape[0]))
+            step = int(state.step)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = step_fn(task, state, batch)
+            torch.cuda.synchronize()
+            probe.steps.append((step, (time.perf_counter() - t0) * 1e3))
+            probe.last = (task, out[0], batch)
+            return out
+
+        def timed_validate(trainer, state, phase="val"):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = validate(trainer, state, phase)
+            torch.cuda.synchronize()
+            probe.val_ms.append((time.perf_counter() - t0) * 1e3)
+            return out
+
+        class Profiler(prof_cls):
+            def __init__(self):
+                super().__init__()
+                probe.profilers.append(self)
+
+        task_cls.train_step = train_step
+        loop.Trainer.validate = timed_validate
+        cli.SumProfiler = Profiler
+        return self
+
+    def __exit__(self, *exc):
+        from nerf_downstream_tpu_torch.co3d_3d import train as cli
+        from nerf_downstream_tpu_torch.train import loop, modules
+
+        (modules.SegmentationTraining.train_step, loop.Trainer.validate,
+         cli.SumProfiler) = self._saved
+        return False
+
+
+def cli_kernels_f32(rec) -> dict:
+    """Every K1, pass, K2, K3 and K4 call of one recorded f32 step of the
+    CLI path against its plain version (K1 and the pass equal; K2 and
+    K3's d_feats within 1e-5 x max + 1e-5 relative, d_w within 1e-5 of
+    each (g, m)'s largest), and its device ms, plain ms and bound summed
+    over the step, with its core."""
+    import torch
+
+    from nerf_downstream_tpu_torch.ops.kernels import (
+        tc,
+        window_bwd,
+        window_bwd_plain,
+        window_dw,
+        window_dw_plain,
+        window_gather_matmul,
+        window_gather_matmul_plain,
+        window_match,
+        window_match_plain,
+        window_starts,
+        window_starts_plain,
+    )
+
+    f32 = torch.float32
+    for args in rec.k2 + rec.k4:
+        if args[0].dtype != f32:
+            raise PhaseError("cli_train: a K2 or K4 call without f32 inputs")
+    if any(c3["g_out"].dtype != f32 for c3 in rec.k3):
+        raise PhaseError("cli_train: a K3 call without f32 inputs")
+    # a comparison on non-finite or all-zero inputs would hold nothing
+    for name, ts in (("K2", [a[0] for a in rec.k2]),
+                     ("K3", [c["g_out"] for c in rec.k3]),
+                     ("K4", [a[3] for a in rec.k4])):
+        if not all(bool(torch.isfinite(t).all()) for t in ts):
+            raise PhaseError(f"cli_train: non-finite {name} inputs")
+        if not any(bool((t != 0).any()) for t in ts):
+            raise PhaseError(f"cli_train: all-zero {name} inputs")
+    out = {}
+
+    def tally(name, calls, run, plain, work, check):
+        row = {"calls": len(calls), "ms": 0.0, "plain_ms": 0.0,
+               "bound_ms": 0.0, "bound_by": "bytes", "worst_err": 0.0}
+        for args in calls:
+            err = check(args)
+            if not err == err:  # NaN
+                raise PhaseError(f"cli_train: {name} gave NaN against its "
+                                 "plain version")
+            row["worst_err"] = max(row["worst_err"], err)
+            row["ms"] += device_ms(lambda: run(args))
+            row["plain_ms"] += device_ms(lambda: plain(args), reps=2)
+            b, row["bound_by"] = work(args)
+            row["bound_ms"] += b
+        out[name] = row
+
+    def exact(fn, plain):
+        def check(args):
+            got, want = fn(*args), plain(*args)
+            got = got if isinstance(got, tuple) else (got,)
+            want = want if isinstance(want, tuple) else (want,)
+            if not all(torch.equal(x, y) for x, y in zip(got, want)):
+                raise PhaseError(f"cli_train: {fn.__name__} differs from "
+                                 "its plain version")
+            return 0.0
+        return check
+
+    tally("window_starts", rec.starts, lambda a: window_starts(*a),
+          lambda a: window_starts_plain(*a),
+          lambda a: (starts_bytes(a) / HBM_BYTES_PER_S * 1e3, "bytes"),
+          exact(window_starts, window_starts_plain))
+    tally("window_match", rec.k1, lambda a: window_match(*a),
+          lambda a: window_match_plain(*a),
+          lambda a: (k1_bytes(a) / HBM_BYTES_PER_S * 1e3, "bytes"),
+          exact(window_match, window_match_plain))
+
+    def k2_check(a):
+        got, want = window_gather_matmul(*a), window_gather_matmul_plain(*a)
+        if dfeats_bad(got, want, f32):
+            raise PhaseError("cli_train: K2 (f32) off its plain version")
+        return float((got - want).abs().max())
+
+    tally("window_gather_matmul", rec.k2, lambda a: window_gather_matmul(*a),
+          lambda a: window_gather_matmul_plain(*a),
+          lambda a: bound(*k2_work(*a), f32), k2_check)
+
+    def k3_args(c3):
+        return [c3[k] for k in ("g_out", "feats", "inv_starts", "inv_idx",
+                                "w_t")]
+
+    def k3_check(c3):
+        (got_f, got_w), (want_f, want_w) = (window_bwd(*k3_args(c3)),
+                                            window_bwd_plain(*k3_args(c3)))
+        rel, _ = dw_err(got_w, want_w)
+        if dfeats_bad(got_f, want_f, f32) or rel > DW_TOL:
+            raise PhaseError("cli_train: K3 (f32) off its plain version")
+        return rel
+
+    tally("window_bwd", rec.k3, lambda c3: window_bwd(*k3_args(c3)),
+          lambda c3: window_bwd_plain(*k3_args(c3)),
+          lambda c3: bound(*k3_work(c3), f32), k3_check)
+
+    def k4_check(a):
+        rel, _ = dw_err(window_dw(*a), window_dw_plain(*a))
+        if rel > DW_TOL:
+            raise PhaseError("cli_train: K4 (f32) off its plain version")
+        return rel
+
+    tally("window_dw", rec.k4, lambda a: window_dw(*a),
+          lambda a: window_dw_plain(*a), lambda a: bound(*k4_work(*a), f32),
+          k4_check)
+    for name in ("window_gather_matmul", "window_bwd", "window_dw"):
+        out[name]["core"] = tc.CUDA_CORES
+    for name in ("window_starts", "window_match"):
+        out[name].update(core="cuda cores (int32 searches)", dtype="int32")
+    for name in ("window_gather_matmul", "window_bwd", "window_dw"):
+        out[name]["dtype"] = "float32"
+    return out
+
+
+def phase_cli_train(card: str, device: str = "cuda",
+                    bindings=()) -> tuple[dict, dict]:
+    """The port's training CLI (``co3d_3d.train``) on the flagship configs
+    at full width, as a user runs it: a synthetic PeRFception-ScanNet tree
+    written by the port's own writer (``CLI_TREE``), ``CLI_STEPS`` steps
+    validating every ``CLI_VAL_EVERY`` and testing the best checkpoint,
+    then ``--resume`` to ``CLI_RESUME_STEPS``. Launch counts are reset
+    just before the first run and read just after the second. Fails
+    unless: every loss is finite (the Trainer raises otherwise), the
+    checkpoints, ``eval_results.json`` and both metric logs exist, the
+    resumed run starts at step ``CLI_STEPS`` from the checkpoint's
+    momentum buffers bit for bit, every batch holds ``CLI_ROWS`` valid
+    finest rows, every conv computes in f32 (the config binds no compute
+    type), and K1-K4 each launched. Then one more step is profiled, its
+    synchronising calls counted, and its K1-K4 calls recorded, held
+    against their plain versions and timed (``cli_kernels_f32``).
+    ``device`` and ``bindings`` (more ``--ginb``) serve a rehearsal on
+    the CPU at a narrow width."""
+    import contextlib
+    import io
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from nerf_downstream_tpu_torch import config as gin
+    from nerf_downstream_tpu_torch import convert
+    from nerf_downstream_tpu_torch.co3d_3d import train as cli
+    from nerf_downstream_tpu_torch.data.synthetic import write_scannet_tree
+    from nerf_downstream_tpu_torch.models.mink.layers import (
+        SparseConv,
+        SparseConvTranspose,
+    )
+    from nerf_downstream_tpu_torch.ops import kernels
+    from nerf_downstream_tpu_torch.train import checkpoints
+
+    tmp = tempfile.mkdtemp(prefix="cli_train_")
+    try:
+        t0 = time.perf_counter()
+        root = write_scannet_tree(tmp, np.random.default_rng(0), **CLI_TREE)
+        tree_s = time.perf_counter() - t0
+        save = os.path.join(tmp, "exp")
+        configs = [os.path.join(REPO, "co3d_3d", "configs", name)
+                   for name in ("scannet_plenoxel.gin",
+                                "scannet_feature_sh.gin")]
+        args = [a for c in configs for a in ("--ginc", c)]
+        for b in (f'PlenoxelScannetDataset.data_root = "{root}"',
+                  "PlenoxelScannetDataset.downsample_stride = 1",
+                  f"train.val_every_n_steps = {CLI_VAL_EVERY}",
+                  "train.log_every_n_steps = 1", "train.evaluate = True",
+                  'train.loggers = ["csv", "jsonl"]', *bindings):
+            args += ["--ginb", b]
+        args += ["--save_path", save, "--seed", "0", "--device", device]
+        stdout = io.StringIO()
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        with CliProbe() as probe, contextlib.redirect_stdout(stdout):
+            t0 = time.perf_counter()
+            gin.clear_config()
+            cli.main(args + ["--ginb", f"train.max_steps = {CLI_STEPS}"])
+            first_s = time.perf_counter() - t0
+            last = checkpoints.load_checkpoint(os.path.join(save,
+                                                            "last.ckpt"))
+            inner = last["opt_state"]["1"]
+            trace = convert.flax_to_state_dict(probe.last[0].model,
+                                               inner["0"]["trace"])
+            probe.resume_trace = {k: v for k, v in trace.items()}
+            t0 = time.perf_counter()
+            gin.clear_config()
+            cli.main(args + ["--ginb", f"train.max_steps = "
+                                       f"{CLI_RESUME_STEPS}", "--resume"])
+            resume_s = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        counts = kernels.launch_counts()
+        task, state, batch = probe.last
+        run = os.path.join(save, f"b8x1-{type(task.model).__name__}")
+        files = {name: os.path.exists(os.path.join(d, name)) for d, name in (
+            (save, "last.ckpt"), (save, "best.ckpt"),
+            (save, "eval_results.json"), (run, "metrics.csv"),
+            (run, "metrics.jsonl"))}
+        with open(os.path.join(run, "metrics.jsonl")) as f:
+            logged = [json.loads(ln) for ln in f]
+        train_losses = [r["train/loss"] for r in logged if "train/loss" in r]
+        val = [{k: r[k] for k in ("step", "val/loss", "val/mIoU")}
+               for r in logged if "val/mIoU" in r]
+        with open(os.path.join(save, "eval_results.json")) as f:
+            results = json.load(f)
+        text = stdout.getvalue()
+        types = {m.compute_dtype for m in task.model.modules()
+                 if isinstance(m, (SparseConv, SparseConvTranspose))}
+        steps = [s for s, _ in probe.steps]
+        ms = [m for _, m in probe.steps]
+        prof = probe.profilers[-1]
+        line = {
+            "phase": "cli_train", "card": card, "entry":
+            "python -m nerf_downstream_tpu_torch.co3d_3d.train",
+            "configs": ["co3d_3d/configs/scannet_plenoxel.gin",
+                        "co3d_3d/configs/scannet_feature_sh.gin"],
+            "tree": dict(CLI_TREE, seconds=tree_s),
+            "dtype": "float32 (the config binds no compute type; every "
+                     "conv on the CUDA cores)",
+            "capacity": int(batch["mask"].shape[0]),
+            "valid_finest_rows": probe.rows,
+            "steps": steps, "ms": ms,
+            "ms_median_after_first": float(np.median(ms[1:])),
+            "run_seconds": [first_s, resume_s],
+            "train_losses": train_losses, "val": val,
+            "val_pass_ms": probe.val_ms,
+            "host_ms_per_batch_waited": prof.recorded_time(
+                "get_train_batch") * 1e3,
+            "resume": probe.resume_check, "files": files,
+            "eval_results_mIoU": results.get("val/mIoU"),
+            "iou_tables_printed": text.count("miou: "),
+            "launches": counts,
+        }
+        ok = (all(files.values())
+              and np.isfinite(train_losses).all()
+              and all(np.isfinite(v["val/loss"]) for v in val)
+              and len(val) >= 4 and line["iou_tables_printed"] >= 4
+              and steps == list(range(CLI_RESUME_STEPS))
+              and probe.resume_check == {"step": CLI_STEPS,
+                                         "momentum_bit_equal": True}
+              and all(CLI_ROWS[0] <= r <= CLI_ROWS[1] for r in probe.rows)
+              and types == {torch.float32}
+              and all(counts[k] > 0 for k in CLI_KERNELS))
+        if not ok:
+            raise PhaseError(f"cli_train: {line}")
+
+        # one more step of the same task: host time per batch on one
+        # worker, its synchronising calls, a profile, and its kernels
+        from nerf_downstream_tpu_torch.data.data_module import DataModule
+
+        dm = DataModule(batch_size=8, val_batch_size=2, train_num_workers=1,
+                        ignore_label=-255, capacity=line["capacity"])
+        it = dm.train_batches()
+        next(it)
+        t0 = time.perf_counter()
+        for _ in range(3):
+            next(it)
+        line["host_ms_per_batch_one_worker"] = (
+            (time.perf_counter() - t0) * 1e3 / 3)
+
+        extra_losses = []  # read after the timed and counted steps
+
+        def step() -> None:
+            nonlocal state
+            state, mets = task.train_step(state, batch)
+            extra_losses.append(mets["loss"].detach())
+
+        line["sync"] = sync_count("cli_train", step)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as p:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            step()
+            torch.cuda.synchronize()
+            wall_profiled = (time.perf_counter() - t0) * 1e3
+        rows = device_rows(p, 1)
+        device = sum(r[0] for r in rows)
+        if device <= 0:
+            raise PhaseError("cli_train: the profiler saw no device time")
+        line["profile"] = {
+            "wall_ms_per_step_profiled": wall_profiled,
+            "device_ms_per_step": device,
+            "device_busy_share": device / line["ms_median_after_first"],
+            "device_ops_per_step": sum(r[1] for r in rows),
+            "top_device": [{"name": k[:90], "per_step": c, "ms": m}
+                           for m, c, k in rows[:12]]}
+        with CliStepRecorder() as rec:
+            step()
+        line["extra_step_losses"] = [float(v) for v in extra_losses]
+        if not np.isfinite(line["extra_step_losses"]).all():
+            raise PhaseError("cli_train: non-finite loss in the extra steps: "
+                             f"{line['extra_step_losses']}")
+        line["kernels_per_step"] = cli_kernels_f32(rec)
+        return line, counts
+    finally:
+        gin.clear_config()
+        shutil.rmtree(tmp, ignore_errors=True)
 
 
 class SparseRecorder:
@@ -2201,6 +2652,9 @@ def main() -> int:
         del rec
         phase = "train_model"
         emit(phase_train_model())
+        phase = "cli_train"
+        line, cli_launches = phase_cli_train(card)
+        emit(line)
         phase = "sparse_eval"
         line, sparse_launches, sparse_recs = phase_sparse_eval(card)
         emit(line)
@@ -2218,6 +2672,7 @@ def main() -> int:
 
     def paths(name):
         by_path = {"serve": launches[name], "train": train_launches[name],
+                   "cli_train": cli_launches[name],
                    "sparse_eval": sparse_launches[name]}
         return {"launches": sum(by_path.values()),
                 "launches_by_path": by_path}

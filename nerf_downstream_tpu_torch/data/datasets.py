@@ -1,0 +1,35 @@
+"""Dataset registry (counterpart of ``nerf_downstream_tpu/data/datasets.py``).
+
+The reference's table names nine datasets; the port has
+``PlenoxelScannetDataset`` and raises ``NotImplementedError`` for the
+others (ROADMAP.md Queue 1 items 1 and 3).
+"""
+
+from __future__ import annotations
+
+from nerf_downstream_tpu_torch import config as cfg
+
+NOT_PORTED = (
+    "Co3DDataset", "Co3D10pDataset", "Co3DDatasetBase", "ScannetDataset",
+    "ModelNet40H5", "ModelNet40H5Dataset", "SemanticKITTIDataset",
+    "StanfordDataset",
+)
+
+
+def _table():
+    from nerf_downstream_tpu_torch.data import scannet
+
+    return {"PlenoxelScannetDataset": scannet.PlenoxelScannetDataset}
+
+
+@cfg.configurable("get_dataset")
+def get_dataset(dataset_name: str = "Co3DDataset"):
+    if dataset_name in NOT_PORTED:
+        raise NotImplementedError(
+            f"dataset {dataset_name!r} is not ported (ROADMAP.md Queue 1)")
+    table = _table()
+    if dataset_name not in table:
+        raise ValueError(
+            f"unknown dataset {dataset_name!r}; available: {sorted(table)}"
+        )
+    return table[dataset_name]

@@ -222,6 +222,29 @@ DEVICE_CAPABLE = {
 }
 
 
+def configured_names() -> tuple:
+    """The ``train.device_transforms`` binding (empty when unbound)."""
+    from nerf_downstream_tpu_torch import config as cfg
+
+    names = cfg.query_parameter("train.device_transforms", default=())
+    return tuple(names or ())
+
+
+def configured_params(names: Sequence[str]) -> dict:
+    """Each named transform's parameters as the gin configuration binds
+    them for its host twin (``data/transforms.py``), as the reference's
+    device transforms take theirs: {name: {field: value}}."""
+    from nerf_downstream_tpu_torch.data import transforms as T
+
+    out = {}
+    for name in names:
+        host = T.TRANSFORMS[name]()
+        out[name] = {f.name: getattr(host, f.name)
+                     for f in dataclasses.fields(DEVICE_CAPABLE[name])
+                     if hasattr(host, f.name)}
+    return out
+
+
 def build(names: Sequence[str], num_scenes: int | None = None,
           params: dict | None = None):
     """fn(batch, generator) -> batch applying the named transforms in

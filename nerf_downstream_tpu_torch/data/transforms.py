@@ -1,0 +1,367 @@
+"""Host augmentations: the gin-configurable transforms of the flagship
+config's list on (coords, feats, labels) triples, ``Compose`` and
+``build`` (counterpart of ``nerf_downstream_tpu/data/transforms.py``, the
+port's own copy, draw for draw from the module's ``_rng`` stream: the same
+``seed`` gives the same arrays). The reference's other transforms (colour,
+sampling, PerlinNoise, ...) are not ported yet (ROADMAP.md Queue 1
+item 3); ``build`` raises on their names. Rotations use the closed-form
+Rodrigues formula (the reference's ``scipy.expm`` matrix).
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Sequence
+
+import numpy as np
+
+from nerf_downstream_tpu_torch import config as cfg
+
+_rng = np.random.default_rng()
+
+
+def seed(s: int):
+    """Seed the transform RNG (called by seed_everything)."""
+    global _rng
+    _rng = np.random.default_rng(s)
+
+
+def _rand():
+    return float(_rng.random())
+
+
+def _sel(coords, feats, labels, sel):
+    return (
+        coords[sel],
+        feats if feats is None else feats[sel],
+        labels if labels is None else labels[sel],
+    )
+
+
+@cfg.configurable
+class RandomFeatureJitter:
+    """Jitter a feature slice (the SH coefficients) — transforms.py:21-40.
+    Keeps the reference's (randn - 0.5) * std noise shape."""
+
+    def __init__(self, std=0.01, application_ratio=0.9, start_ind: int = 4,
+                 feature_dim: int = 27):
+        self.std = std
+        self.application_ratio = application_ratio
+        self.start_ind = start_ind
+        self.feature_dim = feature_dim
+
+    def __call__(self, coords, feats, labels):
+        if _rand() < self.application_ratio:
+            # float32 generation: same distribution, half the RNG cost
+            # (this jitter was the #2 host-side hot spot at bench scale)
+            noise = (
+                _rng.standard_normal(
+                    (feats.shape[0], self.feature_dim), dtype=np.float32
+                )
+                - np.float32(0.5)
+            ) * np.float32(self.std)
+            feats = feats.copy()
+            feats[:, self.start_ind : self.start_ind + self.feature_dim] += (
+                noise.astype(feats.dtype)
+            )
+        return coords, feats, labels
+
+
+@cfg.configurable
+class RandomCrop:
+    """Axis-aligned random crop with a retry loop — transforms.py:194-243."""
+
+    def __init__(self, x=200, y=200, z=200, application_ratio=1.0,
+                 max_retries=10):
+        assert x > 0 and y > 0 and z > 0
+        self.max_size = np.array([[x, y, z]], np.float64)
+        self.application_ratio = application_ratio
+        self.max_retries = max_retries
+
+    def __call__(self, coords, feats, labels):
+        if _rand() > self.application_ratio:
+            return coords, feats, labels
+        norm = coords - coords.min(0, keepdims=True)
+        coord_range = np.clip(norm.max(0, keepdims=True) - self.max_size, 0, None)
+        if np.prod(coord_range == 0):
+            return coords, feats, labels
+        for _ in range(self.max_retries):
+            lo = _rng.random((1, 3)) * coord_range
+            hi = lo + self.max_size
+            sel = np.all((norm > lo) & (norm < hi), axis=1)
+            if sel.sum() > 0:
+                return _sel(coords, feats, labels, sel)
+        return coords, feats, labels
+
+
+@cfg.configurable
+class CoordinateDropout:
+    def __init__(self, dropout_ratio=0.2, application_ratio=0.2):
+        self.dropout_ratio = dropout_ratio
+        self.application_ratio = application_ratio
+
+    def __call__(self, coords, feats, labels):
+        if _rand() < self.application_ratio:
+            n = len(coords)
+            keep = _rng.choice(n, int(n * (1 - self.dropout_ratio)),
+                               replace=False)
+            return _sel(coords, feats, labels, keep)
+        return coords, feats, labels
+
+
+def rotation_matrix(axis: np.ndarray, theta: float) -> np.ndarray:
+    """Rodrigues rotation about ``axis`` by ``theta`` (== expm(cross(I,
+    axis/|axis| * theta)), reference transforms.py:333-336)."""
+    axis = np.asarray(axis, np.float64)
+    axis = axis / np.linalg.norm(axis)
+    kx, ky, kz = axis
+    K = np.array([[0, -kz, ky], [kz, 0, -kx], [-ky, kx, 0]])
+    return np.eye(3) + np.sin(theta) * K + (1 - np.cos(theta)) * (K @ K)
+
+
+@cfg.configurable
+class RandomRotation:
+    """Rotation about a slightly perturbed upright axis."""
+
+    def __init__(self, upright_axis="z", axis_std=0.01, application_ratio=0.9):
+        self.upright_axis = {"x": 0, "y": 1, "z": 2}[upright_axis.lower()]
+        self.axis_std = axis_std
+        self.application_ratio = application_ratio
+
+    def __call__(self, coords, feats, labels):
+        if _rand() < self.application_ratio:
+            axis = self.axis_std * _rng.standard_normal(3)
+            axis[self.upright_axis] += 1
+            angle = _rand() * 2 * np.pi
+            coords = coords @ rotation_matrix(axis, angle)
+        return coords, feats, labels
+
+
+@cfg.configurable
+class RandomTranslation:
+    def __init__(self, max_translation=3, application_ratio=0.9):
+        self.max_translation = max_translation
+        self.application_ratio = application_ratio
+
+    def __call__(self, coords, feats, labels):
+        if _rand() < self.application_ratio:
+            coords = coords + 2 * (_rng.random((1, 3)) - 0.5) * self.max_translation
+        return coords, feats, labels
+
+
+@cfg.configurable
+class RandomAffine:
+    """rotation @ (scale + shear) — transforms.py:394-426."""
+
+    def __init__(self, upright_axis="z", axis_std=0.1, scale_range=0.2,
+                 affine_range=0.1, application_ratio=0.9):
+        self.upright_axis = {"x": 0, "y": 1, "z": 2}[upright_axis.lower()]
+        self.axis_std = axis_std
+        self.scale_range = scale_range
+        self.affine_range = affine_range
+        self.application_ratio = application_ratio
+
+    def __call__(self, coords, feats, labels):
+        if _rand() < self.application_ratio:
+            axis = self.axis_std * _rng.standard_normal(3)
+            axis[self.upright_axis] += 1
+            angle = 2 * (_rand() - 0.5) * np.pi
+            T = rotation_matrix(axis, angle) @ (
+                np.diag(2 * (_rng.random(3) - 0.5) * self.scale_range + 1)
+                + 2 * (_rng.random((3, 3)) - 0.5) * self.affine_range
+            )
+            coords = coords @ T
+        return coords, feats, labels
+
+
+@cfg.configurable
+class RandomHorizontalFlip:
+    def __init__(self, upright_axis="z", application_ratio=0.9):
+        self.upright_axis = {"x": 0, "y": 1, "z": 2}[upright_axis.lower()]
+        self.horz_axes = sorted(set(range(3)) - {self.upright_axis})
+        self.application_ratio = application_ratio
+
+    def __call__(self, coords, feats, labels):
+        if _rand() < self.application_ratio:
+            coords = coords.copy()
+            for ax in self.horz_axes:
+                coords[:, ax] = coords[:, ax].max() - coords[:, ax]
+        return coords, feats, labels
+
+
+def _trilinear_uniform(noise: np.ndarray, gmin, step, pts: np.ndarray):
+    """Trilinear interpolation of ``noise`` [D0, D1, D2, C] on a UNIFORM
+    grid (origin ``gmin``, spacing ``step``) at ``pts`` [N, 3]; zero
+    outside the grid (scipy RegularGridInterpolator fill_value=0
+    semantics, ~5x faster — the generic scipy path was the #1 host-side
+    hot spot at bench scale)."""
+    d0, d1, d2, c = noise.shape
+    # float64 coordinate math (matches scipy's boundary classification);
+    # the 8 corner gathers + weighted sum stay float32
+    g = (np.asarray(pts, np.float64) - np.asarray(gmin, np.float64)) / (
+        np.asarray(step, np.float64)
+    )
+    inside = (
+        (g[:, 0] >= 0) & (g[:, 0] <= d0 - 1)
+        & (g[:, 1] >= 0) & (g[:, 1] <= d1 - 1)
+        & (g[:, 2] >= 0) & (g[:, 2] <= d2 - 1)
+    )
+    i0 = np.floor(g).astype(np.int64)
+    # clamp BEFORE taking fractions so the exact upper boundary lands on
+    # the last cell with weight 1 (f = g - clamped corner)
+    i0[:, 0] = np.clip(i0[:, 0], 0, d0 - 2)
+    i0[:, 1] = np.clip(i0[:, 1], 0, d1 - 2)
+    i0[:, 2] = np.clip(i0[:, 2], 0, d2 - 2)
+    f = (g - i0).astype(np.float32)
+    flat = noise.reshape(-1, c)
+    base = (i0[:, 0] * d1 + i0[:, 1]) * d2 + i0[:, 2]
+    fx, fy, fz = f[:, 0:1], f[:, 1:2], f[:, 2:3]
+    out = np.zeros((pts.shape[0], c), np.float32)
+    for dx in (0, 1):
+        wx = fx if dx else 1 - fx
+        for dy in (0, 1):
+            wy = fy if dy else 1 - fy
+            for dz in (0, 1):
+                wz = fz if dz else 1 - fz
+                idx = base + (dx * d1 + dy) * d2 + dz
+                out += (wx * wy * wz) * flat[idx]
+    out[~inside] = 0
+    return out
+
+
+def _box_smooth3(noise: np.ndarray, iterations: int = 2) -> np.ndarray:
+    """Separable 3-tap box blur over the three spatial axes, applied twice
+    (the reference's conv-smoothing, transforms.py:560-571)."""
+    import scipy.ndimage
+
+    k = np.ones(3, np.float32) / 3
+    for _ in range(iterations):
+        for ax in range(3):
+            noise = scipy.ndimage.convolve1d(
+                noise, k, axis=ax, mode="constant", cval=0.0
+            )
+    return noise
+
+
+@cfg.configurable
+class ElasticDistortion:
+    """Blurred noise-grid displacement field (transforms.py:535-594).
+
+    ``max_extent`` is only consumed by the device twin
+    (data/device_transforms.py): the static per-scene noise-grid size the
+    training step allocates. The host path ignores it (grids are sized per
+    scene)."""
+
+    def __init__(self, distortion_params=((4, 16), (8, 24)),
+                 application_ratio=0.9, max_extent=None):
+        self.distortion_params = distortion_params
+        self.application_ratio = application_ratio
+        self.max_extent = max_extent
+
+    def _distort(self, coords, granularity, magnitude):
+        coords_min = coords.min(0)
+        noise_dim = ((coords - coords_min).max(0) // granularity).astype(int) + 3
+        # float32 generation: same distribution, half the RNG cost (the
+        # float64 default was ~half this transform's host time)
+        noise = _rng.standard_normal((*noise_dim, 3), dtype=np.float32)
+        noise = _box_smooth3(noise, iterations=2)
+        # the ax grids are uniform (linspace spacing == granularity), so
+        # the generic scipy interpolator reduces to uniform trilinear
+        disp = _trilinear_uniform(
+            noise, coords_min - granularity, granularity, coords
+        )
+        return coords + disp * magnitude
+
+    def __call__(self, coords, feats, labels):
+        if self.distortion_params is not None and _rand() < self.application_ratio:
+            for granularity, magnitude in self.distortion_params:
+                coords = self._distort(coords, granularity, magnitude)
+        return coords, feats, labels
+
+
+    # note: like the reference (transforms.py:628-630), labels pass through
+    # unsampled — FPS is used for whole-cloud classification only.
+
+
+class Compose:
+    def __init__(self, transforms):
+        self.transforms = list(transforms)
+
+    def __call__(self, *args):
+        for t in self.transforms:
+            args = t(*args)
+        return args
+
+    def __repr__(self):
+        return f"Compose({[type(t).__name__ for t in self.transforms]})"
+
+
+TRANSFORMS = {
+    name: obj
+    for name, obj in list(globals().items())
+    if isinstance(obj, type) and hasattr(obj, "__call__") and name[0].isupper()
+    and name not in ("Compose",)
+}
+
+# transforms that read or write coordinates (vs feature-only): moving one
+# of these to the device reorders it after every host transform, which is
+# only sound when it was already last among the coordinate transforms
+COORD_AFFECTING = frozenset(
+    name for name in TRANSFORMS
+    if name not in (
+        "RandomFeatureJitter", "ChromaticTranslation",
+        "ChromaticAutoContrast", "ChromaticJitter", "NormalizeColor",
+        "HueSaturationTranslation",
+    )
+)
+
+
+def build(
+    names: Sequence[str], device_ok: bool = False
+) -> Optional[Compose]:
+    """Instantiate a transform pipeline from config names (the reference's
+    ``transforms.__dict__[t]()`` lookup, co3d.py:86-90).
+
+    ``device_ok`` (train-phase datasets): transforms listed in the
+    ``train.device_transforms`` gin binding are dropped here — the task
+    applies them inside the training step on the device instead
+    (data/device_transforms.py), cutting host data_time without changing
+    augmentation semantics. Eval/test pipelines pass device_ok=False and
+    always run everything on host."""
+    if not names:
+        return None
+    missing = [n for n in names if n not in TRANSFORMS]
+    if missing:
+        raise ValueError(f"unknown transforms: {missing}")
+    if device_ok:
+        from nerf_downstream_tpu_torch.data import device_transforms as DT
+
+        on_device = set(DT.configured_names())
+        bad = on_device - set(DT.DEVICE_CAPABLE)
+        if bad:
+            raise ValueError(
+                f"train.device_transforms lists non-device-capable "
+                f"transforms: {sorted(bad)}"
+            )
+        moved_coord = [
+            i for i, n in enumerate(names)
+            if n in on_device and n in COORD_AFFECTING
+        ]
+        if moved_coord:
+            last_host_coord = max(
+                (
+                    i for i, n in enumerate(names)
+                    if n in COORD_AFFECTING and n not in on_device
+                ),
+                default=-1,
+            )
+            if last_host_coord > min(moved_coord):
+                raise ValueError(
+                    "device-moved coordinate transforms "
+                    f"({[names[i] for i in moved_coord]}) run after every "
+                    "host transform; they must already be last among the "
+                    f"coordinate transforms in {list(names)}"
+                )
+        names = [n for n in names if n not in on_device]
+        if not names:
+            return None
+    return Compose([TRANSFORMS[n]() for n in names])

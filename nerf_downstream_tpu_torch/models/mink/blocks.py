@@ -23,23 +23,24 @@ class BasicBlock(nn.Module):
     def __init__(self, inplanes: int, planes: int, norm_type: str = "BN",
                  nonlinearity: str = "MinkowskiReLU",
                  compute_dtype: torch.dtype = torch.float32,
-                 conv_mode: int = 0):
+                 conv_mode: int = 0, bn_momentum: float = 0.1):
         super().__init__()
         self.non = get_nonlinearity(nonlinearity)
         self.conv1 = SparseConv(inplanes, planes, 3, 1,
                                 compute_dtype=compute_dtype,
                                 conv_mode=conv_mode)
-        self.norm1 = make_norm(norm_type, planes)
+        self.norm1 = make_norm(norm_type, planes, bn_momentum=bn_momentum)
         self.conv2 = SparseConv(planes, planes, 3, 1,
                                 compute_dtype=compute_dtype,
                                 conv_mode=conv_mode)
-        self.norm2 = make_norm(norm_type, planes)
+        self.norm2 = make_norm(norm_type, planes, bn_momentum=bn_momentum)
         self.downsample = None
         if inplanes != planes * self.expansion:
             self.downsample = nn.ModuleDict({
                 "conv": SparseConv(inplanes, planes * self.expansion, 1, 1,
                                    compute_dtype=compute_dtype),
-                "norm": make_norm(norm_type, planes * self.expansion),
+                "norm": make_norm(norm_type, planes * self.expansion,
+                                  bn_momentum=bn_momentum),
             })
 
     def forward(self, sv, ctx):

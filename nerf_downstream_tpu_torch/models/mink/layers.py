@@ -130,6 +130,7 @@ class SparseConv(nn.Module):
             if self.bias is not None:
                 out_f = out_f + self.bias
             return sv.replace(feats=out_f)
+        ctx.require_window_full()
         full_offs = kernel_offsets(self.kernel_size, sv.stride)
         subset = self._subset(full_offs, ctx)
         # a subset with non-uniform (dx, dy) groups is padded with
@@ -277,6 +278,7 @@ class SparseConvTranspose(nn.Module):
 
     def forward(self, sv: SparseVoxels, ctx: CoordinateContext,
                 target: SparseVoxels):
+        ctx.require_window_full()
         offs = kernel_offsets(2, target.stride)
         plan = ctx.window_plan_cross(sv, target, offs, transpose=True)
         inv_plan = ctx.window_plan_cross(target, sv, offs, expanding=True)

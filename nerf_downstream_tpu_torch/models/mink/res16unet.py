@@ -44,10 +44,10 @@ from nerf_downstream_tpu_torch.sparse.types import PointField
 
 class _ConvNormAct(nn.Module):
     def __init__(self, conv: nn.Module, channels: int, norm_type: str,
-                 nonlinearity: str):
+                 nonlinearity: str, bn_momentum: float = 0.1):
         super().__init__()
         self.conv = conv
-        self.norm = make_norm(norm_type, channels)
+        self.norm = make_norm(norm_type, channels, bn_momentum=bn_momentum)
         self.non = get_nonlinearity(nonlinearity)
 
     def forward(self, *args):
@@ -55,9 +55,15 @@ class _ConvNormAct(nn.Module):
 
 
 class Res16UNet(nn.Module):
-    """``ctx`` holds the CoordinateContext window knobs (see
-    ``serve.PRESETS``); ``assume_unique`` is the quantization's
-    one-point-per-voxel declaration (``field_to_sparse``)."""
+    """``ctx`` holds CoordinateContext knobs (see ``serve.PRESETS``); the
+    context of each forward also takes whatever the gin configuration
+    binds for ``CoordinateContext`` (arguments in ``ctx`` win), so a model
+    built with ``ctx=None`` takes its knobs from the configuration as the
+    reference's does. ``assume_unique`` is the quantization's
+    one-point-per-voxel declaration; None leaves it to the
+    ``field_to_sparse.assume_unique`` binding (default False).
+    ``num_batches`` is the batch's scene count (the reference's, for the
+    row path's grid index); ``dilations`` other than 1 are not ported."""
 
     def __init__(
         self,
@@ -70,12 +76,21 @@ class Res16UNet(nn.Module):
         nonlinearity: str = "MinkowskiReLU",
         compute_dtype: torch.dtype = torch.float32,
         ctx: dict | None = None,
-        assume_unique: bool = False,
+        assume_unique: bool | None = False,
         sparse_mode: Sequence[int] = (0,) * 9,
+        dilations: Sequence[int] = (1,) * 8,
+        bn_momentum: float = 0.1,
+        num_batches: int = 1,
     ):
         super().__init__()
         if block not in BLOCKS:
             raise NotImplementedError(f"block {block!r} is not ported")
+        if any(int(d) != 1 for d in dilations):
+            raise NotImplementedError(
+                f"dilations {tuple(dilations)} are not ported (the "
+                "reference runs dilated convs on the row path; ROADMAP.md "
+                "Queue 1 item 3)")
+        self.num_batches = num_batches
         self.out_channel = out_channel
         self.planes, self.layers = tuple(planes), tuple(layers)
         self.compute_dtype = compute_dtype
@@ -87,14 +102,16 @@ class Res16UNet(nn.Module):
         exp = block_cls.expansion
 
         def unit(conv, ch):
-            return _ConvNormAct(conv, ch, norm_type, nonlinearity)
+            return _ConvNormAct(conv, ch, norm_type, nonlinearity,
+                                bn_momentum)
 
         def stage(idx, inplanes):
             blocks = []
             for _ in range(self.layers[idx]):
                 blocks.append(block_cls(inplanes, p[idx], norm_type,
                                         nonlinearity, cd,
-                                        self._conv_mode(idx + 1)))
+                                        self._conv_mode(idx + 1),
+                                        bn_momentum))
                 inplanes = p[idx] * exp
             return nn.ModuleList(blocks), inplanes
 
@@ -140,8 +157,12 @@ class Res16UNet(nn.Module):
 
     def forward(self, field: PointField) -> torch.Tensor:
         """Per-point logits [N, out_channel] (f32)."""
-        ctx = CoordinateContext(**self.ctx_kwargs)
-        sv, p2v = field_to_sparse(field, assume_unique=self.assume_unique)
+        ctx = CoordinateContext(**dict(dict(num_batches=self.num_batches),
+                                       **self.ctx_kwargs))
+        if self.assume_unique is None:
+            sv, p2v = field_to_sparse(field)
+        else:
+            sv, p2v = field_to_sparse(field, assume_unique=self.assume_unique)
         out = self.conv0a(sv, ctx)
         out_p1 = self.conv0b(out, ctx)
         out_b1p2 = self._run(self.block1, self.conv1(out_p1, ctx), ctx)

@@ -32,7 +32,9 @@ def _d_w(feats_ext, kernel_map, gc):
 
 
 class _SparseConvCore(torch.autograd.Function):
-    """K6 forward; backward by scatter-adds (the reference's ``_core_bwd``)."""
+    """K6 forward; backward by scatter-adds (the reference's ``_core_bwd``),
+    accumulating ``index_put_`` calls that add each row's terms in a fixed
+    order on the card."""
 
     @staticmethod
     def forward(ctx, feats_ext, kernel_map, w):
@@ -47,7 +49,8 @@ class _SparseConvCore(torch.autograd.Function):
                               device=g.device)
         for k in range(kernel_map.shape[0]):
             contrib = gc.float() @ w[k].float().t()
-            d_feats.index_add_(0, kernel_map[k].long(), contrib)
+            d_feats.index_put_((kernel_map[k].long(),), contrib,
+                               accumulate=True)
         d_feats[-1] = 0.0  # the sentinel row has no gradient
         return (d_feats.to(feats_ext.dtype), None,
                 _d_w(feats_ext, kernel_map, gc).to(w.dtype))

@@ -22,7 +22,9 @@ list instead of poisoning the output. ``transpose_plan`` relabels a
 same-set plan into its transpose.
 
 Apply side: ``window_conv_apply`` runs K2 (``window_gather_matmul``) and
-adds the escape entries with ``index_add_``. For inference over a pruned
+adds the escape entries with an accumulating ``index_put_``, which sorts
+its indices and adds each row's entries in a fixed order on the card (an
+``index_add_`` adds them with atomics, in whatever order they land). For inference over a pruned
 checkpoint, ``window_conv_apply_blocksparse`` runs K5
 (``window_gather_matmul_bs``) instead, which skips dead weight blocks.
 The gradient of ``window_conv_apply`` is a
@@ -377,7 +379,13 @@ def _esc_scatter(out, feats, esc_k, esc_i, esc_j, w_gm):
     contrib = sel.reshape(-1, k_count * c) @ w_gm.reshape(
         k_count * c, cout).to(torch.float32)
     upd = torch.where(valid[:, None], contrib, 0.0).to(out.dtype)
-    return out.index_add_(0, esc_i.clamp(min=0).long(), upd)
+    # sorted, fixed-order accumulation: reproducible on the card. The
+    # padding entries add zeros to rows of their own; all on one row, the
+    # sorted accumulation would add them one after another
+    rows = torch.where(valid, esc_i.long(),
+                       torch.arange(esc_i.shape[0], device=esc_i.device)
+                       % out.shape[0])
+    return out.index_put_((rows,), upd, accumulate=True)
 
 
 class _WindowConvCore(torch.autograd.Function):

@@ -36,6 +36,7 @@ from nerf_downstream_tpu_torch.data.synthetic import collate_mink, scene_sample
 from nerf_downstream_tpu_torch.device import resolve_device
 from nerf_downstream_tpu_torch.models import get_model
 from nerf_downstream_tpu_torch.sparse.types import PointField
+from nerf_downstream_tpu_torch.train.loop import to_device
 from nerf_downstream_tpu_torch.train.modules import loss_and_metrics
 
 NUM_CLASSES = 20
@@ -47,7 +48,7 @@ PRESETS = {
     "serving_8k": dict(
         scenes=1, capacity=8192, grid_extent=128, assume_unique=True,
         ctx=dict(
-            level_caps=(8192, 2048, 512, 256, 256),
+            method="hybrid", level_caps=(8192, 2048, 512, 256, 256),
             window_tile=256, window_size=128, window_blocks=4,
             window_expand_factor=3,
             window_escape_cap=(1024, 256, 64, 0, 0),
@@ -57,7 +58,7 @@ PRESETS = {
     "eval_64k": dict(
         scenes=8, capacity=65536, grid_extent=128, assume_unique=True,
         ctx=dict(
-            level_caps=(65536, 14848, 3584, 1024, 512),
+            method="hybrid", level_caps=(65536, 14848, 3584, 1024, 512),
             window_tile=256, window_size=128, window_blocks=4,
             window_expand_factor=3,
             window_escape_cap=(8192, 2048, 512, 512, 0),
@@ -95,20 +96,6 @@ def make_batch(preset_name: str, rng) -> dict:
     return collate_mink(samples, capacity=preset["capacity"],
                         ignore_label=IGNORE_LABEL,
                         grid_extent=preset["grid_extent"])
-
-
-def to_device(batch: dict, device) -> dict:
-    """The model inputs of a collated numpy batch as tensors on ``device``."""
-    return {
-        "coordinates": torch.as_tensor(batch["coordinates"],
-                                       dtype=torch.float32, device=device),
-        "features": torch.as_tensor(batch["features"], dtype=torch.float32,
-                                    device=device),
-        "mask": torch.as_tensor(batch["mask"], dtype=torch.bool,
-                                device=device),
-        "labels": torch.as_tensor(batch["labels"], dtype=torch.int64,
-                                  device=device),
-    }
 
 
 def eval_step(model, batch: dict):

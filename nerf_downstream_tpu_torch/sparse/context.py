@@ -10,8 +10,18 @@ tensor, so every cache entry holds references to its key tensors: while
 the entry lives, its ids cannot be reused. A context lives for one forward
 pass.
 
-The window knobs are explicit constructor arguments (the reference binds
-them through gin); their meaning is documented on the reference class.
+The constructor takes the reference's arguments and is gin-configurable
+under the same name (``CoordinateContext.window_size = 128``); the meaning
+of each knob is documented on the reference class. ``method`` resolves as
+the reference's does: "auto" with a ``grid_extent``, or "hybrid", is the
+fully-windowed path, the only one ported. Every other resolution ("row",
+"search", "block", "block_resident", "window", or "auto" without an
+extent, which the reference runs on the row path) raises
+``NotImplementedError`` when a conv asks for its route (ROADMAP Queue 1
+item 3); nothing falls back quietly. ``block_cap_divisor`` and
+``block_caps`` configure only the unported block paths and are accepted
+for the configs' sake; ``overflow_guard = False`` turns off the level
+caps' NaN poisoning, as in the reference.
 The pruned-eval knobs (``eval3d --sparsify``): ``valid_offsets_map``
 {conv module path -> live offset tuple} is read by mode-1 convs;
 ``block_live_map`` {conv module path -> bool[K, nbi, nbo]} by every
@@ -25,6 +35,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from nerf_downstream_tpu_torch import config as cfg
 from nerf_downstream_tpu_torch.sparse import kernels
 from nerf_downstream_tpu_torch.sparse.types import SparseVoxels
 
@@ -33,23 +44,35 @@ def _level(stride: int) -> int:
     return max(0, int(round(float(np.log2(max(stride, 1))))))
 
 
+@cfg.configurable("CoordinateContext")
 class CoordinateContext:
     def __init__(
         self,
-        *,
+        num_batches: int = 1,
+        grid_extent: int | None = None,
+        method: str = "auto",
+        block_cap_divisor: float = 3,
+        block_caps: tuple | None = None,
+        overflow_guard: bool = True,
         window_tile: int = 256,
         window_size: int = 512,
         window_blocks: int = 2,
         window_escape_cap=None,
         window_escape_tiles=64,
         window_expand_factor: int = 2,
+        window_cross_blocks: int | None = None,
         level_caps: tuple | None = None,
-        num_batches: int = 1,
-        grid_extent: int | None = None,
+        level_cap_decay: float | None = None,
         valid_offsets_map: dict | None = None,
         block_live_map: dict | None = None,
         block_live_granularity: int = 128,
     ):
+        self.method = method
+        self.block_cap_divisor = block_cap_divisor
+        self.block_caps = block_caps
+        self.overflow_guard = overflow_guard
+        self.window_cross_blocks = window_cross_blocks
+        self.level_cap_decay = level_cap_decay
         self.window_tile = window_tile
         self.window_size = window_size
         self.window_blocks = window_blocks
@@ -68,6 +91,23 @@ class CoordinateContext:
         self._grids: dict = {}
         self._strided: dict = {}
         self._level_overflow: dict = {}
+
+    def use_window_full(self) -> bool:
+        """The reference's resolution of the fully-windowed path: "hybrid",
+        or "auto" with a configured grid extent."""
+        return self.method == "hybrid" or (
+            self.method == "auto" and self.grid_extent is not None)
+
+    def require_window_full(self) -> None:
+        """Raise unless ``method`` resolves to the fully-windowed path, the
+        only conv path the port has."""
+        if not self.use_window_full():
+            path = ("the row path (method 'auto' without a grid_extent)"
+                    if self.method == "auto" else f"method {self.method!r}")
+            raise NotImplementedError(
+                f"CoordinateContext resolves to {path}, which is not ported "
+                "(ROADMAP.md Queue 1 item 3); bind a grid_extent or "
+                "method = 'hybrid' for the fully-windowed path")
 
     @staticmethod
     def _get(cache: dict, key):
@@ -140,11 +180,12 @@ class CoordinateContext:
         plan = self._get(self._window_plans, key)
         if plan is not None:
             return plan
+        cross_blocks = self.window_cross_blocks or self.window_blocks
         if expanding:
             tile = max(32, self.window_tile // 2)
-            blocks = self.window_expand_factor * self.window_blocks
+            blocks = self.window_expand_factor * cross_blocks
         else:
-            tile, blocks = self.window_tile, self.window_blocks
+            tile, blocks = self.window_tile, cross_blocks
         plan = build_plan_direct(
             table_sv.coords, table_sv.mask, offsets,
             tile=tile, window=self.window_size, blocks=blocks,
@@ -161,24 +202,36 @@ class CoordinateContext:
         out = self._get(self._strided, key)
         if out is None:
             out, lost = kernels.stride_coords_capped(
-                sv, stride, self.level_cap(sv.stride * stride))
+                sv, stride,
+                self.level_cap(sv.stride * stride, sv.capacity, sv.stride))
             self._put(self._strided, key, (sv.coords,), out)
             self._put(self._level_overflow, id(out.coords), (out.coords,),
                       lost)
         return out
 
-    def level_cap(self, stride: int) -> int | None:
-        """Row capacity of the level at absolute tensor stride ``stride``
-        (``level_caps`` indexed by log2 of the stride), None = uncapped."""
-        if self.level_caps is None:
-            return None
-        return self._per_level(self.level_caps, stride)
+    def level_cap(self, stride: int, in_capacity: int | None = None,
+                  in_stride: int = 1) -> int | None:
+        """Row capacity of the level at absolute tensor stride ``stride``,
+        None = uncapped. Absolute ``level_caps`` (indexed by log2 of the
+        stride) win; else ``level_cap_decay`` scales the input level's
+        capacity ``in_capacity`` (at ``in_stride``) by the decay per
+        stride doubling, rounded up to a ``window_tile`` multiple and never
+        above ``in_capacity``."""
+        if self.level_caps is not None:
+            return self._per_level(self.level_caps, stride)
+        if self.level_cap_decay is not None and in_capacity is not None:
+            doublings = max(0, _level(stride) - _level(in_stride))
+            cap = int(in_capacity * self.level_cap_decay ** doublings)
+            tile = self.window_tile
+            cap = max(tile, ((cap + tile - 1) // tile) * tile)
+            return min(cap, in_capacity)
+        return None
 
     def level_poison(self, coords, feats):
         """NaN-poison ``feats`` if the level at ``coords`` lost valid rows
         to its cap (fail loud, never compute on a truncated level)."""
         lost = self._get(self._level_overflow, id(coords))
-        if lost is None:
+        if lost is None or not self.overflow_guard:
             return feats
         scale = torch.where(lost > 0, float("nan"), 1.0)
         return feats * scale.to(feats.dtype)

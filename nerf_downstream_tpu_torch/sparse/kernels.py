@@ -14,6 +14,7 @@ import itertools
 import numpy as np
 import torch
 
+from nerf_downstream_tpu_torch import config as cfg
 from nerf_downstream_tpu_torch.ops.consts import const
 from nerf_downstream_tpu_torch.sparse import packing
 from nerf_downstream_tpu_torch.sparse.types import PointField, SparseVoxels
@@ -193,6 +194,7 @@ def build_kernel_map(in_coords, in_mask, out_coords, out_mask, offsets,
     return rows.reshape(len(offsets), out_coords.shape[0])
 
 
+@cfg.configurable("field_to_sparse")
 def field_to_sparse(
     field: PointField, voxel_size: float = 1.0, assume_unique: bool = False
 ):

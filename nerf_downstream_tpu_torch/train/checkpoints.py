@@ -16,7 +16,11 @@ including flax's chunked form of arrays over 2^30 bytes.
 
 Trees are nested dicts of numpy arrays in the reference's layout
 (``convert.state_dict_to_flax`` / ``convert.load_flax_variables`` carry
-them to and from a model). A port checkpoint may also hold
+them to and from a model). A training state (``save_training_state``,
+``restore_into``) also carries ``global_step`` and the optimizer state in
+the layout of the reference's optax chain (``sgd_state_to_optax``,
+``sgd_state_from_optax``), so a checkpoint written by either package
+resumes in the other. A port checkpoint may also hold
 ``pruning_masks``: {"path/to/kernel": bool array}, folded into the
 weights on load by ``utils.prune.fold_pruning_masks``.
 """
@@ -27,6 +31,9 @@ import os
 import struct
 
 import numpy as np
+import torch
+
+from nerf_downstream_tpu_torch import convert
 
 _EXT_NDARRAY = 1
 _EXT_NPSCALAR = 3
@@ -259,3 +266,91 @@ def load_checkpoint(path: str) -> dict:
         "global_step": obj.get("global_step", 0),
         "pruning_masks": obj.get("pruning_masks", {}),
     }
+
+
+# -- training states ---------------------------------------------------------
+
+
+def _sgd_hyper(optimizer) -> tuple[float, float, bool]:
+    if not isinstance(optimizer, torch.optim.SGD):
+        raise NotImplementedError(
+            f"optimizer state of {type(optimizer).__name__} has no optax "
+            "layout in the port (SGD only; ROADMAP.md Queue 1 item 1)")
+    g = optimizer.param_groups[0]
+    return float(g["weight_decay"]), float(g["momentum"]), bool(g["nesterov"])
+
+
+def _optax_chain(weight_decay: float, inner: dict) -> dict:
+    # optax.sgd = chain(trace or identity, scale_by_learning_rate); with
+    # decay the reference chains add_decayed_weights (no state) before it
+    return {"0": {}, "1": inner} if weight_decay else inner
+
+
+def sgd_state_to_optax(model, optimizer, step: int,
+                       scheduled: bool) -> dict:
+    """The reference's optax state of ``optimizer`` (torch SGD): the
+    momentum trace (torch's ``momentum_buffer``, zeros before the first
+    step, as optax initialises it) in the params tree's layout, and the
+    schedule's update count (``step``) when the lr is ``scheduled``."""
+    wd, momentum, _ = _sgd_hyper(optimizer)
+    inner = {"0": {}, "1": {}}
+    if momentum:
+        bufs = {}
+        for name, p in model.named_parameters():
+            buf = optimizer.state.get(p, {}).get("momentum_buffer")
+            bufs[name] = torch.zeros_like(p) if buf is None else buf
+        inner["0"] = {"trace": convert.state_dict_to_flax(bufs)["params"]}
+    if scheduled:
+        inner["1"] = {"count": np.asarray(step, np.int32)}
+    return _optax_chain(wd, inner)
+
+
+def sgd_state_from_optax(raw: dict, model, optimizer) -> None:
+    """Load the reference's optax SGD state ``raw`` into ``optimizer``:
+    the momentum trace becomes each parameter's ``momentum_buffer``. The
+    schedule's count is the training state's step (``global_step``)."""
+    wd, momentum, _ = _sgd_hyper(optimizer)
+    inner = raw.get("1", {}) if wd else raw
+    trace = inner.get("0", {}).get("trace") if isinstance(inner, dict) \
+        else None
+    if momentum and not trace:
+        raise ValueError("checkpoint optimizer state has no momentum trace "
+                         "for an SGD with momentum")
+    if not momentum:
+        return
+    bufs = convert.flax_to_state_dict(model, trace)
+    for name, p in model.named_parameters():
+        optimizer.state[p]["momentum_buffer"] = bufs[name].to(
+            device=p.device, dtype=p.dtype).clone()
+
+
+def save_training_state(path: str, state, meta: dict | None = None) -> None:
+    """Write ``state`` (``train.state.TrainState``) in the reference's
+    layout: params and batch_stats, the optax optimizer state and
+    ``global_step``."""
+    tree = convert.state_dict_to_flax(state.model.state_dict())
+    save_checkpoint(
+        path, tree.get("params", {}), tree.get("batch_stats", {}),
+        opt_state=sgd_state_to_optax(state.model, state.optimizer,
+                                     state.step, state.schedule is not None),
+        global_step=state.step, meta=meta)
+
+
+def restore_into(state, raw: dict, *, weights: bool = True,
+                 optimizer: bool = False):
+    """Bind a loaded checkpoint (``load_checkpoint``) onto ``state`` in
+    place: the weights (params and batch_stats) and, with ``optimizer``,
+    the optimizer state. The step is the caller's to restore (the
+    reference's Trainer sets it from ``global_step``)."""
+    if weights:
+        full = bool(raw.get("batch_stats"))
+        sd = convert.flax_to_state_dict(
+            state.model,
+            {"params": raw["params"], "batch_stats": raw["batch_stats"]}
+            if full else raw["params"])
+        dev = next(state.model.parameters()).device
+        state.model.load_state_dict({k: v.to(dev) for k, v in sd.items()},
+                                    strict=full)
+    if optimizer and raw.get("opt_state"):
+        sgd_state_from_optax(raw["opt_state"], state.model, state.optimizer)
+    return state

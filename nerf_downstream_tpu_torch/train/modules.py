@@ -1,16 +1,50 @@
-"""Segmentation loss, step metrics and the training step (counterpart of
-``nerf_downstream_tpu/train/modules.py::SegmentationTraining``)."""
+"""Segmentation loss, step metrics, the training and eval steps and the
+validation hooks (counterpart of ``nerf_downstream_tpu/train/modules.py``:
+``BaseTask`` and ``SegmentationTraining``).
+
+A training step is reproducible on the card: every accumulating scatter
+of the step adds in a fixed order (the escape path and the row path
+accumulate with a sorting ``index_put_``, as PyTorch differentiates the
+gathers; the kernels add their f32 partial sums in a fixed order), so two
+steps from the same state are bit-identical.
+"""
 
 from __future__ import annotations
 
+import json
+import logging
+import os
+
+import numpy as np
 import torch
 from torch.nn import functional as F
 
+from nerf_downstream_tpu_torch import config as cfg
 from nerf_downstream_tpu_torch.data import device_transforms as DT
 from nerf_downstream_tpu_torch.sparse.types import PointField
 from nerf_downstream_tpu_torch.train import metrics as M
 from nerf_downstream_tpu_torch.train.optim import get_optimizer, get_scheduler
 from nerf_downstream_tpu_torch.train.state import TrainState
+
+
+def init_variables(model: torch.nn.Module, seed: int) -> torch.nn.Module:
+    """A fresh model's weights, in place, with the reference's
+    distributions drawn from a ``torch.Generator`` seeded by ``seed``:
+    conv kernels He-normal over fan-in K * Cin, biases 0, BatchNorm scale
+    1, bias 0, running mean 0 and variance 1."""
+    gen = torch.Generator().manual_seed(int(seed))
+    with torch.no_grad():
+        for name, t in model.state_dict(keep_vars=True).items():
+            leaf = name.rsplit(".", 1)[-1]
+            if leaf == "kernel":
+                k, cin, _ = t.shape
+                w = torch.randn(t.shape, generator=gen) * (2.0 / (k * cin)) ** 0.5
+                t.copy_(w.to(t.dtype))
+            elif leaf in ("weight", "running_var"):
+                t.fill_(1.0)
+            elif leaf in ("bias", "running_mean"):
+                t.zero_()
+    return model
 
 
 def weighted_ce(logits, labels, valid, class_weight):
@@ -56,16 +90,24 @@ def loss_and_metrics(logits, labels, mask, num_labels: int,
 class SegmentationTraining:
     """Per-point segmentation training: the reference task's constructor
     arguments, its weighted CE with ``class_weight`` and ``void_weight``
-    (the void class is the last one), and its step.
+    (the void class is the last one), its steps and validation hooks.
 
     ``train_step`` runs the device augmentation (``device_transforms``,
     drawn from a generator seeded from the step count), the forward in
     train mode, the loss, the backward and the optimizer step with the lr
-    of the schedule at the step count before the update. ``transform_params``
-    overrides the transforms' defaults by name; ``num_scenes`` is the
-    batch's scene count (ElasticDistortion needs it); ``scheduler_kwargs``
+    of the schedule at the step count before the update.
+    ``transform_params`` overrides the
+    transforms' defaults by name (None: the gin bindings of their host
+    twins); ``num_scenes`` is the batch's scene count (ElasticDistortion
+    needs it; default the model's ``num_batches``); ``scheduler_kwargs``
     carries what the reference reads from its configuration (for example
-    ``max_steps``).
+    ``max_steps``; filled from the configuration when left out).
+
+    ``checkpoint_path`` with ``load_weights`` / ``load_optimizers`` loads a
+    checkpoint into the state ``create_state`` makes (the reference's
+    three load modes but ``transfer_self_supervised``, which is not
+    ported). ``axis_name`` (data parallelism) is not ported and raises
+    (ROADMAP.md Queue 1 item 4); ``use_sync_grad`` is moot on one device.
     """
 
     def __init__(self, model, optimizer_name: str = "SGD",
@@ -74,7 +116,26 @@ class SegmentationTraining:
                  ignore_label: int = -100, void_weight: float | None = None,
                  device_transforms=(), transform_params: dict | None = None,
                  num_scenes: int | None = None,
-                 scheduler_kwargs: dict | None = None):
+                 scheduler_kwargs: dict | None = None,
+                 log_every_n_steps: int = 10,
+                 reset_profiler_every_n_steps: int = 1000,
+                 load_weights: bool = False, load_optimizers: bool = False,
+                 transfer_self_supervised: bool = False,
+                 checkpoint_path: str | None = None,
+                 export_path: str | None = None, debug: bool = False,
+                 use_sync_grad: bool = False, datamodule=None,
+                 scheduler_interval: str = "step", save_pred: bool = False,
+                 save_pred_path: str | None = None, axis_name=None):
+        if axis_name is not None:
+            raise NotImplementedError(
+                "data-parallel training (axis_name) is not ported "
+                "(ROADMAP.md Queue 1 item 4)")
+        if transfer_self_supervised:
+            raise NotImplementedError(
+                "transfer_self_supervised is not ported (ROADMAP.md Queue 1 "
+                "item 1)")
+        if load_weights or load_optimizers:
+            assert checkpoint_path is not None
         self.model = model
         self.optimizer_name = optimizer_name
         self.scheduler_name = scheduler_name
@@ -84,23 +145,74 @@ class SegmentationTraining:
         self.ignore_label = ignore_label
         self.void_weight = void_weight
         self.scheduler_kwargs = dict(scheduler_kwargs or {})
-        self.num_labels = model.out_channel
+        self.log_every_n_steps = log_every_n_steps
+        self.reset_profiler_every_n_steps = reset_profiler_every_n_steps
+        self.load_weights = load_weights
+        self.load_optimizers = load_optimizers
+        self.checkpoint_path = checkpoint_path
+        self.export_path = export_path
+        self.debug = debug
+        self.use_sync_grad = use_sync_grad
+        self.datamodule = datamodule
+        self.scheduler_interval = scheduler_interval
+        self.save_pred = save_pred
+        self.save_pred_path = save_pred_path
+        self.num_labels = cfg.query_parameter("get_model.out_channel",
+                                              default=model.out_channel)
+        self.void_label = cfg.query_parameter(
+            "PlenoxelScannetDataset.void_label", default=None)
         w = torch.ones(self.num_labels)
         if void_weight is not None and void_weight > 0:
             w[-1] = void_weight
         self.class_weight = w
+        if transform_params is None:
+            transform_params = DT.configured_params(tuple(device_transforms))
+        if num_scenes is None:
+            num_scenes = getattr(model, "num_batches", None)
         self.device_aug = DT.build(device_transforms, num_scenes,
                                    transform_params)
+        self.schedule = get_scheduler(
+            scheduler_name, lr, warmup_steps if warmup_steps > 0 else None,
+            **self.scheduler_kwargs)
+        self.iou_state = M.IoUMeterState.create(self.num_labels)
+        self.best_miou = -1.0
+        self._val_batch_idx = 0
+
+    # -- optimizer / state ---------------------------------------------------
 
     def create_state(self) -> TrainState:
+        """A fresh optimizer and schedule over the model, and the
+        configured checkpoint loaded into them."""
         opt = get_optimizer(self.optimizer_name, self.model.parameters(),
                             self.lr, self.weight_decay)
-        schedule = get_scheduler(
-            self.scheduler_name, self.lr,
-            self.warmup_steps if self.warmup_steps > 0 else None,
-            **self.scheduler_kwargs)
-        return TrainState(step=0, model=self.model, optimizer=opt,
-                          schedule=schedule)
+        state = TrainState(step=0, model=self.model, optimizer=opt,
+                           schedule=self.schedule)
+        return self._maybe_load_checkpoint(state)
+
+    def _maybe_load_checkpoint(self, state: TrainState) -> TrainState:
+        if self.checkpoint_path is None:
+            return state
+        from nerf_downstream_tpu_torch.train import checkpoints
+
+        ckpt = checkpoints.load_checkpoint(self.checkpoint_path)
+        if self.load_weights:
+            checkpoints.restore_into(state, ckpt, weights=True)
+            logging.info(f"Loaded model weights from {self.checkpoint_path}")
+        if self.load_optimizers:
+            # the schedule restarts from the new run's lr, as the
+            # reference's does
+            checkpoints.restore_into(state, ckpt, weights=False,
+                                     optimizer=True)
+            logging.info(
+                f"Loaded optimizer parameters from {self.checkpoint_path}")
+        return state
+
+    def current_lr(self, step: int) -> float:
+        if self.schedule is None:
+            return float(self.lr)
+        return float(self.schedule(step))
+
+    # -- steps ---------------------------------------------------------------
 
     def loss_and_metrics(self, logits, batch):
         return loss_and_metrics(
@@ -136,3 +248,106 @@ class SegmentationTraining:
         return state, {"loss": loss.detach(), "OA": mets["OA"],
                        "mIoU": mets["mIoU"],
                        "ignore_ratio": mets["ignore_ratio"]}
+
+    def eval_step(self, state: TrainState, batch: dict):
+        """(logits, {"loss", "OA", "mIoU", "ignore_ratio"}) of the model in
+        eval mode on a batch of tensors on its device."""
+        model = state.model.eval()
+        with torch.no_grad():
+            field = PointField(coords=batch["coordinates"],
+                               feats=batch["features"], mask=batch["mask"])
+            logits = model(field)
+            loss, mets = self.loss_and_metrics(logits, batch)
+        return logits, {"loss": loss, "OA": mets["OA"], "mIoU": mets["mIoU"],
+                        "ignore_ratio": mets["ignore_ratio"]}
+
+    # -- validation hooks (the Trainer calls these) --------------------------
+
+    def on_validation_start(self):
+        self.iou_state = M.IoUMeterState.create(self.num_labels)
+        self._val_batch_idx = 0
+
+    def validation_batch_end(self, logits, batch):
+        labels = batch["labels"].to(torch.int64)
+        valid = batch["mask"] & (labels != self.ignore_label)
+        pred = logits.argmax(-1)
+        self.iou_state = M.iou_update(
+            self.iou_state, pred.cpu(), labels.cpu(), valid.cpu(),
+            self.num_labels)
+        # prediction dumping every 2nd batch (the reference's)
+        if self.save_pred and self._val_batch_idx % 2 == 0:
+            assert self.save_pred_path is not None
+            os.makedirs(self.save_pred_path, exist_ok=True)
+            meta = batch.get("metadata", [{}])
+            inst = meta[0].get("file", f"batch{self._val_batch_idx}")
+            dists = batch.get("dists")
+            np.savez(
+                os.path.join(self.save_pred_path, f"{inst}.npz"),
+                coordinates=batch["coordinates"].cpu().numpy(),
+                logits=logits.float().cpu().numpy(),
+                dists=(np.zeros(0) if dists is None
+                       else np.asarray(dists.cpu() if torch.is_tensor(dists)
+                                       else dists)),
+                labels=labels.cpu().numpy(),
+            )
+            logging.info(f"saved prediction for {inst}")
+        self._val_batch_idx += 1
+
+    def validation_epoch_end(self, step_results, root_dir):
+        """val/{OA, loss, mIoU, mAcc, best_mIoU}, the per-class IoU and
+        accuracy tables printed, and ``eval_results.json`` in
+        ``root_dir``."""
+        from nerf_downstream_tpu_torch.data.scannet import CLASS_LABELS
+
+        assert len(step_results) > 0
+        out = {}
+        for k in ["OA", "loss", "iter_time", "flops"]:
+            vals = [r[k] for r in step_results if k in r]
+            if vals:
+                out[f"val/{k}"] = float(np.mean(vals))
+        res = M.iou_compute(self.iou_state, void_label=self.void_label)
+        labels = list(CLASS_LABELS[: self.num_labels])
+        while len(labels) < self.num_labels:
+            labels.append(f"class{len(labels)}")
+        argsort = np.argsort(labels)
+        class_labels = np.array(labels)[argsort]
+        ious = res["iou_per_class"][argsort] * 100
+        accs = res["acc_per_class"][argsort] * 100
+        print(" & ".join(class_labels))
+        print(" & ".join(f"{i:.1f}" for i in ious))
+        print(" & ".join(class_labels))
+        print(" & ".join(f"{a:.1f}" for a in accs))
+        print(f"miou: {res['mIoU']}")
+        print(f"macc: {res['mAcc']}")
+        result_dict = dict(
+            labels=class_labels.tolist(),
+            iou=[*ious.tolist(), res["mIoU"]],
+            acc=[*accs.tolist(), res["mAcc"]],
+        )
+        if root_dir:
+            with open(os.path.join(root_dir, "eval_results.json"), "w") as f:
+                json.dump(result_dict, f)
+        out["val/mIoU"] = res["mIoU"] * 100
+        out["val/mAcc"] = res["mAcc"] * 100
+        if out["val/mIoU"] > self.best_miou:
+            self.best_miou = out["val/mIoU"]
+        out["val/best_mIoU"] = self.best_miou
+        return out
+
+
+MODULES = {"SegmentationTraining": SegmentationTraining}
+
+
+def get_training_module(name: str):
+    """The task class of ``name`` (the reference's table; the
+    ExceptionSafe variant is the standard one, as there). Classification
+    and the ensemble task are not ported (ROADMAP.md Queue 1 item 3)."""
+    if name == "ExceptionSafeSegmentationTraining":
+        name = "SegmentationTraining"
+    if name in ("ClassificationTraining", "EnsembleClassificationTraining"):
+        raise NotImplementedError(
+            f"training module {name!r} is not ported (ROADMAP.md Queue 1 "
+            "item 3)")
+    if name not in MODULES:
+        raise ValueError(f"unknown training module {name!r}")
+    return MODULES[name]

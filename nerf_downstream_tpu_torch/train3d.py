@@ -64,7 +64,7 @@ PRESETS = {
     "train_64k": dict(
         scenes=8, capacity=65536, grid_extent=160, assume_unique=False,
         ctx=dict(
-            level_caps=(65536, 14848, 3584, 1024, 512),
+            method="hybrid", level_caps=(65536, 14848, 3584, 1024, 512),
             window_tile=256, window_size=128, window_blocks=4,
             window_expand_factor=3,
             window_escape_cap=(8192, 2048, 512, 512, 0),
@@ -76,7 +76,7 @@ PRESETS = {
     "train_8k": dict(
         scenes=1, capacity=8192, grid_extent=160, assume_unique=False,
         ctx=dict(
-            level_caps=(8192, 2048, 512, 256, 256),
+            method="hybrid", level_caps=(8192, 2048, 512, 256, 256),
             window_tile=256, window_size=128, window_blocks=4,
             window_expand_factor=3,
             window_escape_cap=(1024, 256, 64, 0, 0),

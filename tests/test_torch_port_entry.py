@@ -44,7 +44,11 @@ print(len(names), bad, ",".join(names))
 
 # modules of the training slice the import guard must reach
 TRAIN_MODULES = ("ops.kernels.bwd", "ops.kernels.dw", "train.optim",
-                 "train.state", "data.device_transforms", "train3d")
+                 "train.state", "data.device_transforms", "train3d",
+                 "config.engine", "data.transforms", "data.scannet",
+                 "data.plenoxel", "data.utils", "data.data_module",
+                 "train.loop", "train.loggers", "train.profilers",
+                 "utils.meters", "co3d_3d.train")
 
 
 def test_port_imports_no_jax():
@@ -113,7 +117,7 @@ def test_train_entry_refuses_cpu_fallback():
 
 def _bench_knobs(text: str) -> dict:
     return {k: eval(v) for k, v in re.findall(
-        r"CoordinateContext\.(\w+) = ([^\\\n\"]+)", text)}
+        r"CoordinateContext\.(\w+) = (\"[^\"]*\"|[^\\\n\"]+)", text)}
 
 
 def test_presets_carry_the_benchmark_knobs():
@@ -132,7 +136,7 @@ def test_presets_carry_the_benchmark_knobs():
         assert preset["assume_unique"]
         assert preset["grid_extent"] == 128
     assert set(serve.PRESETS["eval_64k"]["ctx"]) == set(evalk) - {
-        "grid_extent", "method"}
+        "grid_extent"}
     assert (serve.PRESETS["eval_64k"]["scenes"],
             serve.PRESETS["eval_64k"]["capacity"]) == (bench.SCENES,
                                                        bench.CAPACITY)
@@ -258,7 +262,7 @@ def test_train_preset_carries_the_benchmark_knobs():
     preset = train3d.PRESETS["train_64k"]
     for k, v in preset["ctx"].items():
         assert ref[k] == v, k
-    assert set(preset["ctx"]) == set(ref) - {"grid_extent", "method"}
+    assert set(preset["ctx"]) == set(ref) - {"grid_extent"}
     assert preset["grid_extent"] == ref["grid_extent"]
     assert "field_to_sparse.assume_unique = False" in bench.BLOCK_BINDINGS
     assert not preset["assume_unique"]

@@ -30,6 +30,7 @@ from nerf_downstream_tpu_torch.models import get_model  # noqa: E402
 
 CLASSES = 20
 KNOBS = dict(
+    method="hybrid",
     level_caps=(1024, 512, 256, 128, 64),
     window_tile=64, window_size=32, window_blocks=2,
     window_expand_factor=3,

@@ -182,7 +182,8 @@ def test_context_plan_cache_matches_reference(rng, jax_mode):
     from nerf_downstream_tpu_torch.sparse.types import SparseVoxels as TSV
 
     coords, mask = sorted_level(rng)
-    knobs = dict(window_tile=32, window_size=16, window_blocks=2,
+    knobs = dict(method="hybrid", window_tile=32, window_size=16,
+                 window_blocks=2,
                  window_escape_cap=(4096, 0), window_escape_tiles=(72, 2),
                  window_expand_factor=3, level_caps=(256, 128))
     offs = tk.kernel_offsets(3, 1)
@@ -219,7 +220,7 @@ def test_plan_cache_holds_its_keys():
 
     from nerf_downstream_tpu_torch.sparse.context import CoordinateContext
 
-    ctx = CoordinateContext(window_tile=64, window_size=32)
+    ctx = CoordinateContext(method="hybrid", window_tile=64, window_size=32)
     coords = torch.zeros(64, 4, dtype=torch.int32)
     coords[:, 3] = torch.arange(64)
     mask = torch.ones(64, dtype=torch.bool)

@@ -209,7 +209,8 @@ def test_subset_plans_match_reference(rng, monkeypatch, subset):
             assert_plans_equal(derived, ref_derived)
     # the context's plan cache keys padded sets by their bytes, duplicates
     # included; the transpose of a padded set is matched afresh
-    ctx = CoordinateContext(window_tile=32, window_size=16, window_blocks=2,
+    ctx = CoordinateContext(method="hybrid", window_tile=32, window_size=16,
+                            window_blocks=2,
                             window_escape_cap=2048, window_escape_tiles=16)
     c_t, m_t = torch.as_tensor(coords), torch.as_tensor(mask)
     fwd = ctx.window_plan_direct(c_t, m_t, offs)
@@ -276,7 +277,7 @@ def test_blocksparse_conv_keeps_its_inputs(rng):
     feats = torch.as_tensor(rng.normal(size=(512, 8)).astype(np.float32))
     live = rng.random((27, 2, 2)) < 0.5
     live[13] = True
-    ctx = CoordinateContext(window_tile=64, window_size=128,
+    ctx = CoordinateContext(method="hybrid", window_tile=64, window_size=128,
                             window_blocks=2, block_live_map={"c": live},
                             block_live_granularity=4)
     sv = SparseVoxels(coords=torch.as_tensor(coords), feats=feats,
@@ -321,7 +322,8 @@ def test_asymmetric_subset_poisons(rng, monkeypatch):
         conv = SparseConv(4, 5, 3, 1, valid_offsets=valid)
         conv.kernel.data = torch.as_tensor(w)
         with torch.no_grad():
-            got = conv(sv, CoordinateContext(**knobs)).feats.numpy()[mask]
+            got = conv(sv, CoordinateContext(method="hybrid",
+                                             **knobs)).feats.numpy()[mask]
         jconv = JSparseConv(5, 3, 1, valid_offsets=valid)
         ref = np.asarray(jax.jit(lambda v, x: jconv.apply(
             v, x, JContext(method="hybrid", **knobs)).feats)(

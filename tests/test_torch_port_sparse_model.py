@@ -32,7 +32,8 @@ from nerf_downstream_tpu_torch.utils import prune as tprune  # noqa: E402
 
 CLASSES = 20
 # tight windows with escape lists at every level (symmetric sets only)
-TIGHT = dict(level_caps=(1024, 512, 256, 128, 64), window_tile=64,
+TIGHT = dict(method="hybrid", level_caps=(1024, 512, 256, 128, 64),
+             window_tile=64,
              window_size=32, window_blocks=2, window_expand_factor=3,
              window_escape_cap=(8192, 2048, 256, 0, 0),
              window_escape_tiles=(144, 72, 36, 2, 2))
