@@ -3,11 +3,12 @@
 
     python3 chip_smoke.py
 
-Drives the port's four main paths on the card at full width:
+Drives the port's five main paths on the card at full width:
 Res16UNet18A sparse-voxel serving (``nerf_downstream_tpu_torch.serve``),
 its training step (``nerf_downstream_tpu_torch.train3d``), the training
-CLI on the flagship configs (``nerf_downstream_tpu_torch.co3d_3d.train``)
-and the evaluation of pruned checkpoints
+CLI on the flagship segmentation configs and on the README's
+classification command (``nerf_downstream_tpu_torch.co3d_3d.train``,
+ResNet14 with auto-calibration) and the evaluation of pruned checkpoints
 (``nerf_downstream_tpu_torch.eval3d``),
 with the hand-written CUDA kernels K1 ``window_match``, K2
 ``window_gather_matmul`` (forward), K3 ``window_bwd`` and K4
@@ -90,6 +91,21 @@ paths give it. Phases:
    then for one more step its synchronising calls, device time and ops
    (profile), and each K1-K4 call held against its plain version and
    timed, with its bound (f32, CUDA cores);
+9c. cli_cls: the README's classification command (``co3d_cls.gin`` +
+   ``co3d_aug3.gin`` + ``feature_sh.gin`` + ``resnet14.gin``: ResNet14
+   at full width, 51 classes, batch 16, val batch 8, f32) over a
+   synthetic PeRFception-CO3D tree the port writes (``CLS_TREE``: 32
+   train and 8 val shells of 10,000 voxels at 128^3): the CLI
+   auto-calibrates its capacity knobs on the card (timed), 6 steps with
+   one validation pass, then ``--resume`` to 8 with those knobs pinned,
+   launch counts reset before and read after; finite losses, ``val/acc1``
+   logged, the checkpoints and logs, the resume bit-equal in the momentum
+   buffers, every conv in f32, K1, the pass, K2, K3 and K6 launched.
+   Then for one more step: its synchronising calls, a profile, its K1-K3
+   calls against their plain versions in f32, every K6 call (the four
+   k3/s2 convs on the row path) and every K2 and K3 call at 512 channels
+   against their plain versions in f32 and, at the same shapes, in bf16
+   (rtol 1e-5 and 2^-8 of the f32 sum), each timed beside its bound;
 10. sparse_eval: ``eval3d`` at ``eval_64k`` (bf16, 3 batches) over
     checkpoints this phase writes with the port's ``save_checkpoint`` from
     seeded weights: dense; ZAXIS (``--sparsify``, mode 2); mode 1 with
@@ -130,7 +146,8 @@ paths give it. Phases:
 
 On the bf16 main paths (``serve``, ``train``, ``sparse_eval``) every
 K2, K3, K4, K5 and K6 launch must run on the tensor cores; ``cli_train``
-computes in f32 by its configuration, and its line says so. The input type
+and ``cli_cls`` compute in f32 by their configurations, and their lines
+say so. The input type
 is the only switch (``tc.gather_choice``, ``tc.dw_choice``,
 ``tc.row_choice``) and every conv casts its inputs to its compute type, so
 each phase fails unless every conv of its model computes in bf16, and
@@ -1571,7 +1588,8 @@ class CliProbe:
     wall time, and the momentum buffers the first step of a resumed run
     starts from against ``resume_trace`` (the checkpoint's)."""
 
-    def __init__(self):
+    def __init__(self, task_name: str = "SegmentationTraining"):
+        self.task_name = task_name
         self.steps: list[tuple[int, float]] = []
         self.rows: list[int] = []
         self.val_ms: list[float] = []
@@ -1587,7 +1605,8 @@ class CliProbe:
         from nerf_downstream_tpu_torch.train import loop, modules
 
         probe = self
-        task_cls = modules.SegmentationTraining
+        task_cls = getattr(modules, self.task_name)
+        self._own_step = "train_step" in vars(task_cls)
         self._saved = (task_cls.train_step, loop.Trainer.validate,
                        cli.SumProfiler)
         step_fn, validate, prof_cls = self._saved
@@ -1634,17 +1653,33 @@ class CliProbe:
         from nerf_downstream_tpu_torch.co3d_3d import train as cli
         from nerf_downstream_tpu_torch.train import loop, modules
 
-        (modules.SegmentationTraining.train_step, loop.Trainer.validate,
-         cli.SumProfiler) = self._saved
+        task_cls = getattr(modules, self.task_name)
+        step_fn, loop.Trainer.validate, cli.SumProfiler = self._saved
+        if self._own_step:
+            task_cls.train_step = step_fn
+        else:  # the step is inherited: drop the wrapper
+            del task_cls.train_step
         return False
 
 
-def cli_kernels_f32(rec) -> dict:
+def _finite_nonzero(where: str, name: str, ts) -> None:
+    """Raise unless every tensor is finite and some entry is non-zero (a
+    comparison on such inputs would hold nothing)."""
+    import torch
+
+    if not all(bool(torch.isfinite(t).all()) for t in ts):
+        raise PhaseError(f"{where}: non-finite {name} inputs")
+    if not any(bool((t != 0).any()) for t in ts):
+        raise PhaseError(f"{where}: all-zero {name} inputs")
+
+
+def cli_kernels_f32(rec, where: str = "cli_train") -> dict:
     """Every K1, pass, K2, K3 and K4 call of one recorded f32 step of the
     CLI path against its plain version (K1 and the pass equal; K2 and
     K3's d_feats within 1e-5 x max + 1e-5 relative, d_w within 1e-5 of
     each (g, m)'s largest), and its device ms, plain ms and bound summed
-    over the step, with its core."""
+    over the step, with its core. A kernel the step does not call gets a
+    row of zero calls."""
     import torch
 
     from nerf_downstream_tpu_torch.ops.kernels import (
@@ -1664,17 +1699,15 @@ def cli_kernels_f32(rec) -> dict:
     f32 = torch.float32
     for args in rec.k2 + rec.k4:
         if args[0].dtype != f32:
-            raise PhaseError("cli_train: a K2 or K4 call without f32 inputs")
+            raise PhaseError(f"{where}: a K2 or K4 call without f32 inputs")
     if any(c3["g_out"].dtype != f32 for c3 in rec.k3):
-        raise PhaseError("cli_train: a K3 call without f32 inputs")
+        raise PhaseError(f"{where}: a K3 call without f32 inputs")
     # a comparison on non-finite or all-zero inputs would hold nothing
     for name, ts in (("K2", [a[0] for a in rec.k2]),
                      ("K3", [c["g_out"] for c in rec.k3]),
                      ("K4", [a[3] for a in rec.k4])):
-        if not all(bool(torch.isfinite(t).all()) for t in ts):
-            raise PhaseError(f"cli_train: non-finite {name} inputs")
-        if not any(bool((t != 0).any()) for t in ts):
-            raise PhaseError(f"cli_train: all-zero {name} inputs")
+        if ts:
+            _finite_nonzero(where, name, ts)
     out = {}
 
     def tally(name, calls, run, plain, work, check):
@@ -1683,7 +1716,7 @@ def cli_kernels_f32(rec) -> dict:
         for args in calls:
             err = check(args)
             if not err == err:  # NaN
-                raise PhaseError(f"cli_train: {name} gave NaN against its "
+                raise PhaseError(f"{where}: {name} gave NaN against its "
                                  "plain version")
             row["worst_err"] = max(row["worst_err"], err)
             row["ms"] += device_ms(lambda: run(args))
@@ -1698,7 +1731,7 @@ def cli_kernels_f32(rec) -> dict:
             got = got if isinstance(got, tuple) else (got,)
             want = want if isinstance(want, tuple) else (want,)
             if not all(torch.equal(x, y) for x, y in zip(got, want)):
-                raise PhaseError(f"cli_train: {fn.__name__} differs from "
+                raise PhaseError(f"{where}: {fn.__name__} differs from "
                                  "its plain version")
             return 0.0
         return check
@@ -1715,7 +1748,7 @@ def cli_kernels_f32(rec) -> dict:
     def k2_check(a):
         got, want = window_gather_matmul(*a), window_gather_matmul_plain(*a)
         if dfeats_bad(got, want, f32):
-            raise PhaseError("cli_train: K2 (f32) off its plain version")
+            raise PhaseError(f"{where}: K2 (f32) off its plain version")
         return float((got - want).abs().max())
 
     tally("window_gather_matmul", rec.k2, lambda a: window_gather_matmul(*a),
@@ -1731,7 +1764,7 @@ def cli_kernels_f32(rec) -> dict:
                                             window_bwd_plain(*k3_args(c3)))
         rel, _ = dw_err(got_w, want_w)
         if dfeats_bad(got_f, want_f, f32) or rel > DW_TOL:
-            raise PhaseError("cli_train: K3 (f32) off its plain version")
+            raise PhaseError(f"{where}: K3 (f32) off its plain version")
         return rel
 
     tally("window_bwd", rec.k3, lambda c3: window_bwd(*k3_args(c3)),
@@ -1741,7 +1774,7 @@ def cli_kernels_f32(rec) -> dict:
     def k4_check(a):
         rel, _ = dw_err(window_dw(*a), window_dw_plain(*a))
         if rel > DW_TOL:
-            raise PhaseError("cli_train: K4 (f32) off its plain version")
+            raise PhaseError(f"{where}: K4 (f32) off its plain version")
         return rel
 
     tally("window_dw", rec.k4, lambda a: window_dw(*a),
@@ -1754,6 +1787,62 @@ def cli_kernels_f32(rec) -> dict:
     for name in ("window_gather_matmul", "window_bwd", "window_dw"):
         out[name]["dtype"] = "float32"
     return out
+
+
+def cli_extra_steps(where: str, line: dict, task, state, batch, dm,
+                    recorder_cls, host_batches: int):
+    """More steps of a CLI path's task, written into ``line``: host ms
+    per batch of ``dm`` on one worker (``host_batches`` batches after a
+    first), one step's synchronising calls, a profile of one step (device
+    time, busy share against the run's median step, device ops, the
+    largest device kernels), and one step under ``recorder_cls``, which is
+    returned. Fails on a non-finite loss of these steps or a profile
+    without device time."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    it = dm.train_batches()
+    next(it)
+    t0 = time.perf_counter()
+    for _ in range(host_batches):
+        next(it)
+    line["host_ms_per_batch_one_worker"] = (
+        (time.perf_counter() - t0) * 1e3 / host_batches)
+
+    extra_losses = []  # read after the timed and counted steps
+
+    def step() -> None:
+        nonlocal state
+        state, mets = task.train_step(state, batch)
+        extra_losses.append(mets["loss"].detach())
+
+    line["sync"] = sync_count(where, step)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as p:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        wall_profiled = (time.perf_counter() - t0) * 1e3
+    rows = device_rows(p, 1)
+    device = sum(r[0] for r in rows)
+    if device <= 0:
+        raise PhaseError(f"{where}: the profiler saw no device time")
+    line["profile"] = {
+        "wall_ms_per_step_profiled": wall_profiled,
+        "device_ms_per_step": device,
+        "device_busy_share": device / line["ms_median_after_first"],
+        "device_ops_per_step": sum(r[1] for r in rows),
+        "top_device": [{"name": k[:90], "per_step": c, "ms": m}
+                       for m, c, k in rows[:12]]}
+    with recorder_cls() as rec:
+        step()
+    line["extra_step_losses"] = [float(v) for v in extra_losses]
+    if not np.isfinite(line["extra_step_losses"]).all():
+        raise PhaseError(f"{where}: non-finite loss in the extra steps: "
+                         f"{line['extra_step_losses']}")
+    return rec
 
 
 def phase_cli_train(card: str, device: str = "cuda",
@@ -1781,7 +1870,6 @@ def phase_cli_train(card: str, device: str = "cuda",
 
     import numpy as np
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     from nerf_downstream_tpu_torch import config as gin
     from nerf_downstream_tpu_torch import convert
@@ -1886,55 +1974,382 @@ def phase_cli_train(card: str, device: str = "cuda",
         if not ok:
             raise PhaseError(f"cli_train: {line}")
 
-        # one more step of the same task: host time per batch on one
-        # worker, its synchronising calls, a profile, and its kernels
+        # one more step of the same task
         from nerf_downstream_tpu_torch.data.data_module import DataModule
 
         dm = DataModule(batch_size=8, val_batch_size=2, train_num_workers=1,
                         ignore_label=-255, capacity=line["capacity"])
-        it = dm.train_batches()
-        next(it)
-        t0 = time.perf_counter()
-        for _ in range(3):
-            next(it)
-        line["host_ms_per_batch_one_worker"] = (
-            (time.perf_counter() - t0) * 1e3 / 3)
-
-        extra_losses = []  # read after the timed and counted steps
-
-        def step() -> None:
-            nonlocal state
-            state, mets = task.train_step(state, batch)
-            extra_losses.append(mets["loss"].detach())
-
-        line["sync"] = sync_count("cli_train", step)
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as p:
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            step()
-            torch.cuda.synchronize()
-            wall_profiled = (time.perf_counter() - t0) * 1e3
-        rows = device_rows(p, 1)
-        device = sum(r[0] for r in rows)
-        if device <= 0:
-            raise PhaseError("cli_train: the profiler saw no device time")
-        line["profile"] = {
-            "wall_ms_per_step_profiled": wall_profiled,
-            "device_ms_per_step": device,
-            "device_busy_share": device / line["ms_median_after_first"],
-            "device_ops_per_step": sum(r[1] for r in rows),
-            "top_device": [{"name": k[:90], "per_step": c, "ms": m}
-                           for m, c, k in rows[:12]]}
-        with CliStepRecorder() as rec:
-            step()
-        line["extra_step_losses"] = [float(v) for v in extra_losses]
-        if not np.isfinite(line["extra_step_losses"]).all():
-            raise PhaseError("cli_train: non-finite loss in the extra steps: "
-                             f"{line['extra_step_losses']}")
+        rec = cli_extra_steps("cli_train", line, task, state, batch, dm,
+                              CliStepRecorder, 3)
         line["kernels_per_step"] = cli_kernels_f32(rec)
         return line, counts
     finally:
+        gin.clear_config()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+CLS_TREE = dict(n_train=32, n_val=8, n_voxels=10_000, reso=(128, 128, 128),
+                num_classes=51)
+CLS_STEPS, CLS_RESUME_STEPS, CLS_VAL_EVERY = 6, 8, 5
+CLS_BATCH = 16
+CLS_KERNELS = ("window_starts", "window_match", "window_gather_matmul",
+               "window_bwd", "row_gather_matmul")
+CLS_CONFIGS = ("co3d_cls.gin", "co3d_aug3.gin", "feature_sh.gin",
+               "resnet14.gin")
+
+
+class ClsStepRecorder(CliStepRecorder):
+    """Records what ``CliStepRecorder`` records, and the inputs of every
+    K6 call of the step (the row path's forward)."""
+
+    def __enter__(self):
+        from nerf_downstream_tpu_torch.ops import sparse_conv
+
+        super().__enter__()
+        self.k6 = []
+        self._rg = sparse_conv.row_gather_matmul
+        rg = self._rg
+
+        def rec_rg(x_ext, km, w):
+            self.k6.append((x_ext.detach().clone(), km.clone(),
+                            w.detach().clone()))
+            return rg(x_ext, km, w)
+
+        sparse_conv.row_gather_matmul = rec_rg
+        return self
+
+    def __exit__(self, *exc):
+        from nerf_downstream_tpu_torch.ops import sparse_conv
+
+        sparse_conv.row_gather_matmul = self._rg
+        return super().__exit__(*exc)
+
+
+def cli_cls_kernels(rec, wide: int = 512) -> dict:
+    """The classification step's kernels on the row path and at 512
+    channels, each call held against its plain version on the step's own
+    inputs, in f32 and at the same shapes in bf16 (inputs rounded to bf16,
+    the plain version on those values in f32):
+
+    - every K6 call (the four k3/s2 convs): rtol = atol = 1e-5 of the f32
+      sum in f32, rtol 2^-8 with atol 1e-5 x max in bf16; per call its
+      shape, core and step split, ms in both types beside the bound, the
+      plain version's ms and, for information, an im2col plus one
+      ``torch.matmul``;
+    - every K2 call and every K3 call with ``wide`` (512, the widest
+      stage) input or output channels: K2 and K3's d_feats as K6, K3's
+      d_w within 1e-5 of each (g, m)'s largest; per call ms in both
+      types, plain ms and the bound."""
+    import torch
+
+    from nerf_downstream_tpu_torch.ops.kernels import (
+        row_gather_matmul,
+        row_gather_matmul_plain,
+        tc,
+        window_bwd,
+        window_bwd_plain,
+        window_gather_matmul,
+        window_gather_matmul_plain,
+    )
+
+    f32, bf16 = torch.float32, torch.bfloat16
+    where = "cli_cls"
+    if not rec.k6:
+        raise PhaseError(f"{where}: the step made no K6 call")
+    _finite_nonzero(where, "K6", [a[0] for a in rec.k6])
+
+    def as_bf16(args):
+        return [a.to(bf16) if torch.is_tensor(a) and a.is_floating_point()
+                else a for a in args]
+
+    def up(args):
+        return [a.float() if torch.is_tensor(a) and a.is_floating_point()
+                else a for a in args]
+
+    def f32_bad(got, want) -> int:
+        return int(((got - want).abs()
+                    > K2_F32_TOL + K2_F32_TOL * want.abs()).sum())
+
+    k6 = []
+    for x, km, w in rec.k6:
+        k, n_out = km.shape
+        c, cout = w.shape[-2:]
+        row = {"K": k, "n_in": x.shape[0] - 1, "n_out": n_out, "C": c,
+               "Cout": cout, "pairs": int((km < x.shape[0] - 1).sum())}
+        for name, args in (("f32", [x, km, w]), ("bf16", as_bf16([x, km,
+                                                                    w]))):
+            want = row_gather_matmul_plain(*up(args))
+            got = row_gather_matmul(*args)
+            bad = (f32_bad(got, want) if name == "f32"
+                   else dfeats_bad(got, want, bf16))
+            if bad:
+                raise PhaseError(f"{where}: K6 ({name}) outside tolerance: "
+                                 f"{bad} elements at {row}")
+            if not torch.equal(row_gather_matmul(*args), got):
+                raise PhaseError(f"{where}: K6 ({name}) repeats differ")
+            choice = tc.row_choice(args[0].dtype, n_out, c, cout, k,
+                                   tc.aligned(args[0], args[2]))
+            b, by = bound(*k6_work(*args), args[0].dtype)
+            t = device_ms(lambda: row_gather_matmul(*args))
+            row[name] = {"max_abs_err": float((got - want).abs().max()),
+                         "core": choice.describe_steps(), "ms": t,
+                         "bound_ms": b, "bound_by": by,
+                         "roofline_share": b / t}
+        row["plain_ms"] = device_ms(lambda: row_gather_matmul_plain(x, km, w),
+                                    reps=2)
+        cols = km.t().long().contiguous()
+        wm = w.reshape(k * c, cout)
+        row["im2col_matmul_ms"] = device_ms(lambda: torch.matmul(
+            x[cols].reshape(n_out, k * c), wm), reps=2)
+        k6.append(row)
+
+    k2 = []
+    wide2 = [a for a in rec.k2 if wide in a[3].shape[-2:]]
+    if not wide2:
+        raise PhaseError(f"{where}: no K2 call at {wide} channels")
+    _finite_nonzero(where, f"K2 ({wide})", [a[0] for a in wide2])
+    for feats, starts, idx, w in wide2:
+        g, nt, m, tile = idx.shape
+        row = {"C": w.shape[-2], "Cout": w.shape[-1], "G": g, "M": m,
+               "tile": tile, "n_in": feats.shape[0], "n_out": nt * tile}
+        for name, args in (("f32", [feats, starts, idx, w]),
+                           ("bf16", as_bf16([feats, starts, idx, w]))):
+            want = window_gather_matmul_plain(*up(args))
+            got = window_gather_matmul(*args)
+            if dfeats_bad(got, want, args[0].dtype):
+                raise PhaseError(f"{where}: K2 ({name}) outside tolerance "
+                                 f"at {row}")
+            b, by = bound(*k2_work(*args), args[0].dtype)
+            t = device_ms(lambda: window_gather_matmul(*args))
+            row[name] = {"max_abs_err": float((got.float() - want).abs()
+                                              .max()),
+                         "core": tc.gather_choice(
+                             args[0].dtype, nt * tile, row["C"],
+                             row["Cout"], g * m).describe(),
+                         "ms": t, "bound_ms": b, "bound_by": by,
+                         "roofline_share": b / t}
+        row["plain_ms"] = device_ms(
+            lambda: window_gather_matmul_plain(feats, starts, idx, w), reps=2)
+        k2.append(row)
+
+    k3 = []
+    wide3 = [c3 for c3 in rec.k3
+             if wide in (c3["feats"].shape[1], c3["g_out"].shape[1])]
+    if not wide3:
+        raise PhaseError(f"{where}: no K3 call at {wide} channels")
+    _finite_nonzero(where, f"K3 ({wide})", [c3["g_out"] for c3 in wide3])
+    for c3 in wide3:
+        args32 = [c3[k] for k in ("g_out", "feats", "inv_starts", "inv_idx",
+                                  "w_t")]
+        g, nt, m, tile = c3["inv_idx"].shape
+        row = {"C": c3["feats"].shape[1], "Cout": c3["g_out"].shape[1],
+               "G": g, "M": m, "tile": tile, "n_in": nt * tile,
+               "n_out": c3["g_out"].shape[0]}
+        for name, args in (("f32", args32), ("bf16", as_bf16(args32))):
+            want_f, want_w = window_bwd_plain(*up(args))
+            got_f, got_w = window_bwd(*args)
+            rel, _ = dw_err(got_w, want_w)
+            if dfeats_bad(got_f, want_f, args[0].dtype) or not rel <= DW_TOL:
+                raise PhaseError(f"{where}: K3 ({name}) outside tolerance "
+                                 f"at {row}: d_w {rel:.3g} of its largest")
+            cc = dict(c3, g_out=args[0], feats=args[1], w_t=args[4])
+            b, by = bound(*k3_work(cc), args[0].dtype)
+            t = device_ms(lambda: window_bwd(*args))
+            row[name] = {"max_abs_err_d_feats": float(
+                             (got_f.float() - want_f).abs().max()),
+                         "d_w_worst_of_max": rel,
+                         "ms": t, "bound_ms": b, "bound_by": by,
+                         "roofline_share": b / t}
+        row["plain_ms"] = device_ms(lambda: window_bwd_plain(*args32),
+                                    reps=2)
+        k3.append(row)
+    return {"row_gather_matmul": k6, "wide_channels": wide,
+            "window_gather_matmul_wide": k2, "window_bwd_wide": k3,
+            "tolerance": {"f32": [K2_F32_TOL, K2_F32_TOL],
+                          "bf16_d_feats": DFEATS_TOL["bfloat16"],
+                          "d_w_of_max": DW_TOL}}
+
+
+def phase_cli_cls(card: str, device: str = "cuda", bindings=(),
+                  tree=None, batch_size: int = CLS_BATCH) -> tuple[dict, dict]:
+    """The README's classification command through the port's training
+    CLI, at full width (ResNet14 on ``co3d_cls.gin`` + ``co3d_aug3.gin``
+    + ``feature_sh.gin`` + ``resnet14.gin``: batch 16, val batch 8, SGD
+    with momentum 0.9, cosine lr, f32) on a synthetic PeRFception-CO3D
+    tree the port writes (``CLS_TREE``: 32 train and 8 val shells of
+    10,000 voxels at 128^3). The CLI auto-calibrates its capacity knobs
+    on the card (timed), runs ``CLS_STEPS`` steps with one validation
+    pass, then ``--resume`` to ``CLS_RESUME_STEPS`` with the knobs
+    pinned.
+    Launch counts are reset just before the first run and read just after
+    the second. Fails unless: every loss is finite, ``val/acc1`` is
+    logged, the checkpoints and logs exist, the resumed run starts at
+    step ``CLS_STEPS`` from the checkpoint's momentum buffers bit for
+    bit, every conv computes in f32, and K1, the pass, K2, K3 and K6 each
+    launched. Then one more step is profiled and its synchronising calls
+    counted, and its K1-K3 calls are held against their plain versions in
+    f32 (``cli_kernels_f32``) and its K6 calls and its K2 and K3 calls at
+    512 channels in f32 and bf16 (``cli_cls_kernels``). ``device``,
+    ``bindings``, ``tree`` and ``batch_size`` serve a rehearsal on the
+    CPU at a narrow width."""
+    import contextlib
+    import io
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from nerf_downstream_tpu_torch import config as gin
+    from nerf_downstream_tpu_torch import convert
+    from nerf_downstream_tpu_torch.co3d_3d import train as cli
+    from nerf_downstream_tpu_torch.data.synthetic import write_co3d_tree
+    from nerf_downstream_tpu_torch.models.mink.layers import SparseConv
+    from nerf_downstream_tpu_torch.ops import kernels
+    from nerf_downstream_tpu_torch.train import checkpoints
+    from nerf_downstream_tpu_torch.utils import calibrate as calib
+
+    tree = dict(CLS_TREE if tree is None else tree)
+    tmp = tempfile.mkdtemp(prefix="cli_cls_")
+    calibrations = []  # every calibrate() of the automatic calibration
+    measure, scan = calib.calibrate, calib.maybe_auto_calibrate
+
+    def timed_calibrate(batches, **kw):
+        batches = list(batches)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        knobs = measure(batches, **kw)
+        torch.cuda.synchronize()
+        calibrations.append({
+            "seconds": time.perf_counter() - t0, "knobs": knobs,
+            "batches": len(batches), "capacities": sorted({
+                int(b["coordinates"].shape[0]) for b in batches}),
+            "valid_rows": [int(np.asarray(b["mask"]).sum())
+                           for b in batches]})
+        return knobs
+
+    scans = []  # each automatic calibration: seconds, knobs bound?
+
+    def timed_scan(*a, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = scan(*a, **kw)
+        torch.cuda.synchronize()
+        scans.append({"seconds": time.perf_counter() - t0, "bound": out})
+        return out
+
+    try:
+        t0 = time.perf_counter()
+        data_root, _ = write_co3d_tree(tmp, np.random.default_rng(0), **tree)
+        tree_s = time.perf_counter() - t0
+        save = os.path.join(tmp, "exp")
+        args = [a for c in CLS_CONFIGS for a in (
+            "--ginc", os.path.join(REPO, "co3d_3d", "configs", c))]
+        for b in (f'Co3DDatasetBase.data_root = "{data_root}"',
+                  f"train.val_every_n_steps = {CLS_VAL_EVERY}",
+                  "train.log_every_n_steps = 1",
+                  'train.loggers = ["csv", "jsonl"]', *bindings):
+            args += ["--ginb", b]
+        args += ["--save_path", save, "--seed", "777", "--device", device]
+        stdout = io.StringIO()
+        calib.calibrate, calib.maybe_auto_calibrate = (timed_calibrate,
+                                                       timed_scan)
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        with CliProbe("ClassificationTraining") as probe, \
+                contextlib.redirect_stdout(stdout):
+            t0 = time.perf_counter()
+            gin.clear_config()
+            cli.main(args + ["--ginb", f"train.max_steps = {CLS_STEPS}"])
+            first_s = time.perf_counter() - t0
+            last = checkpoints.load_checkpoint(os.path.join(save,
+                                                            "last.ckpt"))
+            inner = last["opt_state"]["1"]
+            probe.resume_trace = convert.flax_to_state_dict(
+                probe.last[0].model, inner["0"]["trace"])
+            # the resume pins the first run's knobs, as a user pins them
+            # with co3d_3d.calibrate (same shapes; no second scan)
+            pinned = [a for k, v in calibrations[-1]["knobs"].items()
+                      for a in ("--ginb", f"CoordinateContext.{k} = {v!r}")]
+            t0 = time.perf_counter()
+            gin.clear_config()
+            cli.main(args + pinned + ["--ginb", f"train.max_steps = "
+                                                f"{CLS_RESUME_STEPS}",
+                                      "--resume"])
+            resume_s = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        counts = kernels.launch_counts()
+        calib.calibrate, calib.maybe_auto_calibrate = measure, scan
+        task, state, batch = probe.last
+        run = os.path.join(save, f"b{batch_size}x1-MinkResNetBase")
+        files = {name: os.path.exists(os.path.join(d, name)) for d, name in (
+            (save, "last.ckpt"), (save, "best.ckpt"),
+            (run, "metrics.csv"), (run, "metrics.jsonl"))}
+        with open(os.path.join(run, "metrics.jsonl")) as f:
+            logged = [json.loads(ln) for ln in f]
+        train_losses = [r["train/loss"] for r in logged if "train/loss" in r]
+        val = [{k: r[k] for k in ("step", "val/loss", "val/acc1",
+                                  "val/acc5")}
+               for r in logged if "val/acc1" in r]
+        best = checkpoints.load_checkpoint(os.path.join(save, "best.ckpt"))
+        types = {m.compute_dtype for m in task.model.modules()
+                 if isinstance(m, SparseConv)}
+        steps = [s for s, _ in probe.steps]
+        ms = [m for _, m in probe.steps]
+        prof = probe.profilers[-1]
+        capacity = int(batch["mask"].shape[0])
+        line = {
+            "phase": "cli_cls", "card": card, "entry":
+            "python -m nerf_downstream_tpu_torch.co3d_3d.train",
+            "configs": [f"co3d_3d/configs/{c}" for c in CLS_CONFIGS],
+            "model": type(task.model).__name__,
+            "planes": list(task.model.planes),
+            "tree": dict(tree, seconds=tree_s),
+            "dtype": "float32 (the configs bind no compute type; every "
+                     "conv on the CUDA cores)",
+            "batch": batch_size, "capacity": capacity,
+            "valid_finest_rows": probe.rows,
+            "automatic_calibration": scans, "calibrations": calibrations,
+            "steps": steps, "ms": ms,
+            "ms_median_after_first": float(np.median(ms[1:])),
+            "run_seconds": [first_s, resume_s],
+            "train_losses": train_losses, "val": val,
+            "val_pass_ms": probe.val_ms,
+            "host_ms_per_batch_waited": prof.recorded_time(
+                "get_train_batch") * 1e3,
+            "best_ckpt_step": best["global_step"],
+            "resume": probe.resume_check, "files": files,
+            "launches": counts,
+        }
+        ok = (all(files.values())
+              and [c["bound"] for c in scans] == [True, False]
+              and len(calibrations) >= 1
+              and np.isfinite(train_losses).all() and len(train_losses) > 0
+              and len(val) == 1
+              and all(np.isfinite(v["val/loss"])
+                      and 0 <= v["val/acc1"] <= 100 for v in val)
+              and steps == list(range(CLS_RESUME_STEPS))
+              and probe.resume_check == {"step": CLS_STEPS,
+                                         "momentum_bit_equal": True}
+              and types == {torch.float32}
+              and all(counts[k] > 0 for k in CLS_KERNELS))
+        if not ok:
+            raise PhaseError(f"cli_cls: {line}")
+
+        # one more step of the same task
+        from nerf_downstream_tpu_torch.data.data_module import DataModule
+
+        dm = DataModule(batch_size=batch_size, val_batch_size=8,
+                        train_num_workers=1, capacity=capacity)
+        rec = cli_extra_steps("cli_cls", line, task, state, batch, dm,
+                              ClsStepRecorder, 2)
+        line["k6_per_step"] = len(rec.k6)
+        line["kernels_per_step"] = cli_kernels_f32(rec, "cli_cls")
+        line["row_path_and_512"] = cli_cls_kernels(
+            rec, max(task.model.planes))
+        return line, counts
+    finally:
+        calib.calibrate, calib.maybe_auto_calibrate = measure, scan
         gin.clear_config()
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -2655,6 +3070,18 @@ def main() -> int:
         phase = "cli_train"
         line, cli_launches = phase_cli_train(card)
         emit(line)
+        phase = "cli_cls"
+        line, cls_launches = phase_cli_cls(card)
+        emit(line)
+        cls_k6 = line["row_path_and_512"]["row_gather_matmul"]
+        cls_k6 = {"launches_per_step": line["k6_per_step"],
+                  "shapes": [(r["C"], r["Cout"], r["n_out"]) for r in cls_k6],
+                  **{k: sum(r["f32"][k] for r in cls_k6)
+                     for k in ("ms", "bound_ms")},
+                  "plain_ms": sum(r["plain_ms"] for r in cls_k6),
+                  "max_abs_err": max(r["f32"]["max_abs_err"]
+                                     for r in cls_k6)}
+        del line
         phase = "sparse_eval"
         line, sparse_launches, sparse_recs = phase_sparse_eval(card)
         emit(line)
@@ -2673,6 +3100,7 @@ def main() -> int:
     def paths(name):
         by_path = {"serve": launches[name], "train": train_launches[name],
                    "cli_train": cli_launches[name],
+                   "cli_cls": cls_launches[name],
                    "sparse_eval": sparse_launches[name]}
         return {"launches": sum(by_path.values()),
                 "launches_by_path": by_path}
@@ -2733,7 +3161,8 @@ def main() -> int:
              source=src + "row_gather_matmul.cu",
              replaces="nerf_downstream_tpu/ops/pallas/gather_matmul.py:76",
              library_ms=None, shapes="one eval_64k forward, ZAXIS (bf16 "
-             "inputs, f32 output)", **paths("row_gather_matmul"), **k6),
+             "inputs, f32 output)", **paths("row_gather_matmul"), **k6,
+             cli_cls_f32_per_step=cls_k6),
     ]
     for k in kernels:
         k["library_ms_null_because"] = no_library[k["name"]]

@@ -16,13 +16,20 @@ table and the ``val/mIoU`` log lines. ``--device`` defaults to ``cuda`` and
 raises without a GPU; ``--device cpu`` runs the kernels' plain PyTorch
 versions on the host.
 
+Both configs of the reference run: ``scannet_plenoxel.gin``
+(segmentation, Res16UNet) and ``co3d_cls.gin`` (classification, ResNet;
+``monitor_metric = "val/acc1"`` picks the best checkpoint). A windowed
+config that binds neither ``CoordinateContext.level_caps`` nor
+``window_escape_cap`` is calibrated from its own batches first
+(``utils/calibrate.py::maybe_auto_calibrate``, on the run's device; off
+with ``train.auto_calibrate = False``); ``python -m
+nerf_downstream_tpu_torch.co3d_3d.calibrate`` pins the knobs offline.
+
 A fresh model is initialised from ``--seed`` with the reference's
 distributions (``train.modules.init_variables``). The parts the port lacks
 raise instead of falling back: ``--gpus`` above 1, ``parallel_mode``,
-``model_parallel`` and ``--dist_*`` (ROADMAP.md Queue 1 item 4), the
-automatic calibration a config without level or escape caps would run
-(Queue 1 item 2), and conv methods other than the fully-windowed one
-(Queue 1 item 3).
+``model_parallel`` and ``--dist_*`` (ROADMAP.md Queue 1 item 4), and
+conv methods other than the fully-windowed one (Queue 1 item 3).
 """
 
 from __future__ import annotations
@@ -32,6 +39,7 @@ import json
 import logging
 import os
 import socket
+import time
 from typing import Optional
 
 import torch
@@ -70,20 +78,6 @@ def seed_everything(seed: int):
     np.random.seed(seed % 2**32)
     torch.manual_seed(seed)
     T.seed(seed)
-
-
-def would_auto_calibrate() -> bool:
-    """Whether the reference's ``maybe_auto_calibrate`` would measure and
-    bind capacity knobs: a windowed configuration with neither
-    ``level_caps`` nor ``window_escape_cap`` bound."""
-    q = gin.query_parameter
-    method = q("CoordinateContext.method", default="auto")
-    extent = q("CoordinateContext.grid_extent", default=None)
-    windowed = method == "hybrid" or (method == "auto" and extent)
-    return bool(windowed
-                and q("CoordinateContext.level_caps", default=None) is None
-                and q("CoordinateContext.window_escape_cap",
-                      default=None) is None)
 
 
 @gin.configurable
@@ -170,13 +164,28 @@ def train(
         capacity=capacity,
     )
 
-    if auto_calibrate and would_auto_calibrate():
-        raise NotImplementedError(
-            "this configuration binds neither CoordinateContext.level_caps "
-            "nor window_escape_cap, so the reference would calibrate them "
-            "from the data; calibration is not ported (ROADMAP.md Queue 1 "
-            "item 2). Bind them, or pass train.auto_calibrate = False to "
-            "run uncapped")
+    if auto_calibrate:
+        # measure and bind the windowed convs' capacity knobs when the
+        # config carries none; a no-op for a measured config
+        from nerf_downstream_tpu_torch.utils.calibrate import (
+            maybe_auto_calibrate,
+        )
+
+        dist = torch.distributed
+        procs = (dist.get_world_size()
+                 if dist.is_available() and dist.is_initialized() else 1)
+        if procs > 1:
+            # per-process scans would bind different shapes per process
+            if maybe_auto_calibrate(data_module, dry_run=True):
+                raise ValueError(
+                    "multi-process runs need pinned capacity knobs: run "
+                    "python -m nerf_downstream_tpu_torch.co3d_3d.calibrate "
+                    "offline and compose the generated gin")
+        else:
+            t0 = time.perf_counter()
+            if maybe_auto_calibrate(data_module, device=dev):
+                logging.info("auto-calibrated windowed-conv capacity knobs "
+                             f"in {time.perf_counter() - t0:.2f} s")
 
     task = get_training_module(training_module)(
         model,

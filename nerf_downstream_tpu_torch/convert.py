@@ -1,10 +1,12 @@
-"""Carry Res16UNet weights between the reference's flax variable trees and
-the port's ``state_dict``.
+"""Carry Res16UNet and ResNet weights between the reference's flax
+variable trees and the port's ``state_dict``.
 
 The reference stores ``{"params": ..., "batch_stats": ...}`` as nested
 dicts; its BatchNorms are auto-named ``MaskedBatchNorm_<i>`` in creation
-order. Conv kernels keep the reference layout ``[K, Cin, Cout]`` with
-x-fastest offsets, so no tensor is transposed. Trees are read as nested
+order within their module (a ``BasicBlock``'s shortcut norm is the third,
+a ``Bottleneck``'s the fourth). Conv kernels keep the reference layout
+``[K, Cin, Cout]`` with x-fastest offsets, and the ResNet head flax's
+``kernel [C, out]``, so no tensor is transposed. Trees are read as nested
 dicts of numpy arrays (or anything ``np.asarray`` accepts).
 """
 
@@ -23,29 +25,46 @@ _BN_LEAF = {
     "running_mean": ("batch_stats", "mean"),
     "running_var": ("batch_stats", "var"),
 }
-_BLOCK_NORM = {"norm1": "MaskedBatchNorm_0", "norm2": "MaskedBatchNorm_1",
-               "norm": "MaskedBatchNorm_2"}
+_BLOCK_NORMS = ("norm1", "norm2", "norm3")
 
 
-def flax_path(key: str) -> tuple[str, ...]:
-    """(collection, module..., leaf) of a port ``state_dict`` key."""
+def is_bottleneck(keys) -> bool:
+    """Whether the model of these ``state_dict`` keys is built from
+    ``Bottleneck`` blocks (whose shortcut norm is the fourth)."""
+    return any(".norm3." in k for k in keys)
+
+
+def flax_path(key: str, bottleneck: bool = False) -> tuple[str, ...]:
+    """(collection, module..., leaf) of a port ``state_dict`` key;
+    ``bottleneck`` when the model's blocks are ``Bottleneck``s."""
     p = key.split(".")
+    if p[0] == "conv1" and len(p) == 2:  # the ResNet stem conv
+        return ("params", "conv1", p[1])
+    if p[0] == "norm":  # the ResNet stem norm
+        coll, leaf = _BN_LEAF[p[1]]
+        return (coll, "MaskedBatchNorm_0", leaf)
     if p[0] in UNITS:
         if p[1] == "conv":
             return ("params", f"{p[0]}_conv", p[2])
         coll, leaf = _BN_LEAF[p[2]]
         return (coll, f"MaskedBatchNorm_{UNITS.index(p[0])}", leaf)
-    if p[0].startswith("block"):
-        fb = f"{p[0]}_{p[1]}"
-        rest = p[2:]
+    if p[0].startswith("block") or p[0].startswith("layer"):
+        # Res16UNet blocks are block<i>.<j>, ResNet ones layer<i>_block<j>
+        if p[0].startswith("block"):
+            fb, rest = f"{p[0]}_{p[1]}", p[2:]
+        else:
+            fb, rest = p[0], p[1:]
         if rest[0] == "downsample":  # downsample.{conv,norm}.<leaf>
             if rest[1] == "conv":
                 return ("params", fb, "downsample_conv", rest[2])
-            rest = rest[1:]
-        if rest[0] in ("conv1", "conv2"):
+            coll, leaf = _BN_LEAF[rest[2]]
+            return (coll, fb, f"MaskedBatchNorm_{3 if bottleneck else 2}",
+                    leaf)
+        if rest[0] in ("conv1", "conv2", "conv3"):
             return ("params", fb, rest[0], rest[1])
         coll, leaf = _BN_LEAF[rest[1]]
-        return (coll, fb, _BLOCK_NORM[rest[0]], leaf)
+        return (coll, fb, f"MaskedBatchNorm_{_BLOCK_NORMS.index(rest[0])}",
+                leaf)
     if p[0] == "final":
         return ("params", "final", p[1])
     raise KeyError(f"no flax counterpart for {key!r}")
@@ -63,11 +82,12 @@ def flax_to_state_dict(model: torch.nn.Module,
     else:
         keys = list(model.state_dict())
     refs = model.state_dict()
+    bottleneck = is_bottleneck(refs)
     out = {}
     for key in keys:
         ref = refs[key]
         node = variables
-        for name in flax_path(key):
+        for name in flax_path(key, bottleneck):
             node = node[name]
         arr = np.asarray(node, dtype=np.float32)
         if arr.shape != tuple(ref.shape):
@@ -88,8 +108,9 @@ def state_dict_to_flax(state: dict) -> dict:
     float32 numpy arrays) of a port ``state_dict`` (or of any mapping from
     its keys to tensors, such as parameter gradients)."""
     tree: dict = {}
+    bottleneck = is_bottleneck(state)
     for key, value in state.items():
-        path = flax_path(key)
+        path = flax_path(key, bottleneck)
         node = tree
         for name in path[:-1]:
             node = node.setdefault(name, {})
@@ -99,16 +120,21 @@ def state_dict_to_flax(state: dict) -> dict:
 
 def init_flax_variables(model: torch.nn.Module, seed: int) -> dict:
     """Random variables for ``model`` in the reference's tree layout, from
-    ``seed``: He-normal conv kernels (fan-in K * Cin), BatchNorm scale,
-    bias and running statistics drawn near identity so every BN does work.
+    ``seed``: He-normal conv kernels (fan-in K * Cin), a dense head's
+    kernel normal over fan-in C, BatchNorm scale, bias and running
+    statistics drawn near identity so every BN does work.
     """
     rng = np.random.default_rng(seed)
     tree: dict = {}
-    for key, ref in model.state_dict().items():
-        path = flax_path(key)
+    state = model.state_dict()
+    bottleneck = is_bottleneck(state)
+    for key, ref in state.items():
+        path = flax_path(key, bottleneck)
         shape = tuple(ref.shape)
         leaf = path[-1]
-        if leaf == "kernel":
+        if leaf == "kernel" and len(shape) == 2:
+            arr = rng.normal(size=shape) * np.sqrt(1.0 / shape[0])
+        elif leaf == "kernel":
             arr = rng.normal(size=shape) * np.sqrt(2.0 / (shape[0] * shape[1]))
         elif leaf == "scale":
             arr = rng.uniform(0.5, 1.5, shape)

@@ -1,8 +1,9 @@
 """Dataset registry (counterpart of ``nerf_downstream_tpu/data/datasets.py``).
 
 The reference's table names nine datasets; the port has
-``PlenoxelScannetDataset`` and raises ``NotImplementedError`` for the
-others (ROADMAP.md Queue 1 items 1 and 3).
+``PlenoxelScannetDataset`` and the three CO3D classification readers, and
+raises ``NotImplementedError`` for the others (ROADMAP.md Queue 1 items 1
+and 3).
 """
 
 from __future__ import annotations
@@ -10,16 +11,20 @@ from __future__ import annotations
 from nerf_downstream_tpu_torch import config as cfg
 
 NOT_PORTED = (
-    "Co3DDataset", "Co3D10pDataset", "Co3DDatasetBase", "ScannetDataset",
-    "ModelNet40H5", "ModelNet40H5Dataset", "SemanticKITTIDataset",
-    "StanfordDataset",
+    "ScannetDataset", "ModelNet40H5", "ModelNet40H5Dataset",
+    "SemanticKITTIDataset", "StanfordDataset",
 )
 
 
 def _table():
-    from nerf_downstream_tpu_torch.data import scannet
+    from nerf_downstream_tpu_torch.data import co3d, scannet
 
-    return {"PlenoxelScannetDataset": scannet.PlenoxelScannetDataset}
+    return {
+        "Co3DDataset": co3d.Co3DDataset,
+        "Co3D10pDataset": co3d.Co3D10pDataset,
+        "Co3DDatasetBase": co3d.Co3DDatasetBase,
+        "PlenoxelScannetDataset": scannet.PlenoxelScannetDataset,
+    }
 
 
 @cfg.configurable("get_dataset")

@@ -1,6 +1,8 @@
-"""Synthetic PeRFception-ScanNet-like scenes for the presets: the port's
+"""Synthetic PeRFception-ScanNet-like and PeRFception-CO3D-like scenes for
+the presets, the tests and the smoke run: the port's
 ``data/plenoxel.py::make_synthetic_scene`` and ``data/utils.py::
-collate_mink``, and one scene as the serving benchmark builds it."""
+collate_mink``, one scene as the serving benchmark builds it, and the
+trees the two training configs read."""
 
 from __future__ import annotations
 
@@ -9,7 +11,8 @@ import numpy as np
 from nerf_downstream_tpu_torch.data.plenoxel import make_synthetic_scene
 from nerf_downstream_tpu_torch.data.utils import collate_mink
 
-__all__ = ["collate_mink", "make_synthetic_scene", "scene_sample"]
+__all__ = ["collate_mink", "make_synthetic_scene", "scene_sample",
+           "write_co3d_tree", "write_scannet_tree"]
 
 
 def scene_sample(rng, n_voxels: int, num_classes: int) -> dict:
@@ -63,3 +66,37 @@ def write_scannet_tree(root: str, rng, n_train: int = 3, n_val: int = 3,
     with open(os.path.join(split, "scene_scales.data"), "wb") as f:
         pickle.dump({n: float(scene_scale) for n in names}, f)
     return data_root
+
+
+def write_co3d_tree(root: str, rng, n_train: int = 4, n_val: int = 0,
+                    n_voxels: int = 300, reso=(128, 128, 128),
+                    num_classes: int = 3) -> tuple[str, str]:
+    """Write a synthetic PeRFception-CO3D tree under ``root`` and return
+    (data root, file-list directory): ``co3d/plenoxel_co3d_s<i>/data.npz``
+    surface shells (``plenoxel.make_synthetic_scene``, ``surface=True``)
+    and ``co3d/filelist/{train,test}.txt`` rows ``<class> s<i>``, scene i
+    of class ``CLASSES[i % num_classes]``. Train scenes come first; with
+    ``n_val = 0`` the test list (the val phase's) names the train
+    scenes."""
+    import os
+
+    from nerf_downstream_tpu_torch.data import plenoxel
+    from nerf_downstream_tpu_torch.data.co3d import CLASSES
+
+    data_root = os.path.join(root, "co3d")
+    fdir = os.path.join(data_root, "filelist")
+    os.makedirs(fdir, exist_ok=True)
+    lines = []
+    for i in range(n_train + n_val):
+        inst = f"s{i}"
+        sc = make_synthetic_scene(rng, n_voxels=n_voxels, reso=reso,
+                                  surface=True)
+        plenoxel.save_npz(
+            os.path.join(data_root, f"plenoxel_co3d_{inst}", "data.npz"),
+            sc["coords"], sc["density"], sc["sh"], sc["reso"])
+        lines.append(f"{CLASSES[i % num_classes]} {inst}")
+    train, val = lines[:n_train], lines[n_train:] or lines[:n_train]
+    for phase, lst in (("train", train), ("test", val)):
+        with open(os.path.join(fdir, f"{phase}.txt"), "w") as f:
+            f.write("\n".join(lst) + "\n")
+    return data_root, fdir

@@ -1,11 +1,12 @@
 """Host augmentations: the gin-configurable transforms of the flagship
-config's list on (coords, feats, labels) triples, ``Compose`` and
-``build`` (counterpart of ``nerf_downstream_tpu/data/transforms.py``, the
-port's own copy, draw for draw from the module's ``_rng`` stream: the same
-``seed`` gives the same arrays). The reference's other transforms (colour,
-sampling, PerlinNoise, ...) are not ported yet (ROADMAP.md Queue 1
-item 3); ``build`` raises on their names. Rotations use the closed-form
-Rodrigues formula (the reference's ``scipy.expm`` matrix).
+config's list and of every ``co3d_aug*.gin`` on (coords, feats, labels)
+triples, ``Compose`` and ``build`` (counterpart of
+``nerf_downstream_tpu/data/transforms.py``, the port's own copy, draw for
+draw from the module's ``_rng`` stream: the same ``seed`` gives the same
+arrays). The reference's other transforms (colour, PerlinNoise, FPS, ...)
+are not ported yet (ROADMAP.md Queue 1 item 3); ``build`` raises on their
+names. Rotations use the closed-form Rodrigues formula (the reference's
+``scipy.expm`` matrix).
 """
 
 from __future__ import annotations
@@ -108,6 +109,33 @@ class CoordinateDropout:
         return coords, feats, labels
 
 
+@cfg.configurable
+class CoordinateJitter:
+    def __init__(self, jitter_std=0.5, application_ratio=0.7):
+        self.jitter_std = jitter_std
+        self.application_ratio = application_ratio
+
+    def __call__(self, coords, feats, labels):
+        if _rand() < self.application_ratio:
+            coords = coords + (2 * self.jitter_std) * (
+                _rng.random((len(coords), 3)) - 0.5
+            )
+        return coords, feats, labels
+
+
+@cfg.configurable
+class CoordinateUniformTranslation:
+    def __init__(self, max_translation=0.2):
+        self.max_translation = max_translation
+
+    def __call__(self, coords, feats, labels):
+        if self.max_translation > 0:
+            coords = coords + _rng.uniform(
+                -self.max_translation, self.max_translation, (1, 3)
+            )
+        return coords, feats, labels
+
+
 def rotation_matrix(axis: np.ndarray, theta: float) -> np.ndarray:
     """Rodrigues rotation about ``axis`` by ``theta`` (== expm(cross(I,
     axis/|axis| * theta)), reference transforms.py:333-336)."""
@@ -133,6 +161,20 @@ class RandomRotation:
             axis[self.upright_axis] += 1
             angle = _rand() * 2 * np.pi
             coords = coords @ rotation_matrix(axis, angle)
+        return coords, feats, labels
+
+
+@cfg.configurable
+class RandomScale:
+    def __init__(self, scale_ratio=0.1, application_ratio=0.9):
+        self.scale_ratio = scale_ratio
+        self.application_ratio = application_ratio
+
+    def __call__(self, coords, feats, labels):
+        if _rand() < self.application_ratio:
+            coords = coords * _rng.uniform(
+                1 - self.scale_ratio, 1 + self.scale_ratio
+            )
         return coords, feats, labels
 
 
@@ -186,6 +228,19 @@ class RandomHorizontalFlip:
             for ax in self.horz_axes:
                 coords[:, ax] = coords[:, ax].max() - coords[:, ax]
         return coords, feats, labels
+
+
+@cfg.configurable
+class VoxelDownsampleSimple:
+    """Stride-divisibility mask downsample (the reference defines it
+    itself: ``co3d_aug*.gin`` names it, the original source does not)."""
+
+    def __init__(self, stride=2):
+        self.stride = stride
+
+    def __call__(self, coords, feats, labels):
+        sel = np.all(np.mod(coords, self.stride) == 0, axis=1)
+        return _sel(coords, feats, labels, sel)
 
 
 def _trilinear_uniform(noise: np.ndarray, gmin, step, pts: np.ndarray):
@@ -278,8 +333,24 @@ class ElasticDistortion:
         return coords, feats, labels
 
 
-    # note: like the reference (transforms.py:628-630), labels pass through
-    # unsampled — FPS is used for whole-cloud classification only.
+@cfg.configurable
+class DensityBasedSample:
+    """Keep the points above a density percentile. ``percentile`` <= 1 is
+    a fraction (the reference's reading of its configs' 0.95)."""
+
+    def __init__(self, percentile=0.95, density_dim: int = 3):
+        assert density_dim > 0
+        self.percentile = percentile
+        self.density_dim = density_dim
+
+    def __call__(self, coords, feats, labels):
+        assert feats.shape[1] > self.density_dim
+        q = self.percentile * 100 if self.percentile <= 1 else self.percentile
+        ths = np.percentile(feats[:, self.density_dim], q)
+        sel = feats[:, self.density_dim] > ths
+        if sel.sum() == 0:
+            return coords, feats, labels
+        return _sel(coords, feats, labels, sel)
 
 
 class Compose:

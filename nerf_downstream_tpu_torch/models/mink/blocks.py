@@ -1,5 +1,11 @@
 """Residual blocks over SparseVoxels (counterpart of
-``nerf_downstream_tpu/models/mink/blocks.py``)."""
+``nerf_downstream_tpu/models/mink/blocks.py``).
+
+A block with a stride of 2 or a change of width takes its shortcut
+through a 1x1 conv of the same stride and a norm (``downsample``): on the
+fully-windowed path a k1/s2 conv is a cross-set window plan, and the
+strided k3 conv of the main branch takes the row path; both land on the
+same coarser level (the context caches it)."""
 
 from __future__ import annotations
 
@@ -13,20 +19,30 @@ from nerf_downstream_tpu_torch.models.mink.layers import (
 )
 
 
+def _downsample(inplanes, outplanes, stride, norm_type, compute_dtype,
+                bn_momentum):
+    return nn.ModuleDict({
+        "conv": SparseConv(inplanes, outplanes, 1, stride,
+                           compute_dtype=compute_dtype),
+        "norm": make_norm(norm_type, outplanes, bn_momentum=bn_momentum),
+    })
+
+
 class BasicBlock(nn.Module):
-    """conv3-norm-act-conv3-norm (+ skip, through a 1x1 conv-norm when the
-    width changes) - act. Expansion 1. ``conv_mode`` goes to the two 3x3
-    convs (``SparseConv``)."""
+    """conv3-norm-act-conv3-norm (+ skip) - act. Expansion 1. ``stride``
+    goes to the first 3x3 conv; ``conv_mode`` to both 3x3 convs
+    (``SparseConv``)."""
 
     expansion = 1
 
     def __init__(self, inplanes: int, planes: int, norm_type: str = "BN",
                  nonlinearity: str = "MinkowskiReLU",
                  compute_dtype: torch.dtype = torch.float32,
-                 conv_mode: int = 0, bn_momentum: float = 0.1):
+                 conv_mode: int = 0, bn_momentum: float = 0.1,
+                 stride: int = 1):
         super().__init__()
         self.non = get_nonlinearity(nonlinearity)
-        self.conv1 = SparseConv(inplanes, planes, 3, 1,
+        self.conv1 = SparseConv(inplanes, planes, 3, stride,
                                 compute_dtype=compute_dtype,
                                 conv_mode=conv_mode)
         self.norm1 = make_norm(norm_type, planes, bn_momentum=bn_momentum)
@@ -35,13 +51,10 @@ class BasicBlock(nn.Module):
                                 conv_mode=conv_mode)
         self.norm2 = make_norm(norm_type, planes, bn_momentum=bn_momentum)
         self.downsample = None
-        if inplanes != planes * self.expansion:
-            self.downsample = nn.ModuleDict({
-                "conv": SparseConv(inplanes, planes * self.expansion, 1, 1,
-                                   compute_dtype=compute_dtype),
-                "norm": make_norm(norm_type, planes * self.expansion,
-                                  bn_momentum=bn_momentum),
-            })
+        if stride != 1 or inplanes != planes * self.expansion:
+            self.downsample = _downsample(inplanes, planes * self.expansion,
+                                          stride, norm_type, compute_dtype,
+                                          bn_momentum)
 
     def forward(self, sv, ctx):
         out = self.non(self.norm1(self.conv1(sv, ctx)))
@@ -52,4 +65,44 @@ class BasicBlock(nn.Module):
         return self.non(out.replace(feats=out.feats + residual.feats))
 
 
-BLOCKS = {"BasicBlock": BasicBlock}
+class Bottleneck(nn.Module):
+    """1x1-3x3-1x1 bottleneck, expansion 4: conv1-norm1-act (1x1),
+    conv2-norm2-act (3x3, ``stride`` and ``conv_mode``), conv3-norm3 (1x1
+    to ``4 * planes``), + skip, act."""
+
+    expansion = 4
+
+    def __init__(self, inplanes: int, planes: int, norm_type: str = "BN",
+                 nonlinearity: str = "MinkowskiReLU",
+                 compute_dtype: torch.dtype = torch.float32,
+                 conv_mode: int = 0, bn_momentum: float = 0.1,
+                 stride: int = 1):
+        super().__init__()
+        out = planes * self.expansion
+        self.non = get_nonlinearity(nonlinearity)
+        self.conv1 = SparseConv(inplanes, planes, 1, 1,
+                                compute_dtype=compute_dtype)
+        self.norm1 = make_norm(norm_type, planes, bn_momentum=bn_momentum)
+        self.conv2 = SparseConv(planes, planes, 3, stride,
+                                compute_dtype=compute_dtype,
+                                conv_mode=conv_mode)
+        self.norm2 = make_norm(norm_type, planes, bn_momentum=bn_momentum)
+        self.conv3 = SparseConv(planes, out, 1, 1,
+                                compute_dtype=compute_dtype)
+        self.norm3 = make_norm(norm_type, out, bn_momentum=bn_momentum)
+        self.downsample = None
+        if stride != 1 or inplanes != out:
+            self.downsample = _downsample(inplanes, out, stride, norm_type,
+                                          compute_dtype, bn_momentum)
+
+    def forward(self, sv, ctx):
+        out = self.non(self.norm1(self.conv1(sv, ctx)))
+        out = self.non(self.norm2(self.conv2(out, ctx)))
+        out = self.norm3(self.conv3(out, ctx))
+        residual = sv
+        if self.downsample is not None:
+            residual = self.downsample["norm"](self.downsample["conv"](sv, ctx))
+        return self.non(out.replace(feats=out.feats + residual.feats))
+
+
+BLOCKS = {"BasicBlock": BasicBlock, "Bottleneck": Bottleneck}

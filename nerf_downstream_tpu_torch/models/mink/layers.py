@@ -3,10 +3,14 @@
 fully-windowed path, forward and backward, with the weight-sparse
 inference modes).
 
-Every k3/s1 conv and k2/s2 down conv rides window plans built from the
-level's sorted keys; the k2 transpose conv reuses the down conv's plans
-(the cache returns them). 1x1 stride-1 convs are plain matrix products, as
-the reference leaves them to XLA. Conv kernels are stored [K, Cin, Cout]
+Every k3/s1 conv and k2/s2 or k1/s2 down conv rides window plans built
+from the level's sorted keys; the k2 transpose conv reuses the down conv's
+plans (the cache returns them). A k3/s2 conv (ResNet's strided block
+conv) takes the row path, as in the reference: a row kernel map onto the
+next coarser level, K6 forward, d_feats through the inverted map. 1x1
+stride-1 convs are plain matrix products, as the reference leaves them to
+XLA. ``SparsePool`` pools over a row kernel map (``ops/pool.py``) and
+``GlobalPool`` pools each batch element's rows. Conv kernels are stored [K, Cin, Cout]
 with x-fastest offsets, the reference's layout. Parameters start at zero
 (no hidden random state): weights come from
 ``convert.load_flax_variables``, or from ``convert.init_flax_variables``
@@ -36,6 +40,7 @@ from nerf_downstream_tpu_torch.ops.norm import (
     batch_norm_apply,
     masked_mean_var,
 )
+from nerf_downstream_tpu_torch.ops.pool import global_pool, window_pool
 from nerf_downstream_tpu_torch.ops.sparse_conv import sparse_conv_apply
 from nerf_downstream_tpu_torch.ops.weight_sparse import (
     pad_offset_groups,
@@ -90,7 +95,8 @@ class SparseConv(nn.Module):
                  input_grad: bool = True, conv_mode: int = 0,
                  valid_offsets: tuple | None = None):
         super().__init__()
-        if (kernel_size, stride) not in ((1, 1), (3, 1), (2, 2)):
+        if (kernel_size, stride) not in ((1, 1), (3, 1), (2, 2), (1, 2),
+                                         (3, 2)):
             raise ValueError(
                 f"neither the windowed nor the row path takes kernel "
                 f"{kernel_size} / stride {stride}"
@@ -133,18 +139,15 @@ class SparseConv(nn.Module):
         ctx.require_window_full()
         full_offs = kernel_offsets(self.kernel_size, sv.stride)
         subset = self._subset(full_offs, ctx)
+        offs = full_offs if subset is None else full_offs[list(subset)]
+        s1 = self.kernel_size == 3 and self.stride == 1
+        if not s1 and (subset is not None or self.kernel_size == 3):
+            return self._row_conv(sv, ctx, offs, subset)
         # a subset with non-uniform (dx, dy) groups is padded with
         # zero-weight repeats of each group's first offset
         w_rows = None
-        if subset is None:
-            offs = full_offs
-        else:
-            offs = full_offs[list(subset)]
-            if not _window_groups_ok(offs):
-                offs, w_rows = pad_offset_groups(full_offs, subset)
-        s1 = self.kernel_size == 3 and self.stride == 1
-        if not s1 and subset is not None:
-            return self._row_conv(sv, ctx, full_offs[list(subset)], subset)
+        if subset is not None and not _window_groups_ok(offs):
+            offs, w_rows = pad_offset_groups(full_offs, subset)
 
         if s1:
             out_sv = sv
@@ -238,9 +241,9 @@ class SparseConv(nn.Module):
         return self._bs_cache[1:]
 
     def _row_conv(self, sv, ctx, offs, subset):
-        """A strided conv over an offset subset: the row path (kernel map,
-        then K6). The inverse map is built only when autograd may need
-        it."""
+        """A k3/s2 conv, or a strided conv over an offset subset: the row
+        path (kernel map, then K6). The inverse map is built only when
+        autograd may need it."""
         self.route = "row"
         out_sv = ctx.strided(sv, self.stride)
         km = ctx.kernel_map(sv.coords, sv.mask, out_sv.coords, out_sv.mask,
@@ -250,7 +253,7 @@ class SparseConv(nn.Module):
             inv = ctx.kernel_map(out_sv.coords, out_sv.mask, sv.coords,
                                  sv.mask, offs, transpose=True,
                                  in_stride=out_sv.stride)
-        w = self.kernel[const(subset, torch.int64, self.kernel.device)]
+        w = self._kernel_rows(subset, None)
         out_f = sparse_conv_apply(sv.feats, km, w, self.bias,
                                   compute_dtype=self.compute_dtype,
                                   inv_map=inv).to(self.compute_dtype)
@@ -289,6 +292,43 @@ class SparseConvTranspose(nn.Module):
         out_f = ctx.level_poison(target.coords, out_f)
         return SparseVoxels(coords=target.coords, feats=out_f,
                             mask=target.mask, stride=target.stride)
+
+
+class SparsePool(nn.Module):
+    """Strided window pooling (sum, avg or max) over a row kernel map onto
+    the next coarser level, e.g. the ResNet stem's k2/s2 sum pooling."""
+
+    def __init__(self, kernel_size: int = 2, stride: int = 2,
+                 mode: str = "sum"):
+        super().__init__()
+        self.kernel_size = kernel_size
+        self.stride = stride
+        self.mode = mode
+
+    def forward(self, sv: SparseVoxels, ctx: CoordinateContext):
+        offs = kernel_offsets(self.kernel_size, sv.stride)
+        out_sv = ctx.strided(sv, self.stride) if self.stride > 1 else sv
+        km = ctx.kernel_map(sv.coords, sv.mask, out_sv.coords, out_sv.mask,
+                            offs, in_stride=sv.stride)
+        out_f = window_pool(sv.masked_feats(), km, self.mode)
+        if out_sv is not sv:
+            out_f = ctx.level_poison(out_sv.coords, out_f)
+        return SparseVoxels(coords=out_sv.coords, feats=out_f,
+                            mask=out_sv.mask, stride=out_sv.stride)
+
+
+class GlobalPool(nn.Module):
+    """Pooling of each batch element's rows to dense [num_batches, C]
+    (avg, max or sum)."""
+
+    def __init__(self, mode: str = "avg", num_batches: int = 1):
+        super().__init__()
+        self.mode = mode
+        self.num_batches = num_batches
+
+    def forward(self, sv: SparseVoxels) -> torch.Tensor:
+        return global_pool(sv.masked_feats(), sv.batch_ids(self.num_batches),
+                           self.num_batches, self.mode)
 
 
 class MaskedBatchNorm(nn.Module):

@@ -35,6 +35,12 @@ class SparseVoxels:
     def masked_feats(self) -> torch.Tensor:
         return torch.where(self.mask[:, None], self.feats, 0)
 
+    def batch_ids(self, num_batches: int) -> torch.Tensor:
+        """Batch index per row (int32); padding rows map to
+        ``num_batches``."""
+        return torch.where(self.mask, self.coords[:, 0],
+                           num_batches).to(torch.int32)
+
     def replace(self, **changes) -> "SparseVoxels":
         return dataclasses.replace(self, **changes)
 

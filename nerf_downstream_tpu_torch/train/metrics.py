@@ -1,5 +1,5 @@
-"""Segmentation metrics: confusion histogram, per-class IoU, IoU meter
-(counterpart of ``nerf_downstream_tpu/train/metrics.py``)."""
+"""Metrics: confusion histogram, per-class IoU, IoU meter, overall and
+top-k accuracy (counterpart of ``nerf_downstream_tpu/train/metrics.py``)."""
 
 from __future__ import annotations
 
@@ -27,6 +27,25 @@ def per_class_iu(hist: torch.Tensor) -> torch.Tensor:
     inter = torch.diagonal(hist)
     union = hist.sum(1) + hist.sum(0) - inter
     return inter / torch.clamp(union, min=1)
+
+
+def precision_at_one(pred: torch.Tensor, target: torch.Tensor,
+                     ignore_label: int = 255) -> torch.Tensor:
+    """Overall accuracy in percent over the targets that are not
+    ``ignore_label``."""
+    valid = target != ignore_label
+    correct = (pred == target) & valid
+    return 100.0 * correct.sum() / torch.clamp(valid.sum(), min=1)
+
+
+def topk_accuracy(logits: torch.Tensor, labels: torch.Tensor,
+                  ks=(1, 5)) -> dict:
+    """{"acc<k>": percent of rows whose label is among the k largest
+    logits} (a stable descending sort, as the reference's)."""
+    order = torch.argsort(-logits, dim=-1, stable=True)
+    labels = labels.to(order.dtype)
+    return {f"acc{k}": 100.0 * (order[:, :k] == labels[:, None]).any(-1)
+            .to(torch.float32).mean() for k in ks}
 
 
 @dataclasses.dataclass(frozen=True)

@@ -1,6 +1,6 @@
-"""Segmentation loss, step metrics, the training and eval steps and the
+"""Task losses, step metrics, the training and eval steps and the
 validation hooks (counterpart of ``nerf_downstream_tpu/train/modules.py``:
-``BaseTask`` and ``SegmentationTraining``).
+``BaseTask``, ``SegmentationTraining`` and ``ClassificationTraining``).
 
 A training step is reproducible on the card: every accumulating scatter
 of the step adds in a fixed order (the escape path and the row path
@@ -30,13 +30,22 @@ from nerf_downstream_tpu_torch.train.state import TrainState
 def init_variables(model: torch.nn.Module, seed: int) -> torch.nn.Module:
     """A fresh model's weights, in place, with the reference's
     distributions drawn from a ``torch.Generator`` seeded by ``seed``:
-    conv kernels He-normal over fan-in K * Cin, biases 0, BatchNorm scale
-    1, bias 0, running mean 0 and variance 1."""
+    conv kernels He-normal over fan-in K * Cin, a dense head's kernel
+    LeCun-normal (flax's default: a normal truncated at two standard
+    deviations, of variance 1 / fan-in), biases 0, BatchNorm scale 1, bias
+    0, running mean 0 and variance 1."""
     gen = torch.Generator().manual_seed(int(seed))
     with torch.no_grad():
         for name, t in model.state_dict(keep_vars=True).items():
             leaf = name.rsplit(".", 1)[-1]
-            if leaf == "kernel":
+            if leaf == "kernel" and t.dim() == 2:
+                # flax's truncated normal, rescaled to variance 1 / fan-in
+                std = (1.0 / t.shape[0]) ** 0.5 / 0.87962566103423978
+                w = torch.empty(t.shape)
+                torch.nn.init.trunc_normal_(w, 0.0, std, -2 * std, 2 * std,
+                                            generator=gen)
+                t.copy_(w.to(t.dtype))
+            elif leaf == "kernel":
                 k, cin, _ = t.shape
                 w = torch.randn(t.shape, generator=gen) * (2.0 / (k * cin)) ** 0.5
                 t.copy_(w.to(t.dtype))
@@ -87,10 +96,9 @@ def loss_and_metrics(logits, labels, mask, num_labels: int,
     }
 
 
-class SegmentationTraining:
-    """Per-point segmentation training: the reference task's constructor
-    arguments, its weighted CE with ``class_weight`` and ``void_weight``
-    (the void class is the last one), its steps and validation hooks.
+class BaseTask:
+    """What the tasks share: the reference task's constructor arguments,
+    the optimizer and schedule, checkpoint loading, and the steps.
 
     ``train_step`` runs the device augmentation (``device_transforms``,
     drawn from a generator seeded from the step count), the forward in
@@ -159,12 +167,6 @@ class SegmentationTraining:
         self.save_pred_path = save_pred_path
         self.num_labels = cfg.query_parameter("get_model.out_channel",
                                               default=model.out_channel)
-        self.void_label = cfg.query_parameter(
-            "PlenoxelScannetDataset.void_label", default=None)
-        w = torch.ones(self.num_labels)
-        if void_weight is not None and void_weight > 0:
-            w[-1] = void_weight
-        self.class_weight = w
         if transform_params is None:
             transform_params = DT.configured_params(tuple(device_transforms))
         if num_scenes is None:
@@ -174,9 +176,6 @@ class SegmentationTraining:
         self.schedule = get_scheduler(
             scheduler_name, lr, warmup_steps if warmup_steps > 0 else None,
             **self.scheduler_kwargs)
-        self.iou_state = M.IoUMeterState.create(self.num_labels)
-        self.best_miou = -1.0
-        self._val_batch_idx = 0
 
     # -- optimizer / state ---------------------------------------------------
 
@@ -215,9 +214,13 @@ class SegmentationTraining:
     # -- steps ---------------------------------------------------------------
 
     def loss_and_metrics(self, logits, batch):
-        return loss_and_metrics(
-            logits, batch["labels"], batch["mask"], self.num_labels,
-            self.ignore_label, self.class_weight.to(logits.device))
+        """(loss, step metrics) of a batch; the task's own."""
+        raise NotImplementedError
+
+    @staticmethod
+    def _step_metrics(loss, mets) -> dict:
+        return {"loss": loss.detach(),
+                **{k: v for k, v in mets.items() if k != "hist"}}
 
     def augment(self, batch: dict, step: int) -> dict:
         """The batch after the device augmentation of step ``step``."""
@@ -230,8 +233,8 @@ class SegmentationTraining:
 
     def train_step(self, state: TrainState, batch: dict):
         """One update of ``state`` (in place, and returned) on a batch of
-        tensors on the model's device: (state, {"loss", "OA", "mIoU",
-        "ignore_ratio"})."""
+        tensors on the model's device: (state, {"loss", and the task's
+        step metrics})."""
         model = state.model.train()
         batch = self.augment(batch, state.step)
         field = PointField(coords=batch["coordinates"],
@@ -245,12 +248,10 @@ class SegmentationTraining:
             group["lr"] = lr
         state.optimizer.step()
         state.step += 1
-        return state, {"loss": loss.detach(), "OA": mets["OA"],
-                       "mIoU": mets["mIoU"],
-                       "ignore_ratio": mets["ignore_ratio"]}
+        return state, self._step_metrics(loss, mets)
 
     def eval_step(self, state: TrainState, batch: dict):
-        """(logits, {"loss", "OA", "mIoU", "ignore_ratio"}) of the model in
+        """(logits, {"loss", and the task's step metrics}) of the model in
         eval mode on a batch of tensors on its device."""
         model = state.model.eval()
         with torch.no_grad():
@@ -258,8 +259,32 @@ class SegmentationTraining:
                                feats=batch["features"], mask=batch["mask"])
             logits = model(field)
             loss, mets = self.loss_and_metrics(logits, batch)
-        return logits, {"loss": loss, "OA": mets["OA"], "mIoU": mets["mIoU"],
-                        "ignore_ratio": mets["ignore_ratio"]}
+        return logits, self._step_metrics(loss, mets)
+
+
+class SegmentationTraining(BaseTask):
+    """Per-point segmentation training: the reference's weighted CE with
+    ``class_weight`` and ``void_weight`` (the void class is the last one),
+    overall accuracy, mIoU and the ignored share per step, and the IoU
+    meter, the per-class tables and ``eval_results.json`` at validation.
+    """
+
+    def __init__(self, model, **kwargs):
+        super().__init__(model, **kwargs)
+        self.void_label = cfg.query_parameter(
+            "PlenoxelScannetDataset.void_label", default=None)
+        w = torch.ones(self.num_labels)
+        if self.void_weight is not None and self.void_weight > 0:
+            w[-1] = self.void_weight
+        self.class_weight = w
+        self.iou_state = M.IoUMeterState.create(self.num_labels)
+        self.best_miou = -1.0
+        self._val_batch_idx = 0
+
+    def loss_and_metrics(self, logits, batch):
+        return loss_and_metrics(
+            logits, batch["labels"], batch["mask"], self.num_labels,
+            self.ignore_label, self.class_weight.to(logits.device))
 
     # -- validation hooks (the Trainer calls these) --------------------------
 
@@ -335,19 +360,97 @@ class SegmentationTraining:
         return out
 
 
-MODULES = {"SegmentationTraining": SegmentationTraining}
+def classification_loss(logits, labels, sample_mask=None):
+    """(loss, {"acc1", "acc5"}) of whole-sample classification: the mean
+    cross entropy over the samples ``sample_mask`` keeps (all when None;
+    the padding of a ragged last val batch is dropped), and the top-1 and
+    top-5 accuracy over every row, padding included, as the reference
+    counts them. ``logits`` [num_batches, C] may have more rows than
+    ``labels`` (a model sized for the train batch on a smaller val
+    batch): the rows past the labels are scene slots no sample fills, and
+    are left out."""
+    b = labels.shape[0]
+    if b > logits.shape[0]:
+        raise ValueError(f"{b} labels for {logits.shape[0]} scene slots: "
+                         "the model's num_batches is below the batch size")
+    logits = logits[:b]
+    logp = F.log_softmax(logits.to(torch.float32), dim=-1)
+    nll = -torch.gather(logp, 1, labels.to(torch.int64)[:, None])[:, 0]
+    w = (torch.ones_like(nll) if sample_mask is None
+         else sample_mask.to(torch.float32))
+    loss = (nll * w).sum() / torch.clamp(w.sum(), min=1)
+    return loss, M.topk_accuracy(logits, labels, ks=(1, 5))
+
+
+class ClassificationTraining(BaseTask):
+    """Whole-sample classification (the reference's
+    ``ClassificationTraining``): ``classification_loss`` per step, and at
+    validation the top-1 and top-5 hits over the samples ``sample_mask``
+    keeps: ``val/acc1``, ``val/acc5`` (percent) and ``val/loss``."""
+
+    def __init__(self, model, **kwargs):
+        super().__init__(model, **kwargs)
+        self._val_correct1 = 0
+        self._val_correct5 = 0
+        self._val_count = 0
+
+    def loss_and_metrics(self, logits, batch):
+        return classification_loss(logits, batch["labels"],
+                                   batch.get("sample_mask"))
+
+    def on_validation_start(self):
+        self._val_correct1 = 0
+        self._val_correct5 = 0
+        self._val_count = 0
+
+    def validation_batch_end(self, logits, batch):
+        labels = batch["labels"].cpu().numpy()
+        lg = logits[: len(labels)].float().cpu().numpy()
+        sm = batch.get("sample_mask")
+        valid = (np.ones(len(labels), bool) if sm is None
+                 else sm.cpu().numpy().astype(bool))
+        order = np.argsort(-lg, axis=-1)
+        self._val_correct1 += int(((order[:, 0] == labels) & valid).sum())
+        self._val_correct5 += int(
+            ((order[:, :5] == labels[:, None]).any(-1) & valid).sum())
+        self._val_count += int(valid.sum())
+
+    def validation_sums(self):
+        return np.array(
+            [self._val_correct1, self._val_correct5, self._val_count],
+            np.int64)
+
+    def set_validation_sums(self, sums):
+        self._val_correct1, self._val_correct5, self._val_count = (
+            int(x) for x in np.asarray(sums))
+
+    def validation_epoch_end(self, step_results, root_dir):
+        assert len(step_results) > 0
+        n = max(self._val_count, 1)
+        return {
+            "val/acc1": 100.0 * self._val_correct1 / n,
+            "val/acc5": 100.0 * self._val_correct5 / n,
+            "val/loss": float(
+                np.mean([r["loss"] for r in step_results if "loss" in r])),
+        }
+
+
+MODULES = {
+    "SegmentationTraining": SegmentationTraining,
+    "ClassificationTraining": ClassificationTraining,
+}
 
 
 def get_training_module(name: str):
     """The task class of ``name`` (the reference's table; the
-    ExceptionSafe variant is the standard one, as there). Classification
-    and the ensemble task are not ported (ROADMAP.md Queue 1 item 3)."""
+    ExceptionSafe variant is the standard one, as there). The ensemble
+    task is not ported (ROADMAP.md Queue 1 item 5)."""
     if name == "ExceptionSafeSegmentationTraining":
         name = "SegmentationTraining"
-    if name in ("ClassificationTraining", "EnsembleClassificationTraining"):
+    if name == "EnsembleClassificationTraining":
         raise NotImplementedError(
             f"training module {name!r} is not ported (ROADMAP.md Queue 1 "
-            "item 3)")
+            "item 5)")
     if name not in MODULES:
         raise ValueError(f"unknown training module {name!r}")
     return MODULES[name]

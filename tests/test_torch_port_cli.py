@@ -8,8 +8,9 @@ step 5. Host and device augmentations are off (the device ones match only
 in distribution). Every logged ``train/loss`` must agree within rtol
 1e-4, ``val/mIoU`` within 1e-3, and ``last.ckpt``'s weights within 1e-5,
 after the first run and after the resume. The other tests hold the CLI's
-guards: a non-finite loss, more than one GPU, an unported conv method,
-and a configuration the reference would calibrate.
+guards: a non-finite loss, more than one GPU, an unported conv method;
+and a configuration the reference would calibrate, which the CLI now
+calibrates too.
 """
 
 import json
@@ -184,9 +185,14 @@ def test_cli_raises_on_unported_conv_method(tiny_tree, tmp_path, binding):
 
 
 def test_cli_raises_where_the_reference_calibrates(tiny_tree, tmp_path):
-    with pytest.raises(NotImplementedError, match="Queue 1 item 2"):
-        port_cli(tiny_tree, tmp_path,
-                 ["CoordinateContext.window_escape_cap = None"])
+    # where the reference calibrates, the CLI now calibrates too (it used
+    # to raise): the knobs are bound and the run completes
+    port_cli(tiny_tree, tmp_path,
+             ["CoordinateContext.window_escape_cap = None"])
+    assert tcfg.query_parameter("CoordinateContext.level_caps") is not None
+    assert tcfg.query_parameter("CoordinateContext.window_escape_cap") \
+        is not None
+    assert os.path.exists(tmp_path / "last.ckpt")
 
 
 def test_cli_defaults_to_the_card(tiny_tree, tmp_path):

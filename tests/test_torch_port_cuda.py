@@ -1053,3 +1053,97 @@ def test_cli_trains_and_resumes_on_card(cuda, tmp_path):
     assert all(np.isfinite(r["val/loss"]) for r in rows if "val/loss" in r)
     assert (save / "best.ckpt").exists()
     assert (save / "eval_results.json").exists()
+
+
+def test_resnet_step_on_card_matches_cpu(cuda):
+    """A small ResNet14 (planes 8) on the card against the CPU: eval logits
+    within 1e-4 x max|logit| and one classification training step's loss
+    within 1e-5 relative and gradients within 1e-4 of each largest, with
+    K6 (the k3/s2 convs) launched in both."""
+    from nerf_downstream_tpu_torch import convert
+    from nerf_downstream_tpu_torch.data import synthetic
+    from nerf_downstream_tpu_torch.models import get_model
+    from nerf_downstream_tpu_torch.train.loop import to_device
+    from nerf_downstream_tpu_torch.train.modules import (
+        ClassificationTraining,
+    )
+
+    knobs = dict(method="hybrid", grid_extent=64,
+                 level_caps=(2048, 1024, 512, 256, 128), window_tile=64,
+                 window_size=64, window_blocks=2, window_expand_factor=3,
+                 window_escape_cap=(4096, 1024, 1024, 256, 256),
+                 window_escape_tiles=(288, 144, 72, 36, 36))
+    rng = np.random.default_rng(0)
+    samples = []
+    for i in range(3):
+        sc = synthetic.make_synthetic_scene(rng, n_voxels=500,
+                                            reso=(48, 48, 48), surface=True)
+        samples.append({"coordinates": sc["coords"].astype(np.float32),
+                        "features": sc["sh"].astype(np.float32),
+                        "labels": np.array([i + 3], np.int32)})
+    batch = synthetic.collate_mink(samples, capacity=2048)
+    out = {}
+    for dev in ("cpu", cuda):
+        model = get_model("ResNet14", in_channel=27, out_channel=51,
+                          planes=(8, 8, 8, 8), init_dim=8, num_batches=3,
+                          ctx=knobs, assume_unique=True)
+        convert.load_flax_variables(model,
+                                    convert.init_flax_variables(model, 1))
+        model.to(dev)
+        task = ClassificationTraining(model, scheduler_name="none", lr=0.1)
+        state = task.create_state()
+        b = to_device(batch, dev)
+        K.reset_launch_counts()
+        logits, _ = task.eval_step(state, b)
+        _, mets = task.train_step(state, b)
+        out[str(dev)] = (logits.cpu(), float(mets["loss"]), {
+            k: p.grad.cpu() for k, p in model.named_parameters()})
+        if dev != "cpu":
+            assert K.launch_counts()["row_gather_matmul"] == 8
+    (l0, loss0, g0), (l1, loss1, g1) = out.values()
+    assert torch.isfinite(l0).all() and np.isfinite(loss0)
+    _close_to_max(l1, l0, 1e-4)
+    np.testing.assert_allclose(loss1, loss0, rtol=1e-5)
+    for k in g0:
+        _close_to_max(g1[k], g0[k], 1e-4)
+
+
+def test_cls_cli_calibrates_and_trains_on_card(cuda, tmp_path):
+    """The classification CLI at full width (ResNet14, ``co3d_aug2``) on
+    the reference CLI test's tree: calibration on the card, 3 steps,
+    a finite validation, the checkpoints and ``val/acc1``."""
+    import json
+
+    from nerf_downstream_tpu_torch import config as gin
+    from nerf_downstream_tpu_torch.co3d_3d import train as cli
+    from nerf_downstream_tpu_torch.data.synthetic import write_co3d_tree
+
+    root, fdir = write_co3d_tree(str(tmp_path), np.random.default_rng(0),
+                                 n_train=4, n_val=0, n_voxels=300,
+                                 reso=(32, 32, 32), num_classes=3)
+    args = []
+    for c in ("co3d_cls", "co3d_aug2", "feature_sh", "resnet14"):
+        args += ["--ginc", f"co3d_3d/configs/{c}.gin"]
+    for b in (f'Co3DDatasetBase.data_root = "{root}"',
+              f'Co3DDatasetBase.filelist_dir = "{fdir}"',
+              "Co3DDatasetBase.downsample_stride = 1",
+              "train.max_steps = 3", "train.val_every_n_steps = 2",
+              "train.batch_size = 2", "train.val_batch_size = 2",
+              "train.train_num_workers = 1", "train.val_num_workers = 1",
+              "train.evaluate = True"):
+        args += ["--ginb", b]
+    save = tmp_path / "exp"
+    try:
+        gin.clear_config()
+        K.reset_launch_counts()
+        cli.main(args + ["--save_path", str(save), "--seed", "1"])
+        assert gin.query_parameter("CoordinateContext.level_caps")
+    finally:
+        gin.clear_config()
+    counts = K.launch_counts()
+    assert all(counts[k] > 0 for k in ("window_match", "window_starts",
+                                       "window_gather_matmul", "window_bwd",
+                                       "row_gather_matmul"))
+    res = json.load(open(save / "eval_results.json"))
+    assert np.isfinite(res["val/loss"]) and "val/acc1" in res
+    assert (save / "best.ckpt").exists() and (save / "last.ckpt").exists()

@@ -42,13 +42,16 @@ bad = sorted(m for m in added if m.split(".")[0] in ("jax", "jaxlib", "flax",
 print(len(names), bad, ",".join(names))
 """
 
-# modules of the training slice the import guard must reach
+# modules of the training and classification slices the import guard
+# must reach
 TRAIN_MODULES = ("ops.kernels.bwd", "ops.kernels.dw", "train.optim",
                  "train.state", "data.device_transforms", "train3d",
                  "config.engine", "data.transforms", "data.scannet",
                  "data.plenoxel", "data.utils", "data.data_module",
                  "train.loop", "train.loggers", "train.profilers",
-                 "utils.meters", "co3d_3d.train")
+                 "utils.meters", "co3d_3d.train", "data.co3d",
+                 "models.mink.resnet", "ops.pool", "utils.calibrate",
+                 "co3d_3d.calibrate")
 
 
 def test_port_imports_no_jax():

@@ -278,6 +278,11 @@ ROW_CHOICES = [
     ((1024, 64, 64, 2), (64, 4, 1)), ((1024, 64, 64, 4), (64, 8, 1)),
     ((512, 128, 128, 2), (128, 8, 1)), ((512, 128, 128, 4), (128, 16, 1)),
     ((512, 40, 72, 3), (96, 6, 1)), ((333, 40, 72, 27), (96, 14, 4)),
+    # ResNet14's four k3/s2 convs (27 terms) at the level sizes of 16
+    # shells of 10,000 voxels
+    ((16384, 64, 64, 27), (64, 1, 54)), ((4096, 64, 128, 27), (128, 5, 11)),
+    ((1024, 128, 256, 27), (128, 9, 12)),
+    ((256, 256, 512, 27), (128, 16, 14)),
 ]
 
 
