@@ -2170,8 +2170,8 @@ def cli_cls_kernels(rec, wide: int = 512) -> dict:
                           "d_w_of_max": DW_TOL}}
 
 
-def phase_cli_cls(card: str, device: str = "cuda", bindings=(),
-                  tree=None, batch_size: int = CLS_BATCH) -> tuple[dict, dict]:
+def phase_cli_cls(card: str, device: str = "cuda",
+                  bindings=()) -> tuple[dict, dict]:
     """The README's classification command through the port's training
     CLI, at full width (ResNet14 on ``co3d_cls.gin`` + ``co3d_aug3.gin``
     + ``feature_sh.gin`` + ``resnet14.gin``: batch 16, val batch 8, SGD
@@ -2189,9 +2189,8 @@ def phase_cli_cls(card: str, device: str = "cuda", bindings=(),
     launched. Then one more step is profiled and its synchronising calls
     counted, and its K1-K3 calls are held against their plain versions in
     f32 (``cli_kernels_f32``) and its K6 calls and its K2 and K3 calls at
-    512 channels in f32 and bf16 (``cli_cls_kernels``). ``device``,
-    ``bindings``, ``tree`` and ``batch_size`` serve a rehearsal on the
-    CPU at a narrow width."""
+    512 channels in f32 and bf16 (``cli_cls_kernels``). ``device`` and
+    ``bindings`` serve a rehearsal on the CPU at a narrow width."""
     import contextlib
     import io
     import shutil
@@ -2209,7 +2208,6 @@ def phase_cli_cls(card: str, device: str = "cuda", bindings=(),
     from nerf_downstream_tpu_torch.train import checkpoints
     from nerf_downstream_tpu_torch.utils import calibrate as calib
 
-    tree = dict(CLS_TREE if tree is None else tree)
     tmp = tempfile.mkdtemp(prefix="cli_cls_")
     calibrations = []  # every calibrate() of the automatic calibration
     measure, scan = calib.calibrate, calib.maybe_auto_calibrate
@@ -2240,7 +2238,8 @@ def phase_cli_cls(card: str, device: str = "cuda", bindings=(),
 
     try:
         t0 = time.perf_counter()
-        data_root, _ = write_co3d_tree(tmp, np.random.default_rng(0), **tree)
+        data_root, _ = write_co3d_tree(tmp, np.random.default_rng(0),
+                                       **CLS_TREE)
         tree_s = time.perf_counter() - t0
         save = os.path.join(tmp, "exp")
         args = [a for c in CLS_CONFIGS for a in (
@@ -2281,7 +2280,7 @@ def phase_cli_cls(card: str, device: str = "cuda", bindings=(),
         counts = kernels.launch_counts()
         calib.calibrate, calib.maybe_auto_calibrate = measure, scan
         task, state, batch = probe.last
-        run = os.path.join(save, f"b{batch_size}x1-MinkResNetBase")
+        run = os.path.join(save, f"b{CLS_BATCH}x1-MinkResNetBase")
         files = {name: os.path.exists(os.path.join(d, name)) for d, name in (
             (save, "last.ckpt"), (save, "best.ckpt"),
             (run, "metrics.csv"), (run, "metrics.jsonl"))}
@@ -2304,10 +2303,10 @@ def phase_cli_cls(card: str, device: str = "cuda", bindings=(),
             "configs": [f"co3d_3d/configs/{c}" for c in CLS_CONFIGS],
             "model": type(task.model).__name__,
             "planes": list(task.model.planes),
-            "tree": dict(tree, seconds=tree_s),
+            "tree": dict(CLS_TREE, seconds=tree_s),
             "dtype": "float32 (the configs bind no compute type; every "
                      "conv on the CUDA cores)",
-            "batch": batch_size, "capacity": capacity,
+            "batch": CLS_BATCH, "capacity": capacity,
             "valid_finest_rows": probe.rows,
             "automatic_calibration": scans, "calibrations": calibrations,
             "steps": steps, "ms": ms,
@@ -2339,7 +2338,7 @@ def phase_cli_cls(card: str, device: str = "cuda", bindings=(),
         # one more step of the same task
         from nerf_downstream_tpu_torch.data.data_module import DataModule
 
-        dm = DataModule(batch_size=batch_size, val_batch_size=8,
+        dm = DataModule(batch_size=CLS_BATCH, val_batch_size=8,
                         train_num_workers=1, capacity=capacity)
         rec = cli_extra_steps("cli_cls", line, task, state, batch, dm,
                               ClsStepRecorder, 2)

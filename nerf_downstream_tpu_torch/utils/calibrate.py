@@ -37,12 +37,16 @@ DataModule, as the reference's does, and then more of them: a knob set
 from two augmented batches bounds later batches only by chance (the
 reference's own CLI test NaN-poisons a train step and its validation
 that way), so the port also measures the validation batches the knobs
-do not cover, and draws train batches until several in a row run under
-the knobs, measuring each one that does not (ROADMAP.md Queue 3).
+do not cover, and draws train batches until ``FRESH_BATCHES`` in a row
+run under the knobs, measuring each one that does not (ROADMAP.md Queue
+3). It draws them from copies of the run's streams, so the run's own
+batches do not depend on how many were measured.
 """
 
 from __future__ import annotations
 
+import contextlib
+import copy
 import logging
 from typing import Iterable
 
@@ -53,6 +57,10 @@ from nerf_downstream_tpu_torch import config as cfg
 
 STRIDES = (1, 2, 4, 8, 16)
 BLOCK_CHOICES = (2, 3, 4, 6, 8)
+# maybe_auto_calibrate: train batches in a row that must run under the
+# knobs, and the most train batches it draws after the first ones
+FRESH_BATCHES = 8
+MAX_DRAWS = 64
 
 
 def _level_rows(batch: dict, stride: int) -> np.ndarray:
@@ -441,19 +449,58 @@ def covers(knobs: dict, batch: dict, device="cuda") -> bool:
         for s in STRIDES[:-1] for e in (False, True))
 
 
+def coverage_report(knobs: dict, batch: dict, device="cuda") -> dict:
+    """``covers`` with what decides it: the batch's valid rows per level
+    and the stride-1 same-set plan's (escaped entries, candidate tiles,
+    far overflow?) at the knobs' coverage, every candidate searched."""
+    from nerf_downstream_tpu_torch.device import resolve_device
+
+    device = resolve_device(device)
+    tile = knobs["window_tile"]
+    finest = _sorted_level_coords(
+        _level_rows(batch, 1), tile,
+        int(np.asarray(batch["coordinates"]).shape[0]), device)
+    return {"covered": covers(knobs, batch, device),
+            "level_rows": [int(_level_rows(batch, s).shape[0])
+                           for s in STRIDES],
+            "stride1_entries_tiles_far": list(_plan_escape_stats(
+                *finest, tile, knobs["window_size"],
+                knobs["window_blocks"]))}
+
+
+@contextlib.contextmanager
+def _own_streams(data_module):
+    """A copy of ``data_module`` whose batch order, subsampling and host
+    transforms draw from copies of the run's streams, with one loader
+    thread (no prefetched batches left to drain): what it yields first is
+    what the run yields first, and the run's streams stay where they
+    were."""
+    from nerf_downstream_tpu_torch.data import transforms
+
+    dm = copy.copy(data_module)
+    dm.rng = copy.deepcopy(data_module.rng)
+    dm.train_num_workers = dm.val_num_workers = 1
+    saved = transforms._rng
+    transforms._rng = copy.deepcopy(saved)
+    try:
+        yield dm
+    finally:
+        transforms._rng = saved
+
+
 def maybe_auto_calibrate(data_module, num_batches: int = 2,
-                         dry_run: bool = False, device="cuda",
-                         fresh_batches: int = 8, **kw) -> bool:
+                         dry_run: bool = False, device="cuda", **kw) -> bool:
     """Measure and bind the knobs when ``needs_calibration()``, from the
-    batches of ``data_module`` (its transforms, collation and capacities):
-    the first ``num_batches`` train and validation batches, as the
-    reference measures train batches; then every validation batch the
-    knobs do not cover (``covers``), and train batches drawn until
-    ``fresh_batches`` in a row run under the knobs, each one that does
-    not joining the measured set (at most ``8 * fresh_batches`` draws).
-    A later batch may still exceed them: the guards then poison it.
-    Returns whether knobs were bound; ``dry_run`` only says whether they
-    would be."""
+    batches of ``data_module`` (its transforms, collation and capacities;
+    drawn from copies of its streams, ``_own_streams``): the first
+    ``num_batches`` train and validation batches, as the reference
+    measures train batches; then every validation batch the knobs do not
+    cover (``covers``), and train batches drawn until ``FRESH_BATCHES`` in
+    a row run under the knobs, each one that does not joining the
+    measured set (at most ``MAX_DRAWS`` draws; a warning if they run out
+    first). A later batch may still exceed them: the guards then poison
+    it. Returns whether knobs were bound; ``dry_run`` only says whether
+    they would be."""
     if not needs_calibration():
         return False
     if dry_run:
@@ -465,27 +512,34 @@ def maybe_auto_calibrate(data_module, num_batches: int = 2,
     def coords(batch):  # all that is measured
         return {"coordinates": batch["coordinates"], "mask": batch["mask"]}
 
-    it = map(coords, data_module.train_batches())
-    val = [coords(b) for b in data_module.val_batches()]
-    batches = [next(it) for _ in range(num_batches)] + val[:num_batches]
-    knobs = calibrate(batches, device=device, **kw)
-    val_checked, clean, draws = False, 0, 0
-    while clean < fresh_batches and draws < 8 * fresh_batches:
-        if not val_checked:  # again after every new calibration
-            missed = [b for b in val if not covers(knobs, b, device)]
-            val_checked = not missed
-            if missed:
-                batches += missed
+    with _own_streams(data_module) as dm:
+        it = map(coords, dm.train_batches())
+        val = [coords(b) for b in dm.val_batches()]
+        batches = [next(it) for _ in range(num_batches)] + val[:num_batches]
+        knobs = calibrate(batches, device=device, **kw)
+        val_checked, clean, draws = False, 0, 0
+        while clean < FRESH_BATCHES and draws < MAX_DRAWS:
+            if not val_checked:  # again after every new calibration
+                missed = [b for b in val if not covers(knobs, b, device)]
+                val_checked = not missed
+                if missed:
+                    batches += missed
+                    knobs = calibrate(batches, device=device, **kw)
+                continue
+            b = next(it)
+            draws += 1
+            if covers(knobs, b, device):
+                clean += 1
+            else:
+                batches.append(b)
                 knobs = calibrate(batches, device=device, **kw)
-            continue
-        b = next(it)
-        draws += 1
-        if covers(knobs, b, device):
-            clean += 1
-        else:
-            batches.append(b)
-            knobs = calibrate(batches, device=device, **kw)
-            clean, val_checked = 0, False
+                clean, val_checked = 0, False
+    if clean < FRESH_BATCHES:
+        logging.warning(
+            f"calibration drew {draws} train batches without "
+            f"{FRESH_BATCHES} in a row under the knobs (the last "
+            f"{clean}); later batches may trip a guard: pin wider knobs "
+            "with co3d_3d.calibrate")
     logging.info(f"calibrated from {len(batches)} batches; {clean} fresh "
                  f"train batches in a row ran under the knobs")
     bind(knobs)

@@ -195,6 +195,50 @@ def test_needs_calibration_matches_reference(extra):
         TC.needs_calibration()
 
 
+def test_automatic_calibration_leaves_the_run_stream_alone(tmp_path,
+                                                           monkeypatch,
+                                                           caplog):
+    """``maybe_auto_calibrate`` draws from copies of the run's streams: it
+    measures the batches the run then trains on first, and the run's
+    batches are those of a run with its knobs pinned, however many the
+    calibration drew. When its draws run out before ``FRESH_BATCHES``
+    covered batches in a row, it warns."""
+    data_root, fdir = reference_test_tree(tmp_path)
+    binds = [f'Co3DDatasetBase.data_root = "{data_root}"',
+             f'Co3DDatasetBase.filelist_dir = "{fdir}"',
+             "Co3DDatasetBase.downsample_stride = 1"]
+    measured = []
+    measure = TC.calibrate
+
+    def recording_calibrate(batches, **kw):
+        measured.append(list(batches))
+        return measure(batches, **kw)
+
+    monkeypatch.setattr(TC, "calibrate", recording_calibrate)
+    monkeypatch.setattr(TC, "FRESH_BATCHES", 100)
+    monkeypatch.setattr(TC, "MAX_DRAWS", 3)
+
+    def first_train_coords(calibrate: bool) -> list:
+        tcfg.clear_config()
+        tcli.seed_everything(1)
+        tcfg.parse_config_files_and_bindings(CLS, binds)
+        dm = DataModule(batch_size=2, val_batch_size=2, train_num_workers=1,
+                        val_num_workers=1)
+        if calibrate:
+            with caplog.at_level("WARNING"):
+                assert TC.maybe_auto_calibrate(dm, device="cpu")
+        it = dm.train_batches()
+        return [next(it)["coordinates"] for _ in range(3)]
+
+    pinned = first_train_coords(False)
+    calibrated = first_train_coords(True)
+    for a, b in zip(pinned, calibrated):
+        np.testing.assert_array_equal(a, b)
+    for a, b in zip(pinned[:2], measured[0][:2]):
+        np.testing.assert_array_equal(a, b["coordinates"])
+    assert "without 100 in a row" in caplog.text
+
+
 # -- the reference's NaN -----------------------------------------------------
 
 def test_reference_knobs_poison_validation_in_both(tmp_path, monkeypatch):

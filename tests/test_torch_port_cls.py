@@ -362,11 +362,17 @@ def check_eval(name):
         assert float(mets[k]) == float(ref_mets[k])
 
 
-def check_step(name, tol):
+def check_step(name, spread=False):
     """One SGD step (lr 0.1, momentum 0.9 as ``co3d_cls.gin`` binds it, no
-    schedule) of the whole classification task: the loss within 1e-5,
-    each gradient and updated parameter within ``tol`` of its largest
-    entry, the running statistics within 1e-5 of theirs."""
+    schedule) of the whole classification task: the loss within 1e-5, the
+    running statistics within 1e-5 of each one's largest entry, and each
+    gradient and updated parameter within 1e-5 of its largest entry.
+
+    With ``spread`` the reference's step is also compiled at XLA's default
+    optimization level, and a leaf on which the reference's two steps
+    differ by more than 1e-5 of its largest entry (f32 rounding that the
+    reference does not reproduce itself) is held to twice that measured
+    spread instead."""
     batch, jbatch, jmodel, model, variables = models(name)
     jcfg.parse_config("SGD.momentum = 0.9\n")
     tcfg.parse_config("SGD.momentum = 0.9\n")
@@ -382,14 +388,30 @@ def check_step(name, tol):
         jax.tree_util.tree_map(jnp.asarray, variables["params"]),
         jax.tree_util.tree_map(jnp.asarray, variables["batch_stats"]),
         optax.chain(stash_grads(), jtask.make_tx()))
-    step = jtask.make_train_step(donate=False).lower(jstate, jbatch).compile(
-        compiler_options=FAST_XLA)
-    ref_state, ref_mets = step(jstate, jbatch)
-    ref_grads = convert.flax_to_state_dict(
-        model, jax.device_get(ref_state.opt_state[0]))
-    ref_after = convert.flax_to_state_dict(model, {
-        "params": jax.device_get(ref_state.params),
-        "batch_stats": jax.device_get(ref_state.batch_stats)})
+    lowered = jtask.make_train_step(donate=False).lower(jstate, jbatch)
+
+    def reference_step(compiler_options):
+        ref_state, ref_mets = lowered.compile(
+            compiler_options=compiler_options)(jstate, jbatch)
+        grads = convert.flax_to_state_dict(
+            model, jax.device_get(ref_state.opt_state[0]))
+        after = convert.flax_to_state_dict(model, {
+            "params": jax.device_get(ref_state.params),
+            "batch_stats": jax.device_get(ref_state.batch_stats)})
+        return grads, after, ref_mets
+
+    ref_grads, ref_after, ref_mets = reference_step(FAST_XLA)
+    limit = {("grad", k): 1e-5 for k in ref_grads}
+    limit.update({("after", k): 1e-5 for k in ref_after})
+    if spread:
+        alt_grads, alt_after, _ = reference_step({})
+        for kind, ref, alt in (("grad", ref_grads, alt_grads),
+                               ("after", ref_after, alt_after)):
+            for k in ref:
+                if "running" not in k:
+                    own = float((ref[k] - alt[k]).abs().max()
+                                / ref[k].abs().max())
+                    limit[kind, k] = max(1e-5, 2 * own)
 
     task = ClassificationTraining(model, scheduler_name="none", lr=0.1)
     state = task.create_state()
@@ -404,10 +426,11 @@ def check_step(name, tol):
     grads = {k: p.grad for k, p in model.named_parameters()}
     assert set(grads) == set(ref_grads)
     for key, g in grads.items():
-        close_to_largest(g.numpy(), ref_grads[key].numpy(), tol, key)
+        close_to_largest(g.numpy(), ref_grads[key].numpy(),
+                         limit["grad", key], key)
     for key, v in model.state_dict().items():
         close_to_largest(v.numpy(), ref_after[key].numpy(),
-                         1e-5 if "running" in key else tol, key)
+                         limit["after", key], key)
 
 
 def test_resnet14_eval_matches_reference():
@@ -415,7 +438,7 @@ def test_resnet14_eval_matches_reference():
 
 
 def test_resnet14_step_matches_reference():
-    check_step("ResNet14", 1e-5)
+    check_step("ResNet14")
 
 
 # -- metrics, the validation sums, checkpoints --------------------------------

@@ -6,13 +6,14 @@ run short).
 - Eval logits within 1e-4 x max|logit|.
 - One ``ClassificationTraining`` step: the loss within 1e-5 (relative),
   the running statistics within 1e-5 of each one's largest entry, and
-  each gradient and updated parameter within 1e-3 of its largest entry.
-  The gradients of this 50-layer network carry f32 rounding that the
-  reference does not reproduce itself: its own step compiled at XLA's
-  default and at its lowest optimization level differs by up to 3.4e-4
-  of a parameter's largest gradient and 1.7e-4 of its largest updated
-  value (``layer2_block2.norm2.bias``); the port lies within about 1e-4
-  of it. ResNet14 holds 1e-5 for both (``test_torch_port_cls.py``).
+  each gradient and updated parameter within 1e-5 of its largest entry,
+  or within twice the reference's own spread where that is larger. The
+  gradients of this 50-layer network carry f32 rounding that the
+  reference does not reproduce itself: the test compiles the reference's
+  step at XLA's lowest and at its default optimization level and measures,
+  leaf by leaf, how far the two differ (up to 3.4e-4 of a parameter's
+  largest gradient, ``layer2_block2.norm2.bias``, on these inputs).
+  ResNet14 holds 1e-5 on every leaf (``test_torch_port_cls.py``).
 """
 
 import pytest
@@ -31,4 +32,4 @@ def test_resnet50_eval_matches_reference():
 
 
 def test_resnet50_step_matches_reference():
-    check_step("ResNet50", 1e-3)
+    check_step("ResNet50", spread=True)

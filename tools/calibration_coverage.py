@@ -1,24 +1,30 @@
 #!/usr/bin/env python3
 """How far knobs calibrated from a few batches cover later batches.
 
-    python3 tools/calibration_coverage.py [--train 2,4,8] [--fresh 24]
-        [--voxels 10000] [--batch 16] [--device cuda] [--out cover.json]
+    python3 tools/calibration_coverage.py [--train 2,8] [--seeds 0,1,2]
+        [--fresh 24] [--voxels 10000] [--batch 16] [--device cuda]
+        [--out cover.json]
 
 Writes the synthetic PeRFception-CO3D tree of ``chip_smoke.py``'s phase
 ``cli_cls`` (32 train and 8 val shells of ``--voxels`` voxels at 128^3;
-``data.synthetic.write_co3d_tree``), reads it with the README's
+``data.synthetic.write_co3d_tree``) and reads it with the README's
 classification configs (``co3d_cls.gin`` + ``co3d_aug3.gin``, batches of
-``--batch`` scenes, val batches of half that), and for each count N in
-``--train``: calibrates the capacity knobs from the first N train batches
-and the first validation batch (``utils/calibrate.py::calibrate``, as the
-reference's ``maybe_auto_calibrate`` measures two train batches), then
-draws ``--fresh`` more train batches and reports, for each, whether
-``calibrate.covers`` says it runs under the knobs, with its rows per
-level and the stride-1 plan's escaped entries, flagged tiles and far
-overflow at the knobs' coverage. Last, the same for the port's
-``maybe_auto_calibrate`` (``"train_batches": "port"``), whose knobs the
-training CLI binds. The card's name and power limit lead the output; one
-JSON line per count follows.
+``--batch`` scenes, val batches of half that). For each run seed in
+``--seeds`` (the host transforms' and the DataModule's seed) it draws
+``--fresh`` train batches from an independent stream (seed + 1000), then
+calibrates the capacity knobs three ways and reports, for each knob set,
+``calibrate.coverage_report`` of every fresh batch (covered?, rows per
+level, the stride-1 plan's escaped entries, flagged tiles and far
+overflow):
+
+- for each count N in ``--train``: ``calibrate`` on the run's first N
+  train batches and its first validation batch (the reference's
+  ``maybe_auto_calibrate`` measures two train batches);
+- ``"port"``: the port's ``maybe_auto_calibrate``, whose knobs the
+  training CLI binds.
+
+Every knob set of a seed faces the same fresh batches. The card's name and
+power limit lead the output; one JSON line per seed and knob set follows.
 """
 
 from __future__ import annotations
@@ -34,11 +40,15 @@ import time
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CONFIGS = ("co3d_cls.gin", "co3d_aug3.gin", "feature_sh.gin",
            "resnet14.gin")
+KNOBS = ("level_caps", "window_tile", "window_size", "window_blocks",
+         "window_cross_blocks", "window_expand_factor", "window_escape_cap",
+         "window_escape_tiles")
 
 
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser()
-    parser.add_argument("--train", default="2,4,8")
+    parser.add_argument("--train", default="2,8")
+    parser.add_argument("--seeds", default="0,1,2")
     parser.add_argument("--fresh", type=int, default=24)
     parser.add_argument("--voxels", type=int, default=10_000)
     parser.add_argument("--batch", type=int, default=16)
@@ -50,7 +60,7 @@ def main(argv=None) -> int:
     import numpy as np
 
     from nerf_downstream_tpu_torch import config as gin
-    from nerf_downstream_tpu_torch.co3d_3d.train import seed_everything
+    from nerf_downstream_tpu_torch.data import transforms
     from nerf_downstream_tpu_torch.data.data_module import DataModule
     from nerf_downstream_tpu_torch.data.synthetic import write_co3d_tree
     from nerf_downstream_tpu_torch.device import resolve_device
@@ -62,57 +72,47 @@ def main(argv=None) -> int:
         print(card_info(), flush=True)
     tmp = tempfile.mkdtemp(prefix="coverage_")
     lines = []
+
+    def data_module(seed):
+        gin.clear_config()  # no knobs bound by an earlier calibration
+        gin.parse_config_files_and_bindings(
+            [os.path.join(REPO, "co3d_3d", "configs", c) for c in CONFIGS],
+            [f'Co3DDatasetBase.data_root = "{root}"'])
+        transforms.seed(seed)
+        return DataModule(batch_size=args.batch,
+                          val_batch_size=args.batch // 2,
+                          train_num_workers=1, val_num_workers=1, seed=seed)
+
     try:
         root, _ = write_co3d_tree(tmp, np.random.default_rng(0), n_train=32,
                                   n_val=8, n_voxels=args.voxels,
                                   reso=(128, 128, 128), num_classes=51)
-        configs = [os.path.join(REPO, "co3d_3d", "configs", c)
-                   for c in CONFIGS]
-        for n_train in [int(v) for v in args.train.split(",")] + ["port"]:
-            seed_everything(777)
-            gin.clear_config()
-            gin.parse_config_files_and_bindings(
-                configs, [f'Co3DDatasetBase.data_root = "{root}"'])
-            dm = DataModule(batch_size=args.batch,
-                            val_batch_size=args.batch // 2,
-                            train_num_workers=1, val_num_workers=1)
-            t0 = time.perf_counter()
-            if n_train == "port":
-                C.maybe_auto_calibrate(dm, device=dev)
-                knobs = {k: gin.query_parameter(f"CoordinateContext.{k}")
-                         for k in ("level_caps", "window_tile",
-                                   "window_size", "window_blocks",
-                                   "window_cross_blocks",
-                                   "window_expand_factor",
-                                   "window_escape_cap",
-                                   "window_escape_tiles")}
-                it = dm.train_batches()  # a fresh pass: new draws
-            else:
-                it = dm.train_batches()
-                batches = [next(it) for _ in range(n_train)]
-                batches.append(next(dm.val_batches()))
-                knobs = C.calibrate(batches, device=dev)
-            seconds = time.perf_counter() - t0
-            fresh = []
-            for _ in range(args.fresh):
-                b = next(it)
-                rows = [int(C._level_rows(b, s).shape[0]) for s in C.STRIDES]
-                c, m = C._sorted_level_coords(
-                    C._level_rows(b, 1), knobs["window_tile"],
-                    int(b["coordinates"].shape[0]), dev)
-                plan_stats = C._plan_escape_stats(
-                    c, m, knobs["window_tile"], knobs["window_size"],
-                    knobs["window_blocks"], 1)
-                fresh.append({"covered": C.covers(knobs, b, dev),
-                              "level_rows": rows,
-                              "stride1_entries_tiles_far": plan_stats})
-            line = {"train_batches": n_train, "knobs": knobs,
-                    "calibrate_seconds": seconds,
-                    "fresh_not_covered": sum(not f["covered"]
-                                             for f in fresh),
-                    "fresh": fresh}
-            lines.append(line)
-            print(json.dumps(line), flush=True)
+        for seed in [int(v) for v in args.seeds.split(",")]:
+            it = data_module(seed + 1000).train_batches()
+            fresh = [{k: b[k] for k in ("coordinates", "mask")}
+                     for b in (next(it) for _ in range(args.fresh))]
+            for n_train in [int(v) for v in args.train.split(",")] + [
+                    "port"]:
+                dm = data_module(seed)
+                t0 = time.perf_counter()
+                if n_train == "port":
+                    C.maybe_auto_calibrate(dm, device=dev)
+                    knobs = {k: gin.query_parameter(f"CoordinateContext.{k}")
+                             for k in KNOBS}
+                else:
+                    it = dm.train_batches()
+                    batches = [next(it) for _ in range(n_train)]
+                    batches.append(next(dm.val_batches()))
+                    knobs = C.calibrate(batches, device=dev)
+                seconds = time.perf_counter() - t0
+                report = [C.coverage_report(knobs, b, dev) for b in fresh]
+                line = {"seed": seed, "train_batches": n_train,
+                        "knobs": knobs, "calibrate_seconds": seconds,
+                        "fresh_not_covered": sum(not r["covered"]
+                                                 for r in report),
+                        "fresh": report}
+                lines.append(line)
+                print(json.dumps(line), flush=True)
     finally:
         gin.clear_config()
         shutil.rmtree(tmp, ignore_errors=True)
