@@ -3,12 +3,15 @@
 
     python3 chip_smoke.py
 
-Drives the port's five main paths on the card at full width:
+Drives the port's main paths on the card at full width:
 Res16UNet18A sparse-voxel serving (``nerf_downstream_tpu_torch.serve``),
 its training step (``nerf_downstream_tpu_torch.train3d``), the training
 CLI on the flagship segmentation configs and on the README's
 classification command (``nerf_downstream_tpu_torch.co3d_3d.train``,
-ResNet14 with auto-calibration) and the evaluation of pruned checkpoints
+ResNet14 with auto-calibration), the 2D classification CLI
+(``nerf_downstream_tpu_torch.co3d_2d.train``, ResNet50 and ViT-B/16; no
+TPU kernel lies on that path: cuDNN and cuBLAS stand where XLA's ops
+stood) and the evaluation of pruned checkpoints
 (``nerf_downstream_tpu_torch.eval3d``),
 with the hand-written CUDA kernels K1 ``window_match``, K2
 ``window_gather_matmul`` (forward), K3 ``window_bwd`` and K4
@@ -106,6 +109,28 @@ paths give it. Phases:
    k3/s2 convs on the row path) and every K2 and K3 call at 512 channels
    against their plain versions in f32 and, at the same shapes, in bf16
    (rtol 1e-5 and 2^-8 of the f32 sum), each timed beside its bound;
+9d. model_2d: ResNet50 and ViT-B/16 at 224 x 224, batch 32, seeded
+   weights with every norm drawn away from identity, eval mode: f32 on
+   the card (TF32 off) against f32 on the CPU within 1e-4 x max|logit|,
+   bf16 against f32 on the card within 5e-2 x max|logit|; top-1
+   agreement, the gaps and each forward's device time;
+9e. cli_2d and cli_2d_vit: the 2D CLI on
+   ``co3d_2d/configs/ours_scratch_bkgd/resnet50.gin`` and
+   ``ours_scratch/vitbase.gin`` unchanged at full width (batch 32 of 224
+   crops, bf16, SGD lr 0.1 with warmup, AugMix, 8 loader workers; the
+   ResNet's with background swaps at 0.5) on a synthetic frame tree the
+   port writes (``FRAMES_2D``), only data paths, file lists,
+   ``frames_per_scene``, ``max_epochs``, ``check_val_every_n_epoch`` and
+   the log directory bound: 6 (ViT: 4) steps with one validation pass and
+   the test phase, then a resume from ``last.ckpt`` for 2 steps, whose
+   first step must start from the checkpoint's weights and momentum bit
+   for bit and give, bit for bit, the loss the first run's final state
+   gives on that batch; finite losses, ``val/acc`` logged, the
+   checkpoints, bf16 compute, no custom kernel launched. Reports the
+   step's wall median, host ms per batch (one worker; waited with 8), ms
+   per validation pass, and for one more step its synchronising calls,
+   device time, busy share, device ops and device time by kind of kernel
+   (``kernel_share``);
 10. sparse_eval: ``eval3d`` at ``eval_64k`` (bf16, 3 batches) over
     checkpoints this phase writes with the port's ``save_checkpoint`` from
     seeded weights: dense; ZAXIS (``--sparsify``, mode 2); mode 1 with
@@ -2353,6 +2378,399 @@ def phase_cli_cls(card: str, device: str = "cuda",
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+# -- the 2D classification stack ---------------------------------------------
+
+# the synthetic frame tree of phases cli_2d and cli_2d_vit
+# (data.synthetic.write_perfception_2d_tree): 64 train scenes (2 steps of
+# 32 per epoch), 8 val and 8 test scenes of 4 frames (one validation
+# batch of 32), frames of 320 x 240
+FRAMES_2D = dict(n_train=64, n_val=8, n_test=8, frames=4, size=(320, 240))
+MODEL_2D_BATCH = 32
+# of max|logit|: the port's f32 on the card against its f32 on the CPU,
+# and bf16 on the card against f32 on the card
+MODEL_2D_TOL = {"float32": 1e-4, "bfloat16": 5e-2}
+# (config, max_epochs, check_val_every_n_epoch): 6 and 4 steps, one
+# validation pass each, then a resume for one more epoch (2 steps)
+CLI_2D = {"cli_2d": ("ours_scratch_bkgd/resnet50.gin", 3, 2),
+          "cli_2d_vit": ("ours_scratch/vitbase.gin", 2, 1)}
+
+
+def randomise_norms(model, seed: int):
+    """Every norm's scale, bias and running statistics drawn away from
+    identity (a fresh init zeroes each residual branch's last BatchNorm
+    scale, which would leave the branches out of a comparison)."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    with torch.no_grad():
+        for key, t in model.state_dict().items():
+            leaf = key.rsplit(".", 1)[-1]
+            if leaf in ("scale", "ls1", "ls2"):
+                v = rng.uniform(0.5, 1.5, t.shape)
+            elif leaf == "var":
+                v = rng.uniform(0.5, 2.0, t.shape)
+            elif leaf in ("bias", "mean"):
+                v = rng.normal(size=t.shape) * 0.1
+            else:
+                continue
+            t.copy_(torch.as_tensor(v, dtype=t.dtype))
+    return model
+
+
+def phase_model_2d(card: str, device: str = "cuda") -> dict:
+    """ResNet50 and ViT-B/16 at 224 x 224, batch 32, seeded weights, eval
+    mode: the port's f32 on the card (TF32 off) against its f32 on the
+    CPU within 1e-4 x max|logit|, and bf16 on the card against f32 on the
+    card within 5e-2 x max|logit|; top-1 agreement, the gaps, and the
+    device time of each forward."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from nerf_downstream_tpu_torch.co3d_2d.train import f32_without_tf32
+    from nerf_downstream_tpu_torch.models.image import (
+        ResNetBased,
+        ViTBased,
+        init_weights,
+    )
+
+    x = torch.as_tensor(np.random.default_rng(0).normal(
+        size=(MODEL_2D_BATCH, 3, 224, 224)).astype(np.float32))
+    line = {"phase": "model_2d", "card": card, "batch": MODEL_2D_BATCH,
+            "image": 224, "tolerance_of_max_logit": MODEL_2D_TOL}
+    for name, build in (("resnet50", ResNetBased),
+                        ("vit_base_patch16_224", ViTBased)):
+        ref = randomise_norms(init_weights(build(name), 0), 1).eval()
+        with torch.no_grad():
+            cpu = ref(x)
+        f32 = copy.deepcopy(ref).to(device)
+        bf16 = build(name, dtype=torch.bfloat16).eval()
+        bf16.load_state_dict(ref.state_dict())
+        bf16.to(device)
+        xd = x.to(device)
+        out = {}
+        with torch.no_grad(), f32_without_tf32():
+            if not (torch.backends.cudnn.allow_tf32 is False
+                    and torch.backends.cuda.matmul.allow_tf32 is False):
+                raise PhaseError("model_2d: TF32 is on under f32")
+            for dtype, model in (("float32", f32), ("bfloat16", bf16)):
+                logits = model(xd)
+                out[dtype] = {"logits": logits.float().cpu(),
+                              "ms": device_ms(lambda m=model: m(xd))}
+        scale = float(cpu.abs().max())
+        gaps = {"float32_vs_cpu": float(
+                    (out["float32"]["logits"] - cpu).abs().max()) / scale,
+                "bfloat16_vs_float32": float(
+                    (out["bfloat16"]["logits"] - out["float32"]["logits"])
+                    .abs().max()) / scale}
+        top1 = {k: float((out[k]["logits"].argmax(-1) == cpu.argmax(-1))
+                         .float().mean()) for k in out}
+        line[name] = {"max_abs_logit": scale, "gap_of_max_logit": gaps,
+                      "top1_agreement_with_cpu": top1,
+                      "forward_ms": {k: out[k]["ms"] for k in out},
+                      "finite": bool(all(torch.isfinite(out[k]["logits"])
+                                         .all() for k in out))}
+        if not (line[name]["finite"]
+                and gaps["float32_vs_cpu"] <= MODEL_2D_TOL["float32"]
+                and gaps["bfloat16_vs_float32"] <= MODEL_2D_TOL["bfloat16"]):
+            raise PhaseError(f"model_2d: {name}: {line[name]}")
+    return line
+
+
+def annotation(key: str) -> bool:
+    """Whether a device row of a profile is a user annotation
+    (``Optimizer.step#SGD.step``), which overlaps the kernels it names,
+    rather than a kernel (kernel names may hold ``#`` too, as in
+    ``{lambda()#3}``)."""
+    return key.startswith("Optimizer.")
+
+
+def kernel_share(rows) -> dict:
+    """Device ms of a profiled step by kind of kernel (by name): cuDNN
+    convolutions (forward, data and weight gradients), matrix products
+    (cuBLAS, CUTLASS), BatchNorm, LayerNorm, reductions (the BatchNorm
+    statistics' Welford pass, norms, sums), copies and casts, and other
+    elementwise kernels. ``rows`` holds no user annotation
+    (``annotation``)."""
+    kinds = (("conv", ("fprop", "dgrad", "wgrad", "conv")),
+             ("gemm", ("gemm", "nvjet", "cutlass")),
+             ("batch_norm", ("batch_norm",)),
+             ("layer_norm", ("layer_norm", "gammabeta")),
+             ("reduce", ("reduce_kernel", "norm")),
+             ("copy_cast", ("copy",)))
+    out = {f"{k}_ms": 0.0 for k, _ in kinds}
+    out["elementwise_other_ms"] = 0.0
+    for ms, _, key in rows:
+        k = key.lower()
+        kind = next((f"{n}_ms" for n, subs in kinds
+                     if any(x in k for x in subs)), "elementwise_other_ms")
+        out[kind] += ms
+    return out
+
+
+class Cli2DProbe:
+    """Wraps the 2D task's step, the Trainer's validation pass, fit and
+    constructor while the port's 2D CLI runs: each step's wall time (a
+    synchronise on either side) and loss, each validation pass's wall
+    time, each Trainer's profiler, a copy of the state each fit ends with,
+    and, for a resumed run, its first step checked against ``resume``
+    (the checkpoint's weights and momentum trace, bit for bit) with that
+    step's batch and loss kept."""
+
+    def __init__(self):
+        self.steps: list[tuple[int, float, float]] = []
+        self.val_ms: list[float] = []
+        self.profilers: list = []
+        self.fit_ends: list = []
+        self.last = None
+        self.resume = None  # (params state_dict, momentum by name)
+        self.resume_check = None
+
+    def __enter__(self):
+        import copy
+
+        import torch
+
+        from nerf_downstream_tpu_torch.train import loop, modules2d
+
+        probe = self
+        cls = modules2d.LitModel
+        self._saved = (cls.train_step, loop.Trainer.validate,
+                       loop.Trainer.fit, loop.Trainer.__init__)
+        step_fn, validate, fit, init = self._saved
+
+        def train_step(task, state, batch):
+            if probe.resume is not None and probe.resume_check is None:
+                weights, trace = probe.resume
+                sd = state.model.state_dict()
+                probe.resume_check = {
+                    "step": int(state.step),
+                    "weights_bit_equal": all(
+                        torch.equal(sd[k].cpu(), v)
+                        for k, v in weights.items()),
+                    "momentum_bit_equal": all(
+                        torch.equal(state.optimizer.state[p][
+                            "momentum_buffer"].cpu(), trace[n])
+                        for n, p in state.model.named_parameters())}
+                probe.resume_batch = batch
+            step = int(state.step)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = step_fn(task, state, batch)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            probe.steps.append((step, ms, float(out[1]["loss"])))
+            probe.last = (task, out[0], batch)
+            return out
+
+        def timed_validate(trainer, state, phase="val"):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = validate(trainer, state, phase)
+            torch.cuda.synchronize()
+            probe.val_ms.append((time.perf_counter() - t0) * 1e3)
+            return out
+
+        def kept_fit(trainer, state=None):
+            out = fit(trainer, state)
+            probe.fit_ends.append(copy.deepcopy(out))
+            return out
+
+        def recorded_init(trainer, *a, **kw):
+            init(trainer, *a, **kw)
+            probe.profilers.append(trainer.profiler)
+
+        cls.train_step = train_step
+        loop.Trainer.validate = timed_validate
+        loop.Trainer.fit = kept_fit
+        loop.Trainer.__init__ = recorded_init
+        return self
+
+    def __exit__(self, *exc):
+        from nerf_downstream_tpu_torch.train import loop, modules2d
+
+        (modules2d.LitModel.train_step, loop.Trainer.validate,
+         loop.Trainer.fit, loop.Trainer.__init__) = self._saved
+        return False
+
+
+def phase_cli_2d(card: str, where: str, device: str = "cuda",
+                 bindings=()) -> dict:
+    """The port's 2D CLI (``co3d_2d/train.py``) on a ``co3d_2d`` config
+    unchanged at full width (``CLI_2D[where]``: batch 32 of 224 crops,
+    eval chunks 32, ``precision = 16`` -> bf16, SGD lr 0.1 with warmup,
+    AugMix, 8 loader workers), only the data paths, file lists,
+    ``frames_per_scene``, ``max_epochs``, ``check_val_every_n_epoch`` and
+    the log directory bound, on ``FRAMES_2D``; then a resume from
+    ``last.ckpt`` for one more epoch. Fails unless every loss is finite,
+    ``val/acc`` is logged, ``best.ckpt`` and ``last.ckpt`` exist, the
+    model computes in bf16, and the resumed run starts at the checkpoint's
+    step from its weights and momentum bit for bit and its first loss
+    equals, bit for bit, the loss the first run's final state gives on
+    that batch. Then one more step's synchronising calls and profile, and
+    host ms per batch on one worker. ``device`` and ``bindings`` serve a
+    rehearsal on the CPU."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from nerf_downstream_tpu_torch import config as gin
+    from nerf_downstream_tpu_torch import convert
+    from nerf_downstream_tpu_torch.co3d_2d import train as cli
+    from nerf_downstream_tpu_torch.data.loader2d import DataModule2D
+    from nerf_downstream_tpu_torch.data.synthetic import (
+        write_perfception_2d_tree,
+    )
+    from nerf_downstream_tpu_torch.models.image.layers import Conv2d, Dense
+    from nerf_downstream_tpu_torch.ops import kernels
+    from nerf_downstream_tpu_torch.train import checkpoints
+
+    config, epochs, val_every = CLI_2D[where]
+    tmp = tempfile.mkdtemp(prefix=f"{where}_")
+    try:
+        t_start = time.perf_counter()
+        p = write_perfception_2d_tree(tmp, np.random.default_rng(0),
+                                      **FRAMES_2D)
+        tree_s = time.perf_counter() - t_start
+        logs = os.path.join(tmp, "logs")
+        args = ["--ginc", os.path.join(REPO, "co3d_2d", "configs", config)]
+        sets = [f"PeRFCeptionCo3D{k}Dataset" for k in ("Train", "Eval")]
+        for b in (
+                *(f'{c}.data_root = "{p["perfception"]}"' for c in sets),
+                *(f'{c}.filelist_dir = "{p["filelist"]}"' for c in sets),
+                "PeRFCeptionCo3DTrainDataset.frames_per_scene = "
+                f"{FRAMES_2D['frames']}",
+                f"run.check_val_every_n_epoch = {val_every}",
+                f'run.log_dir = "{logs}"', *bindings):
+            args += ["--ginb", b]
+        args += ["--seed", "0", "--device", device]
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        with Cli2DProbe() as probe:
+            t0 = time.perf_counter()
+            gin.clear_config()
+            results = cli.main(args + ["--ginb", f"run.max_epochs = {epochs}"])
+            first_s = time.perf_counter() - t0
+            task = probe.last[0]
+            run = os.path.join(
+                logs, f"{gin.query_parameter('run.run_name')}_0")
+            last = checkpoints.load_checkpoint(os.path.join(run, "last.ckpt"))
+            weights = convert.flax_to_state_dict(
+                task.model, {"params": last["params"],
+                             "batch_stats": last["batch_stats"]})
+            trace = convert.flax_to_state_dict(
+                task.model, last["opt_state"]["0"]["trace"])
+            probe.resume = (weights, trace)
+            final = probe.fit_ends[-1]
+            n_first = len(probe.steps)
+            t0 = time.perf_counter()
+            gin.clear_config()
+            cli.main(args + ["--ginb", f"run.max_epochs = {epochs + 1}",
+                             "--ckpt_path", os.path.join(run, "last.ckpt"),
+                             "--resume_training", "true"])
+            resume_s = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        counts = kernels.launch_counts()
+        resumed_loss = probe.steps[n_first][2]
+        _, again = task.train_step(final, probe.resume_batch)
+        steps = [s for s, _, _ in probe.steps]
+        ms = [m for _, m, _ in probe.steps]
+        losses = [v for _, _, v in probe.steps]
+        with open(os.path.join(run, "metrics.csv")) as f:
+            logged = f.read()
+        prof = probe.profilers[0]
+        model = probe.last[1].model
+        heads = [getattr(model, n, None) for n in ("fc", "head")]
+        dtypes = sorted({str(m.dtype) for m in model.modules()
+                         if isinstance(m, (Conv2d, Dense))
+                         and all(m is not h for h in heads)})
+        line = {
+            "phase": where, "card": card,
+            "entry": "python -m nerf_downstream_tpu_torch.co3d_2d.train",
+            "config": f"co3d_2d/configs/{config}",
+            "model": task.model_name, "compute_dtypes": dtypes,
+            "batch": int(probe.last[2]["images"].shape[0]),
+            "image": list(probe.last[2]["images"].shape[1:3]),
+            "tree": dict(FRAMES_2D, seconds=tree_s),
+            "steps": steps, "ms": ms, "losses": losses,
+            "ms_median_after_first": float(np.median(ms[1:n_first])),
+            "run_seconds": [first_s, resume_s],
+            "val_pass_ms": probe.val_ms,
+            "host_ms_per_batch_waited_8_workers": prof.recorded_time(
+                "get_train_batch") * 1e3,
+            "test_results": {k: float(v) for k, v in results.items()},
+            "val_acc_logged": "val/acc" in logged,
+            "files": {n: os.path.exists(os.path.join(run, n))
+                      for n in ("best.ckpt", "last.ckpt", "metrics.csv")},
+            "resume": dict(probe.resume_check or {},
+                           first_loss=resumed_loss,
+                           from_first_runs_state=float(again["loss"])),
+            "custom_kernel_launches": counts,
+        }
+        ok = (all(line["files"].values()) and line["val_acc_logged"]
+              and np.isfinite(losses).all()
+              and steps == list(range(n_first + 2))
+              and n_first == 2 * epochs
+              and dtypes == ["torch.bfloat16"]
+              and probe.resume_check == {"step": n_first,
+                                         "weights_bit_equal": True,
+                                         "momentum_bit_equal": True}
+              and resumed_loss == float(again["loss"])
+              and not any(counts.values()))
+        if not ok:
+            raise PhaseError(f"{where}: {line}")
+
+        # one more step: synchronising calls, a profile, the host
+        task, state, batch = probe.last
+
+        def step():
+            nonlocal state
+            state, _ = task.train_step(state, batch)
+
+        line["sync"] = sync_count(where, step)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof_:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            step()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+        rows = [r for r in device_rows(prof_, 1) if not annotation(r[2])]
+        dev = sum(r[0] for r in rows)
+        if dev <= 0:
+            raise PhaseError(f"{where}: the profiler saw no device time")
+        run_step = (prof.recorded_time("get_train_batch")
+                    + prof.recorded_time("run_training_batch")) * 1e3
+        line["profile"] = {
+            "wall_ms_per_step_profiled": wall,
+            "device_ms_per_step": dev,
+            "device_busy_share": dev / line["ms_median_after_first"],
+            "ms_per_step_of_the_run": run_step,
+            "device_share_of_the_run": dev / run_step,
+            "device_ops_per_step": sum(r[1] for r in rows),
+            **kernel_share(rows),
+            "top_device": [{"name": k[:90], "per_step": c, "ms": m}
+                           for m, c, k in rows[:16]]}
+        dm = DataModule2D(num_workers=1)
+        it = dm.train_batches()
+        next(it)
+        t0 = time.perf_counter()
+        for _ in range(2):
+            next(it)
+        line["host_ms_per_batch_one_worker"] = (
+            (time.perf_counter() - t0) * 1e3 / 2)
+        line["seconds"] = time.perf_counter() - t_start
+        return line
+    finally:
+        gin.clear_config()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 class SparseRecorder:
     """Records the inputs of every K5 and K6 call of a forward, by wrapping
     the names the package's modules call. Calls go on to the real
@@ -3081,6 +3499,14 @@ def main() -> int:
                   "max_abs_err": max(r["f32"]["max_abs_err"]
                                      for r in cls_k6)}
         del line
+        phase = "model_2d"
+        t0 = time.perf_counter()
+        line = phase_model_2d(card)
+        line["seconds"] = time.perf_counter() - t0
+        emit(line)
+        for where in CLI_2D:
+            phase = where
+            emit(phase_cli_2d(card, where))
         phase = "sparse_eval"
         line, sparse_launches, sparse_recs = phase_sparse_eval(card)
         emit(line)

@@ -17,6 +17,7 @@ operative-config dump for logging.
 from nerf_downstream_tpu_torch.config.engine import (
     ConfigError,
     bind,
+    check_bindings,
     clear_config,
     config_str,
     configurable,
@@ -33,6 +34,7 @@ from nerf_downstream_tpu_torch.config.engine import (
 __all__ = [
     "ConfigError",
     "bind",
+    "check_bindings",
     "clear_config",
     "config_str",
     "configurable",

@@ -175,6 +175,7 @@ def configurable(fn_or_name=None, *, name: str | None = None, denylist=()):
         cls.__init__ = __init__
         register(reg_name, cls)
         cls.__gin_name__ = reg_name
+        cls.__gin_params__ = None if has_var_kw else param_names
         return cls
 
     def wrap(fn: Callable, reg_name: str):
@@ -235,6 +236,7 @@ def configurable(fn_or_name=None, *, name: str | None = None, denylist=()):
 
         register(reg_name, wrapper)
         wrapper.__gin_name__ = reg_name
+        wrapper.__gin_params__ = None if has_var_kw else param_names
         return wrapper
 
     if callable(fn_or_name):
@@ -242,6 +244,24 @@ def configurable(fn_or_name=None, *, name: str | None = None, denylist=()):
     if isinstance(fn_or_name, str):
         return lambda fn: wrap(fn, fn_or_name)
     return lambda fn: wrap(fn, name or fn.__name__)
+
+
+def check_bindings():
+    """Raise ``ConfigError`` unless every binding names a registered
+    configurable and one of its parameters (a call would raise later;
+    this says so before a run starts)."""
+    bad = []
+    for name, params in sorted(_REG.bindings.items()):
+        fn = _REG.configurables.get(name)
+        if fn is None:
+            bad.append(f"{name} (no configurable of that name)")
+            continue
+        known = getattr(fn, "__gin_params__", None)
+        if known is not None:
+            bad += [f"{name}.{p}" for p in sorted(params) if p not in known]
+    if bad:
+        raise ConfigError(f"Bindings that match no configurable or "
+                          f"parameter: {bad}")
 
 
 def external_configurable(fn: Callable, name: str | None = None, denylist=()):

@@ -1,5 +1,5 @@
-"""Carry Res16UNet and ResNet weights between the reference's flax
-variable trees and the port's ``state_dict``.
+"""Carry Res16UNet, ResNet and the 2D models' weights between the
+reference's flax variable trees and the port's ``state_dict``.
 
 The reference stores ``{"params": ..., "batch_stats": ...}`` as nested
 dicts; its BatchNorms are auto-named ``MaskedBatchNorm_<i>`` in creation
@@ -8,6 +8,15 @@ a ``Bottleneck``'s the fourth). Conv kernels keep the reference layout
 ``[K, Cin, Cout]`` with x-fastest offsets, and the ResNet head flax's
 ``kernel [C, out]``, so no tensor is transposed. Trees are read as nested
 dicts of numpy arrays (or anything ``np.asarray`` accepts).
+
+The 2D models (``models/image``: ``_ResNetBased``, whose keys start with
+``model.``, and ``ViT``, with ``patch_embed.``) carry the reference's
+module names, so their paths map one to one (``image_flax_path``): a ViT's
+``blocks.<i>`` is ``block<i>`` and its LayerNorms, attention and MLP take
+flax's automatic names; BatchNorm ``mean`` and ``var`` go to
+``batch_stats``. Their conv kernels are transposed between the port's
+OIHW and flax's HWIO; dense and attention kernels keep flax's layouts
+(``[C, out]``, ``[dim, heads, head_dim]``, ``[heads, head_dim, dim]``).
 """
 
 from __future__ import annotations
@@ -26,6 +35,35 @@ _BN_LEAF = {
     "running_var": ("batch_stats", "var"),
 }
 _BLOCK_NORMS = ("norm1", "norm2", "norm3")
+
+
+# the ViT's module names that differ from the flax modules'
+_IMAGE_NAMES = {"norm1": "LayerNorm_0", "norm2": "LayerNorm_1",
+                "attn": "MultiHeadDotProductAttention_0", "mlp": "MlpBlock_0",
+                "fc1": "Dense_0", "fc2": "Dense_1"}
+
+
+def is_image(keys) -> bool:
+    """Whether these ``state_dict`` keys are a 2D model's."""
+    return any(k.startswith(("model.", "patch_embed.")) for k in keys)
+
+
+def image_flax_path(key: str) -> tuple[str, ...]:
+    """(collection, module..., leaf) of a 2D model's ``state_dict`` key."""
+    p = key.split(".")
+    if p[0] == "blocks":  # a ViT encoder block
+        p = [f"block{p[1]}"] + [_IMAGE_NAMES.get(n, n) for n in p[2:]]
+    elif p[0] == "norm":  # the ViT's last LayerNorm
+        p = ["LayerNorm_0"] + p[1:]
+    return ("batch_stats" if p[-1] in ("mean", "var") else "params", *p)
+
+
+def _paths(keys):
+    """``key -> flax path`` for the keys of one model."""
+    if is_image(keys):
+        return image_flax_path
+    bottleneck = is_bottleneck(keys)
+    return lambda key: flax_path(key, bottleneck)
 
 
 def is_bottleneck(keys) -> bool:
@@ -82,14 +120,17 @@ def flax_to_state_dict(model: torch.nn.Module,
     else:
         keys = list(model.state_dict())
     refs = model.state_dict()
-    bottleneck = is_bottleneck(refs)
+    path_of = _paths(refs)
+    image = is_image(refs)
     out = {}
     for key in keys:
         ref = refs[key]
         node = variables
-        for name in flax_path(key, bottleneck):
+        for name in path_of(key):
             node = node[name]
         arr = np.asarray(node, dtype=np.float32)
+        if image and arr.ndim == 4:  # HWIO -> OIHW
+            arr = arr.transpose(3, 2, 0, 1)
         if arr.shape != tuple(ref.shape):
             raise ValueError(f"{key}: flax shape {arr.shape} != "
                              f"{tuple(ref.shape)}")
@@ -108,13 +149,19 @@ def state_dict_to_flax(state: dict) -> dict:
     float32 numpy arrays) of a port ``state_dict`` (or of any mapping from
     its keys to tensors, such as parameter gradients)."""
     tree: dict = {}
-    bottleneck = is_bottleneck(state)
+    path_of = _paths(state)
+    image = is_image(state)
     for key, value in state.items():
-        path = flax_path(key, bottleneck)
+        path = path_of(key)
         node = tree
         for name in path[:-1]:
             node = node.setdefault(name, {})
-        node[path[-1]] = value.detach().to("cpu", torch.float32).numpy()
+        # a copy: the tree must not change when the module updates its
+        # buffers in place
+        arr = value.detach().to("cpu", torch.float32).numpy().copy()
+        if image and arr.ndim == 4:  # OIHW -> HWIO
+            arr = np.ascontiguousarray(arr.transpose(2, 3, 1, 0))
+        node[path[-1]] = arr
     return tree
 
 

@@ -1,8 +1,9 @@
 """Synthetic PeRFception-ScanNet-like and PeRFception-CO3D-like scenes for
 the presets, the tests and the smoke run: the port's
 ``data/plenoxel.py::make_synthetic_scene`` and ``data/utils.py::
-collate_mink``, one scene as the serving benchmark builds it, and the
-trees the two training configs read."""
+collate_mink``, one scene as the serving benchmark builds it, the trees
+the two 3D training configs read, and the frame trees the 2D configs
+read (``write_perfception_2d_tree``)."""
 
 from __future__ import annotations
 
@@ -12,7 +13,8 @@ from nerf_downstream_tpu_torch.data.plenoxel import make_synthetic_scene
 from nerf_downstream_tpu_torch.data.utils import collate_mink
 
 __all__ = ["collate_mink", "make_synthetic_scene", "scene_sample",
-           "write_co3d_tree", "write_scannet_tree"]
+           "write_co3d_tree", "write_perfception_2d_tree",
+           "write_scannet_tree"]
 
 
 def scene_sample(rng, n_voxels: int, num_classes: int) -> dict:
@@ -100,3 +102,74 @@ def write_co3d_tree(root: str, rng, n_train: int = 4, n_val: int = 0,
         with open(os.path.join(fdir, f"{phase}.txt"), "w") as f:
             f.write("\n".join(lst) + "\n")
     return data_root, fdir
+
+
+def _smooth_frame(rng, size, cells: int = 6):
+    """A smooth random RGB image of ``size`` (w, h): a cells x cells
+    random grid resized bilinearly, plus a little noise."""
+    from PIL import Image
+
+    w, h = size
+    grid = Image.fromarray(rng.integers(0, 256, (cells, cells, 3),
+                                        dtype=np.uint8))
+    arr = np.asarray(grid.resize((w, h), Image.BILINEAR), np.int16)
+    arr = arr + rng.integers(-12, 13, arr.shape, dtype=np.int16)
+    return Image.fromarray(np.clip(arr, 0, 255).astype(np.uint8))
+
+
+def write_perfception_2d_tree(root: str, rng, n_train: int = 4,
+                              n_val: int = 2, n_test: int = 2,
+                              frames: int = 3, size=(320, 240),
+                              num_classes: int = 3) -> dict:
+    """Write synthetic 2D trees under ``root`` for the ``co3d_2d``
+    configs and return their paths: ``{"perfception": ..., "co3d": ...,
+    "filelist": ...}``.
+
+    - PeRFception frames: ``perfception/<class>/<scene>/fgbg/image<f>.jpg``
+      (rendered object over its background), ``bg/image<f>.jpg`` (the
+      background alone) and ``mask/mask<f>.jpg`` (a white ellipse on
+      black), ``f`` three digits, as the readers and the background swap
+      name them;
+    - real-CO3D frames: ``co3d/<class>/<scene>/images/frame<f>.jpg``;
+    - ``filelist/{train,val,test}.txt`` rows ``<class> <scene>
+      <frames>`` over disjoint scenes, scene i of class
+      ``CLASSES[i % num_classes]``, train scenes first.
+
+    Frames are ``size`` (w, h) smooth random JPEGs from ``rng``."""
+    import os
+
+    from PIL import Image, ImageDraw
+
+    from nerf_downstream_tpu_torch.data.co3d import CLASSES
+
+    w, h = size
+    mask = Image.new("RGB", (w, h))
+    ImageDraw.Draw(mask).ellipse((w // 4, h // 4, 3 * w // 4, 3 * h // 4),
+                                 fill=(255, 255, 255))
+    per = os.path.join(root, "perfception")
+    co3d = os.path.join(root, "co3d")
+    fdir = os.path.join(root, "filelist")
+    os.makedirs(fdir, exist_ok=True)
+    rows = []
+    for i in range(n_train + n_val + n_test):
+        cls, scene = CLASSES[i % num_classes], f"sc{i}"
+        dirs = {sub: os.path.join(per, cls, scene, sub)
+                for sub in ("fgbg", "bg", "mask")}
+        dirs["images"] = os.path.join(co3d, cls, scene, "images")
+        for d in dirs.values():
+            os.makedirs(d, exist_ok=True)
+        for f in range(frames):
+            bg = _smooth_frame(rng, size)
+            fg = Image.composite(_smooth_frame(rng, size), bg,
+                                 mask.convert("L"))
+            fg.save(os.path.join(dirs["fgbg"], f"image{f:03d}.jpg"))
+            bg.save(os.path.join(dirs["bg"], f"image{f:03d}.jpg"))
+            mask.save(os.path.join(dirs["mask"], f"mask{f:03d}.jpg"))
+            fg.save(os.path.join(dirs["images"], f"frame{f:04d}.jpg"))
+        rows.append(f"{cls} {scene} {frames}")
+    splits = {"train": rows[:n_train], "val": rows[n_train:n_train + n_val],
+              "test": rows[n_train + n_val:]}
+    for phase, lst in splits.items():
+        with open(os.path.join(fdir, f"{phase}.txt"), "w") as f:
+            f.write("\n".join(lst) + "\n")
+    return {"perfception": per, "co3d": co3d, "filelist": fdir}

@@ -20,7 +20,9 @@ them to and from a model). A training state (``save_training_state``,
 ``restore_into``) also carries ``global_step`` and the optimizer state in
 the layout of the reference's optax chain (``sgd_state_to_optax``,
 ``sgd_state_from_optax``), so a checkpoint written by either package
-resumes in the other. A port checkpoint may also hold
+resumes in the other; the 2D models' states (``train/modules2d.py``:
+weights, BatchNorm statistics, the SGD momentum trace and the schedule's
+count) take the same path through ``convert.py``'s 2D layout. A port checkpoint may also hold
 ``pruning_masks``: {"path/to/kernel": bool array}, folded into the
 weights on load by ``utils.prune.fold_pruning_masks``.
 """

@@ -29,10 +29,11 @@ from nerf_downstream_tpu_torch.train.profilers import SumProfiler
 
 
 def to_device(batch: dict, device) -> dict:
-    """A collated numpy batch as tensors on ``device`` (coordinates and
-    features f32, mask and sample_mask bool, labels int64, dists f32);
-    ``metadata`` rides along, other keys are dropped."""
+    """A collated numpy batch as tensors on ``device`` (coordinates,
+    features and images f32, mask and sample_mask bool, labels int64,
+    dists f32); ``metadata`` rides along, other keys are dropped."""
     kinds = {"coordinates": torch.float32, "features": torch.float32,
+             "images": torch.float32,
              "mask": torch.bool, "labels": torch.int64,
              "dists": torch.float32, "sample_mask": torch.bool}
     out = {k: torch.as_tensor(batch[k], dtype=dt, device=device)
