@@ -35,6 +35,9 @@ class ConfigError(Exception):
 class _Registry:
     def __init__(self):
         self.configurables: dict[str, Callable] = {}
+        # every callable registered under a name (the 2D and the 3D
+        # RandomHorizontalFlip share one), for check_bindings
+        self.registered: dict[str, list[Callable]] = {}
         self.bindings: dict[str, dict[str, Any]] = {}
         self.macros: dict[str, Any] = {}
         self.operative: dict[str, dict[str, Any]] = {}
@@ -90,6 +93,8 @@ def clear_config(clear_constants: bool = True):
 def register(name: str, fn: Callable):
     with _REG.lock:
         _REG.configurables[name] = fn
+        if fn is not None:  # not the placeholder of ``wrap``
+            _REG.registered.setdefault(name, []).append(fn)
 
 
 def get_configurable(name: str) -> Callable:
@@ -256,8 +261,10 @@ def check_bindings():
         if fn is None:
             bad.append(f"{name} (no configurable of that name)")
             continue
-        known = getattr(fn, "__gin_params__", None)
-        if known is not None:
+        takes = [getattr(f, "__gin_params__", None)
+                 for f in _REG.registered.get(name, [fn])]
+        if None not in takes:
+            known = set().union(*takes)
             bad += [f"{name}.{p}" for p in sorted(params) if p not in known]
     if bad:
         raise ConfigError(f"Bindings that match no configurable or "

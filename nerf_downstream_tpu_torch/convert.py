@@ -2,11 +2,16 @@
 reference's flax variable trees and the port's ``state_dict``.
 
 The reference stores ``{"params": ..., "batch_stats": ...}`` as nested
-dicts; its BatchNorms are auto-named ``MaskedBatchNorm_<i>`` in creation
-order within their module (a ``BasicBlock``'s shortcut norm is the third,
-a ``Bottleneck``'s the fourth). Conv kernels keep the reference layout
-``[K, Cin, Cout]`` with x-fastest offsets, and the ResNet head flax's
-``kernel [C, out]``, so no tensor is transposed. Trees are read as nested
+dicts; its norms are auto-named ``<class>_<i>`` in creation order within
+their module (a ``BasicBlock``'s shortcut norm is the third, a
+``Bottleneck``'s the fourth; the instance-segmentation head's norm is a
+Res16UNet's eleventh), the class being the norm type's
+(``MaskedBatchNorm``, ``MinkInstanceNorm``, ``MinkLayerNorm`` or
+``MinkPowerNorm``, each port norm's ``flax_name``). BatchNorm keeps
+``mean`` and ``var`` in ``batch_stats``, PowerNorm ``running_phi``,
+``iters`` (int32) and ``ema_gz``; IN and LN keep none. Conv kernels
+keep the reference layout ``[K, Cin, Cout]`` with x-fastest offsets, and
+the ResNet head flax's ``kernel [C, out]``, so no tensor is transposed. Trees are read as nested
 dicts of numpy arrays (or anything ``np.asarray`` accepts).
 
 The 2D models (``models/image``: ``_ResNetBased``, whose keys start with
@@ -25,14 +30,18 @@ import numpy as np
 import torch
 
 # conv-norm-act units of Res16UNet, in the order the reference creates
-# their BatchNorms (MaskedBatchNorm_0 .. _9)
+# their norms (<class>_0 .. _9; the insseg head's "offset" norm is _10)
 UNITS = ("conv0a", "conv0b", "conv1", "conv2", "conv3", "conv4",
-         "convtr4", "convtr5", "convtr6", "convtr7")
-_BN_LEAF = {
+         "convtr4", "convtr5", "convtr6", "convtr7", "offset")
+BN = "MaskedBatchNorm"
+_NORM_LEAF = {
     "weight": ("params", "scale"),
     "bias": ("params", "bias"),
     "running_mean": ("batch_stats", "mean"),
     "running_var": ("batch_stats", "var"),
+    "running_phi": ("batch_stats", "running_phi"),
+    "iters": ("batch_stats", "iters"),
+    "ema_gz": ("batch_stats", "ema_gz"),
 }
 _BLOCK_NORMS = ("norm1", "norm2", "norm3")
 
@@ -58,12 +67,23 @@ def image_flax_path(key: str) -> tuple[str, ...]:
     return ("batch_stats" if p[-1] in ("mean", "var") else "params", *p)
 
 
-def _paths(keys):
-    """``key -> flax path`` for the keys of one model."""
+def norm_name(model: torch.nn.Module) -> str:
+    """The flax class name of ``model``'s 3D norms (BatchNorm's when it
+    has none)."""
+    for m in model.modules():
+        name = getattr(type(m), "flax_name", None)
+        if name is not None:
+            return name
+    return BN
+
+
+def _paths(keys, norm: str = BN):
+    """``key -> flax path`` for the keys of one model whose norms are of
+    flax class ``norm``."""
     if is_image(keys):
         return image_flax_path
     bottleneck = is_bottleneck(keys)
-    return lambda key: flax_path(key, bottleneck)
+    return lambda key: flax_path(key, bottleneck, norm)
 
 
 def is_bottleneck(keys) -> bool:
@@ -72,20 +92,27 @@ def is_bottleneck(keys) -> bool:
     return any(".norm3." in k for k in keys)
 
 
-def flax_path(key: str, bottleneck: bool = False) -> tuple[str, ...]:
+def flax_path(key: str, bottleneck: bool = False,
+              norm: str = BN) -> tuple[str, ...]:
     """(collection, module..., leaf) of a port ``state_dict`` key;
-    ``bottleneck`` when the model's blocks are ``Bottleneck``s."""
+    ``bottleneck`` when the model's blocks are ``Bottleneck``s, ``norm``
+    the flax class name of its norms."""
     p = key.split(".")
     if p[0] == "conv1" and len(p) == 2:  # the ResNet stem conv
         return ("params", "conv1", p[1])
     if p[0] == "norm":  # the ResNet stem norm
-        coll, leaf = _BN_LEAF[p[1]]
-        return (coll, "MaskedBatchNorm_0", leaf)
+        coll, leaf = _NORM_LEAF[p[1]]
+        return (coll, f"{norm}_0", leaf)
+    if p[0] in ("offset_conv1", "offset_conv2"):  # the insseg head
+        return ("params", p[0], p[1])
+    if p[0] == "offset_norm":
+        coll, leaf = _NORM_LEAF[p[1]]
+        return (coll, f"{norm}_{UNITS.index('offset')}", leaf)
     if p[0] in UNITS:
         if p[1] == "conv":
             return ("params", f"{p[0]}_conv", p[2])
-        coll, leaf = _BN_LEAF[p[2]]
-        return (coll, f"MaskedBatchNorm_{UNITS.index(p[0])}", leaf)
+        coll, leaf = _NORM_LEAF[p[2]]
+        return (coll, f"{norm}_{UNITS.index(p[0])}", leaf)
     if p[0].startswith("block") or p[0].startswith("layer"):
         # Res16UNet blocks are block<i>.<j>, ResNet ones layer<i>_block<j>
         if p[0].startswith("block"):
@@ -95,14 +122,12 @@ def flax_path(key: str, bottleneck: bool = False) -> tuple[str, ...]:
         if rest[0] == "downsample":  # downsample.{conv,norm}.<leaf>
             if rest[1] == "conv":
                 return ("params", fb, "downsample_conv", rest[2])
-            coll, leaf = _BN_LEAF[rest[2]]
-            return (coll, fb, f"MaskedBatchNorm_{3 if bottleneck else 2}",
-                    leaf)
+            coll, leaf = _NORM_LEAF[rest[2]]
+            return (coll, fb, f"{norm}_{3 if bottleneck else 2}", leaf)
         if rest[0] in ("conv1", "conv2", "conv3"):
             return ("params", fb, rest[0], rest[1])
-        coll, leaf = _BN_LEAF[rest[1]]
-        return (coll, fb, f"MaskedBatchNorm_{_BLOCK_NORMS.index(rest[0])}",
-                leaf)
+        coll, leaf = _NORM_LEAF[rest[1]]
+        return (coll, fb, f"{norm}_{_BLOCK_NORMS.index(rest[0])}", leaf)
     if p[0] == "final":
         return ("params", "final", p[1])
     raise KeyError(f"no flax counterpart for {key!r}")
@@ -120,7 +145,7 @@ def flax_to_state_dict(model: torch.nn.Module,
     else:
         keys = list(model.state_dict())
     refs = model.state_dict()
-    path_of = _paths(refs)
+    path_of = _paths(refs, norm_name(model))
     image = is_image(refs)
     out = {}
     for key in keys:
@@ -128,7 +153,8 @@ def flax_to_state_dict(model: torch.nn.Module,
         node = variables
         for name in path_of(key):
             node = node[name]
-        arr = np.asarray(node, dtype=np.float32)
+        arr = np.asarray(node, dtype=(np.int32 if ref.dtype == torch.int32
+                                      else np.float32))
         if image and arr.ndim == 4:  # HWIO -> OIHW
             arr = arr.transpose(3, 2, 0, 1)
         if arr.shape != tuple(ref.shape):
@@ -144,12 +170,14 @@ def load_flax_variables(model: torch.nn.Module, variables: dict):
     return model
 
 
-def state_dict_to_flax(state: dict) -> dict:
+def state_dict_to_flax(state: dict, norm: str = BN) -> dict:
     """The reference's ``{"params", "batch_stats"}`` trees (nested dicts of
-    float32 numpy arrays) of a port ``state_dict`` (or of any mapping from
-    its keys to tensors, such as parameter gradients)."""
+    float32 numpy arrays, int32 for PowerNorm's ``iters``) of a port
+    ``state_dict`` (or of any mapping from its keys to tensors, such as
+    parameter gradients). ``norm`` is the flax class name of the model's
+    norms (``norm_name(model)``; a 3D model's other norms need it)."""
     tree: dict = {}
-    path_of = _paths(state)
+    path_of = _paths(state, norm)
     image = is_image(state)
     for key, value in state.items():
         path = path_of(key)
@@ -158,7 +186,8 @@ def state_dict_to_flax(state: dict) -> dict:
             node = node.setdefault(name, {})
         # a copy: the tree must not change when the module updates its
         # buffers in place
-        arr = value.detach().to("cpu", torch.float32).numpy().copy()
+        dt = torch.int32 if value.dtype == torch.int32 else torch.float32
+        arr = value.detach().to("cpu", dt).numpy().copy()
         if image and arr.ndim == 4:  # OIHW -> HWIO
             arr = np.ascontiguousarray(arr.transpose(2, 3, 1, 0))
         node[path[-1]] = arr
@@ -168,15 +197,16 @@ def state_dict_to_flax(state: dict) -> dict:
 def init_flax_variables(model: torch.nn.Module, seed: int) -> dict:
     """Random variables for ``model`` in the reference's tree layout, from
     ``seed``: He-normal conv kernels (fan-in K * Cin), a dense head's
-    kernel normal over fan-in C, BatchNorm scale, bias and running
-    statistics drawn near identity so every BN does work.
+    kernel normal over fan-in C, norm scale, bias and running statistics
+    drawn near identity so every norm does work (PowerNorm's ``iters``
+    0, its ``ema_gz`` small).
     """
     rng = np.random.default_rng(seed)
     tree: dict = {}
     state = model.state_dict()
-    bottleneck = is_bottleneck(state)
+    bottleneck, norm = is_bottleneck(state), norm_name(model)
     for key, ref in state.items():
-        path = flax_path(key, bottleneck)
+        path = flax_path(key, bottleneck, norm)
         shape = tuple(ref.shape)
         leaf = path[-1]
         if leaf == "kernel" and len(shape) == 2:
@@ -185,12 +215,14 @@ def init_flax_variables(model: torch.nn.Module, seed: int) -> dict:
             arr = rng.normal(size=shape) * np.sqrt(2.0 / (shape[0] * shape[1]))
         elif leaf == "scale":
             arr = rng.uniform(0.5, 1.5, shape)
-        elif leaf == "var":
+        elif leaf in ("var", "running_phi"):
             arr = rng.uniform(0.5, 2.0, shape)
-        else:  # bias, mean
+        elif leaf == "iters":
+            arr = np.zeros(shape, np.int32)
+        else:  # bias, mean, ema_gz
             arr = rng.normal(size=shape) * 0.1
         node = tree
         for name in path[:-1]:
             node = node.setdefault(name, {})
-        node[leaf] = arr.astype(np.float32)
+        node[leaf] = arr.astype(np.int32 if leaf == "iters" else np.float32)
     return tree

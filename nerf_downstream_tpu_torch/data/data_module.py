@@ -6,7 +6,11 @@ Shard-partitioned batches (``shards > 1``) wait for the multi-GPU trainer
 
 Differences by design:
 - workers are a thread pool prefetching ``__getitem__`` (numpy releases the
-  GIL in the hot ops), ``train_num_workers`` of them.
+  GIL in the hot ops), ``train_num_workers`` of them. With more than one,
+  batch ``i`` of an epoch draws its host transforms and subsampling from
+  its own generator, seeded from (the epoch's worker seed, ``i``), so what
+  a batch holds does not depend on which thread loads it when; with one,
+  the draws come from the module streams in order, as the reference's.
 - per-host sharding replaces DistributedSampler: each process takes
   ``files[process_index::process_count]``.
 - batches are padded to a static capacity; oversized batches are randomly
@@ -23,6 +27,7 @@ from typing import Iterator, Optional
 import numpy as np
 
 from nerf_downstream_tpu_torch import config as cfg
+from nerf_downstream_tpu_torch.data import transforms
 from nerf_downstream_tpu_torch.data.datasets import get_dataset
 from nerf_downstream_tpu_torch.data.utils import (
     COLLATE_FNS,
@@ -57,8 +62,9 @@ def _subsample_to_fit(samples: list[dict], capacity: int, rng) -> list[dict]:
 
 class _Prefetcher:
     """Background thread pool mapping dataset[i] ahead of consumption
-    (numpy releases the GIL in the hot ops; the pool shares the process
-    RNG). The reference's fork-based process workers are not ported."""
+    (numpy releases the GIL in the hot ops; with more than one worker each
+    batch draws from its own generator, ``DataModule._seeded``). The
+    reference's fork-based process workers are not ported."""
 
     def __init__(self, fn, indices, num_workers: int, depth: int = 4):
         self.fn = fn
@@ -125,7 +131,13 @@ class DataModule:
         self.val_capacity = val_capacity or capacity
         self.ignore_label = ignore_label
         self.min_capacity = min_capacity
+        self.seed = seed
         self.rng = np.random.default_rng(seed)
+        # per phase: whether each batch draws from its own generator (more
+        # than one loader thread); fixed here, so that a copy with one
+        # thread (the calibration's) draws as the run does
+        self._seeded = {"train": train_num_workers > 1,
+                        "val": val_num_workers > 1}
         self.process_index = process_index
         self.process_count = process_count
         self._dataset_cls = dataset_cls
@@ -144,10 +156,21 @@ class DataModule:
             self._datasets[split] = cls(phase=self.phases.get(split, split))
         return self._datasets[split]
 
-    def _collate(self, samples, capacity, pad_to_batch=None):
+    def _loaded(self, ds, idx_group, capacity, rng=None, pad_to_batch=None):
+        """The collated batch of ``ds[idx_group]``; its host transforms and
+        subsampling draw from ``rng`` when given, else from the module
+        streams."""
+        if rng is None:
+            return self._collate([ds[int(i)] for i in idx_group], capacity,
+                                 self.rng, pad_to_batch)
+        with transforms.drawing_from(rng):
+            return self._collate([ds[int(i)] for i in idx_group], capacity,
+                                 rng, pad_to_batch)
+
+    def _collate(self, samples, capacity, rng, pad_to_batch=None):
         if self.collate_name == "collate_mink":
             if capacity is not None:
-                samples = _subsample_to_fit(samples, capacity, self.rng)
+                samples = _subsample_to_fit(samples, capacity, rng)
             return collate_mink(
                 samples,
                 capacity=capacity,
@@ -178,13 +201,19 @@ class DataModule:
                 for i in range(0, len(order) - self.batch_size + 1, self.batch_size)
             ]
 
-            def load(idx_group):
-                return self._collate([ds[int(i)] for i in idx_group], cap)
-
             # the reference draws a worker seed here; the draw keeps the
             # module's stream (and so its batch order) the reference's
-            self.rng.integers(2**31)
-            yield from _Prefetcher(load, batches, self.train_num_workers)
+            worker_seed = int(self.rng.integers(2**31))
+            seeded = self._seeded["train"]
+
+            def load(job):
+                i, idx_group = job
+                rng = (np.random.default_rng([worker_seed, i]) if seeded
+                       else None)
+                return self._loaded(ds, idx_group, cap, rng)
+
+            yield from _Prefetcher(load, enumerate(batches),
+                                   self.train_num_workers)
 
     def val_batches(self, phase: str = "val") -> Iterator[dict]:
         ds = self.dataset(phase)
@@ -197,10 +226,13 @@ class DataModule:
             for i in range(0, len(shard), self.val_batch_size)
         ]
 
-        def load(idx_group):
-            return self._collate(
-                [ds[int(i)] for i in idx_group], cap,
-                pad_to_batch=self.val_batch_size,
-            )
+        seeded = self._seeded["val"]
 
-        return iter(_Prefetcher(load, batches, self.val_num_workers))
+        def load(job):
+            i, idx_group = job
+            rng = np.random.default_rng([self.seed, i]) if seeded else None
+            return self._loaded(ds, idx_group, cap, rng,
+                                pad_to_batch=self.val_batch_size)
+
+        return iter(_Prefetcher(load, enumerate(batches),
+                                self.val_num_workers))

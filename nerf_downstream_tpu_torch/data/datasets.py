@@ -1,9 +1,9 @@
 """Dataset registry (counterpart of ``nerf_downstream_tpu/data/datasets.py``).
 
 The reference's table names nine datasets; the port has
-``PlenoxelScannetDataset`` and the three CO3D classification readers, and
-raises ``NotImplementedError`` for the others (ROADMAP.md Queue 1 items 1
-and 3).
+``ScannetDataset``, ``PlenoxelScannetDataset`` and the three CO3D
+classification readers, and raises ``NotImplementedError`` for the others
+(ROADMAP.md Queue 1 item 3).
 """
 
 from __future__ import annotations
@@ -11,7 +11,7 @@ from __future__ import annotations
 from nerf_downstream_tpu_torch import config as cfg
 
 NOT_PORTED = (
-    "ScannetDataset", "ModelNet40H5", "ModelNet40H5Dataset",
+    "ModelNet40H5", "ModelNet40H5Dataset",
     "SemanticKITTIDataset", "StanfordDataset",
 )
 
@@ -23,6 +23,7 @@ def _table():
         "Co3DDataset": co3d.Co3DDataset,
         "Co3D10pDataset": co3d.Co3D10pDataset,
         "Co3DDatasetBase": co3d.Co3DDatasetBase,
+        "ScannetDataset": scannet.ScannetDataset,
         "PlenoxelScannetDataset": scannet.PlenoxelScannetDataset,
     }
 
@@ -31,7 +32,8 @@ def _table():
 def get_dataset(dataset_name: str = "Co3DDataset"):
     if dataset_name in NOT_PORTED:
         raise NotImplementedError(
-            f"dataset {dataset_name!r} is not ported (ROADMAP.md Queue 1)")
+            f"dataset {dataset_name!r} is not ported (ROADMAP.md Queue 1 "
+            "item 3)")
     table = _table()
     if dataset_name not in table:
         raise ValueError(

@@ -1,7 +1,11 @@
-"""PeRFception-ScanNet Plenoxel grids (counterpart of
-``nerf_downstream_tpu/data/scannet.py``; its ``ScannetDataset`` over PLY
-meshes is not ported yet, ROADMAP.md Queue 1 item 1).
+"""ScanNet datasets: raw meshes and PeRFception-ScanNet Plenoxel grids
+(counterpart of ``nerf_downstream_tpu/data/scannet.py``).
 
+- ``ScannetDataset``: ScanNet v2 PLY point clouds, pre-downsampled at half
+  a voxel (``sparse_quantize``: the first point of each cell, a cell's
+  conflicting labels become ``ignore_label``), coordinates in voxel
+  units, the 20-class nyu40 remap, colours as features
+  (reference :149-308).
 - ``PlenoxelScannetDataset``: per-voxel labels + distances to the nearest
   labeled GT point; ``dists > valid_thres`` voxels become the void class,
   optional ``ignore_thres`` row filtering, per-scene metric rescale via the
@@ -21,6 +25,7 @@ from nerf_downstream_tpu_torch import config as cfg
 from nerf_downstream_tpu_torch.data import plenoxel
 from nerf_downstream_tpu_torch.data import transforms as T
 from nerf_downstream_tpu_torch.data.co3d import select_features
+from nerf_downstream_tpu_torch.data.ply import load_ply
 
 # The 20 evaluated ScanNet benchmark classes (reference scannet.py tables)
 CLASS_LABELS = (
@@ -74,6 +79,102 @@ def remap_labels(labels: np.ndarray, label_map: dict,
         if k < 0:
             out = np.where(labels == k, v, out)
     return out.astype(np.int32)
+
+
+def sparse_quantize(xyz: np.ndarray, qsize: float, labels=None,
+                    ignore_label: int = -100):
+    """Grid dedup keeping first point per cell; conflicting labels in a cell
+    become ignore_label (ME.utils.sparse_quantize semantics)."""
+    cell = np.floor(xyz / qsize).astype(np.int64)
+    key = (cell[:, 0] << 42) ^ (cell[:, 1] << 21) ^ cell[:, 2]
+    _, first_idx, inv = np.unique(key, return_index=True, return_inverse=True)
+    out_labels = None
+    if labels is not None:
+        lmin = np.full(len(first_idx), np.iinfo(np.int64).max)
+        lmax = np.full(len(first_idx), np.iinfo(np.int64).min)
+        np.minimum.at(lmin, inv, labels)
+        np.maximum.at(lmax, inv, labels)
+        out_labels = np.where(lmin == lmax, lmin, ignore_label).astype(np.int32)
+    return first_idx, out_labels
+
+
+@cfg.configurable
+class ScannetDataset:
+    NUM_LABELS = 41
+    DATA_PATH_FILE = {
+        "train": "scannetv2_train.txt",
+        "val": "scannetv2_val.txt",
+        "test": "scannetv2_test.txt",
+    }
+    CLASS_LABELS = CLASS_LABELS
+    VALID_CLASS_IDS = VALID_CLASS_IDS
+
+    def __init__(
+        self,
+        phase: str,
+        data_root: str = "datasets/scannet",
+        downsample_voxel_size=None,
+        voxel_size: float = 0.02,
+        train_transformations=(
+            "ChromaticTranslation", "ChromaticJitter", "CoordinateDropout",
+            "RandomHorizontalFlip", "RandomAffine", "RandomTranslation",
+            "NormalizeColor",
+        ),
+        eval_transformations=("NormalizeColor",),
+        ignore_label: int = -100,
+        features: List[str] = ("colors",),
+    ):
+        self.phase = phase
+        self.data_root = data_root
+        self.ignore_label = ignore_label
+        names = train_transformations if phase == "train" else eval_transformations
+        self.transformations = T.build(names, device_ok=(phase == "train"))
+        with open(os.path.join(data_root, self.DATA_PATH_FILE[phase])) as f:
+            self.pc_files = [l.rstrip("\n") for l in f if l.strip()]
+        self.downsample_voxel_size = (
+            voxel_size / 2 if downsample_voxel_size is None
+            else downsample_voxel_size
+        )
+        self.voxel_size = voxel_size
+        self.label_map = build_label_map(
+            self.NUM_LABELS, self.VALID_CLASS_IDS, ignore_label
+        )
+        self.features = list(features)
+        logging.info(
+            f"{type(self).__name__}(phase={phase}, total size="
+            f"{len(self.pc_files)}, voxel_size={voxel_size})"
+        )
+
+    def __len__(self):
+        return len(self.pc_files)
+
+    def __getitem__(self, i: int) -> dict:
+        xyzs, colors, labels, instances = load_ply(
+            os.path.join(self.data_root, self.pc_files[i]),
+            load_label=True, load_instance=True,
+        )
+        if self.downsample_voxel_size > 0:
+            keep, qlabels = sparse_quantize(
+                xyzs, self.downsample_voxel_size, labels, self.ignore_label
+            )
+            xyzs = xyzs[keep] / self.voxel_size
+            colors = colors[keep]
+            labels = qlabels
+            instances = instances[keep]
+        else:
+            xyzs = xyzs / self.voxel_size
+        xyzs, colors, labels = self.transformations(xyzs, colors, labels)
+        labels = remap_labels(labels, self.label_map, self.ignore_label)
+        feats = select_features(
+            self.features, {"colors": colors, "xyzs": xyzs}
+        )
+        return {
+            "coordinates": xyzs.astype(np.float32),
+            "features": feats,
+            "labels": labels,
+            "colors": colors,
+            "dataset": "scannet",
+        }
 
 
 @cfg.configurable

@@ -2,8 +2,10 @@
 the presets, the tests and the smoke run: the port's
 ``data/plenoxel.py::make_synthetic_scene`` and ``data/utils.py::
 collate_mink``, one scene as the serving benchmark builds it, the trees
-the two 3D training configs read, and the frame trees the 2D configs
-read (``write_perfception_2d_tree``)."""
+the 3D training configs read (``write_scannet_tree``,
+``write_co3d_tree``, and ``write_scannet_ply_tree`` for the raw-mesh
+``scannet_semseg.gin``), and the frame trees the 2D configs read
+(``write_perfception_2d_tree``)."""
 
 from __future__ import annotations
 
@@ -14,7 +16,7 @@ from nerf_downstream_tpu_torch.data.utils import collate_mink
 
 __all__ = ["collate_mink", "make_synthetic_scene", "scene_sample",
            "write_co3d_tree", "write_perfception_2d_tree",
-           "write_scannet_tree"]
+           "write_scannet_ply_tree", "write_scannet_tree"]
 
 
 def scene_sample(rng, n_voxels: int, num_classes: int) -> dict:
@@ -68,6 +70,85 @@ def write_scannet_tree(root: str, rng, n_train: int = 3, n_val: int = 3,
     with open(os.path.join(split, "scene_scales.data"), "wb") as f:
         pickle.dump({n: float(scene_scale) for n in names}, f)
     return data_root
+
+
+# nyu40 ids of the furniture boxes (all evaluated classes)
+_BOX_IDS = (3, 4, 5, 6, 7, 8, 10, 11, 12, 14, 16, 24, 33, 34, 36, 39)
+
+
+def _room(rng, n_vertices: int, extent, height: float, boxes: int,
+          yaw=(0.0, 0.0)):
+    """(xyz f32 [n, 3] in metres, rgb uint8 [n, 3], nyu40 label, instance)
+    of one room: a floor (label 2), four walls (label 1) and ``boxes``
+    furniture boxes on the floor (five faces each, an evaluated nyu40
+    label and an instance id each), vertices drawn uniformly over the
+    surfaces by area; one vertex in 50 is unannotated (label 0). The room
+    turns about z by an angle drawn from ``yaw`` degrees, then moves to
+    non-negative coordinates."""
+    lx, ly = rng.uniform(*extent, 2)
+    faces = [((0, 0, 0), (lx, 0, 0), (0, ly, 0), 2, 0)]  # the floor
+    for o, u in (((0, 0, 0), (lx, 0, 0)), ((0, 0, 0), (0, ly, 0)),
+                 ((lx, 0, 0), (0, ly, 0)), ((0, ly, 0), (lx, 0, 0))):
+        faces.append((o, u, (0, 0, height), 1, 0))
+    for b in range(boxes):
+        sx, sy = rng.uniform(0.4, 1.4, 2)
+        sz = rng.uniform(0.4, 1.2)
+        x0 = rng.uniform(0.1, max(lx - sx - 0.1, 0.2))
+        y0 = rng.uniform(0.1, max(ly - sy - 0.1, 0.2))
+        label = int(rng.choice(_BOX_IDS))
+        faces.append(((x0, y0, sz), (sx, 0, 0), (0, sy, 0), label, b + 1))
+        for o, u in (((x0, y0, 0), (sx, 0, 0)), ((x0, y0, 0), (0, sy, 0)),
+                     ((x0 + sx, y0, 0), (0, sy, 0)),
+                     ((x0, y0 + sy, 0), (sx, 0, 0))):
+            faces.append((o, u, (0, 0, sz), label, b + 1))
+    o, u, v = (np.asarray([f[i] for f in faces], np.float64)
+               for i in range(3))
+    area = np.linalg.norm(np.cross(u, v), axis=1)
+    face = rng.choice(len(faces), n_vertices, p=area / area.sum())
+    a, c = rng.random((2, n_vertices, 1))
+    xyz = o[face] + a * u[face] + c * v[face]
+    t = np.deg2rad(rng.uniform(*yaw))
+    rot = np.array([[np.cos(t), -np.sin(t), 0], [np.sin(t), np.cos(t), 0],
+                    [0, 0, 1]])
+    xyz = xyz @ rot.T
+    xyz -= xyz.min(0)
+    base = rng.integers(40, 216, (len(faces), 3))
+    rgb = np.clip(base[face] + rng.normal(0, 8, (n_vertices, 3)), 0, 255)
+    label = np.asarray([f[3] for f in faces])[face]
+    label[rng.random(n_vertices) < 0.02] = 0
+    inst = np.asarray([f[4] for f in faces])[face]
+    return xyz.astype(np.float32), rgb.astype(np.uint8), label, inst
+
+
+def write_scannet_ply_tree(root: str, rng, n_train: int = 3, n_val: int = 2,
+                           n_vertices: int = 100_000, extent=(3.0, 6.5),
+                           height: float = 2.5, boxes: int = 6,
+                           yaw=(0.0, 0.0)) -> str:
+    """Write ScanNet-layout rooms under ``root`` and return the data root
+    ``ScannetDataset`` reads: binary PLYs ``train/scene<i>_00.ply``
+    (vertex x y z red green blue label instance, nyu40 labels; rooms from
+    ``_room``: floor sides drawn from ``extent`` metres, so an uncropped
+    room stays inside a 384-voxel grid at 2 cm when ``extent`` ends at 7.5
+    or below; each turned about z by an angle from ``yaw`` degrees) and
+    ``scannetv2_{train,val}.txt`` listing them. Train rooms come first;
+    with ``n_val = 0`` the val list names the train rooms."""
+    import os
+
+    from nerf_downstream_tpu_torch.data.ply import write_ply
+
+    os.makedirs(os.path.join(root, "train"), exist_ok=True)
+    names = []
+    for i in range(n_train + n_val):
+        name = f"train/scene{i:04d}_00.ply"
+        xyz, rgb, label, inst = _room(rng, n_vertices, extent, height, boxes,
+                                      yaw)
+        write_ply(os.path.join(root, name), xyz, rgb, label, inst)
+        names.append(name)
+    train, val = names[:n_train], names[n_train:] or names[:n_train]
+    for phase, lst in (("train", train), ("val", val)):
+        with open(os.path.join(root, f"scannetv2_{phase}.txt"), "w") as f:
+            f.write("\n".join(lst) + "\n")
+    return root
 
 
 def write_co3d_tree(root: str, rng, n_train: int = 4, n_val: int = 0,

@@ -3,14 +3,18 @@ config's list and of every ``co3d_aug*.gin`` on (coords, feats, labels)
 triples, ``Compose`` and ``build`` (counterpart of
 ``nerf_downstream_tpu/data/transforms.py``, the port's own copy, draw for
 draw from the module's ``_rng`` stream: the same ``seed`` gives the same
-arrays). The reference's other transforms (colour, PerlinNoise, FPS, ...)
-are not ported yet (ROADMAP.md Queue 1 item 3); ``build`` raises on their
-names. Rotations use the closed-form Rodrigues formula (the reference's
+arrays), with the colour transforms of ``scannet_semseg.gin``
+(``ChromaticTranslation``, ``ChromaticAutoContrast``, ``ChromaticJitter``,
+``NormalizeColor``, ``HueSaturationTranslation``; colours in [0, 255]).
+The reference's other transforms (PerlinNoise, FPS, ...) are not ported
+yet (ROADMAP.md Queue 1 item 3); ``build`` raises on their names. Rotations use the closed-form Rodrigues formula (the reference's
 ``scipy.expm`` matrix).
 """
 
 from __future__ import annotations
 
+import contextlib
+import threading
 from typing import Optional, Sequence
 
 import numpy as np
@@ -18,6 +22,7 @@ import numpy as np
 from nerf_downstream_tpu_torch import config as cfg
 
 _rng = np.random.default_rng()
+_local = threading.local()  # a loader thread's own generator, drawing_from
 
 
 def seed(s: int):
@@ -26,8 +31,25 @@ def seed(s: int):
     _rng = np.random.default_rng(s)
 
 
+def _gen() -> np.random.Generator:
+    """The generator this thread draws from: its own under
+    ``drawing_from``, else the module's ``_rng``."""
+    own = getattr(_local, "rng", None)
+    return _rng if own is None else own
+
+
+@contextlib.contextmanager
+def drawing_from(rng: np.random.Generator):
+    """Draw this thread's transforms from ``rng`` instead of ``_rng``."""
+    _local.rng = rng
+    try:
+        yield
+    finally:
+        _local.rng = None
+
+
 def _rand():
-    return float(_rng.random())
+    return float(_gen().random())
 
 
 def _sel(coords, feats, labels, sel):
@@ -55,7 +77,7 @@ class RandomFeatureJitter:
             # float32 generation: same distribution, half the RNG cost
             # (this jitter was the #2 host-side hot spot at bench scale)
             noise = (
-                _rng.standard_normal(
+                _gen().standard_normal(
                     (feats.shape[0], self.feature_dim), dtype=np.float32
                 )
                 - np.float32(0.5)
@@ -64,6 +86,117 @@ class RandomFeatureJitter:
             feats[:, self.start_ind : self.start_ind + self.feature_dim] += (
                 noise.astype(feats.dtype)
             )
+        return coords, feats, labels
+
+
+@cfg.configurable
+class ChromaticTranslation:
+    """Random global color shift; colors in [0, 255]."""
+
+    def __init__(self, translation_range_ratio=1e-1, application_ratio=0.9):
+        self.trans_range_ratio = translation_range_ratio
+        self.application_ratio = application_ratio
+
+    def __call__(self, coords, feats, labels):
+        if _rand() < self.application_ratio:
+            tr = (_gen().random((1, 3)) - 0.5) * 255 * 2 * self.trans_range_ratio
+            feats = feats.copy()
+            feats[:, :3] = np.clip(tr + feats[:, :3], 0, 255)
+        return coords, feats, labels
+
+
+@cfg.configurable
+class ChromaticAutoContrast:
+    def __init__(self, randomize_blend_factor=True, blend_factor=0.5,
+                 application_ratio=0.2):
+        self.randomize_blend_factor = randomize_blend_factor
+        self.blend_factor = blend_factor
+        self.application_ratio = application_ratio
+
+    def __call__(self, coords, feats, labels):
+        if _rand() < self.application_ratio:
+            lo = feats[:, :3].min(0, keepdims=True)
+            hi = feats[:, :3].max(0, keepdims=True)
+            assert hi.max() > 1, "colors expected in [0, 255]"
+            scale = 255 / np.maximum(hi - lo, 1e-8)
+            contrast = (feats[:, :3] - lo) * scale
+            blend = _rand() if self.randomize_blend_factor else self.blend_factor
+            feats = feats.copy()
+            feats[:, :3] = (1 - blend) * feats[:, :3] + blend * contrast
+        return coords, feats, labels
+
+
+@cfg.configurable
+class ChromaticJitter:
+    def __init__(self, std=0.01, application_ratio=0.9):
+        self.std = std
+        self.application_ratio = application_ratio
+
+    def __call__(self, coords, feats, labels):
+        if _rand() < self.application_ratio:
+            noise = _gen().standard_normal((feats.shape[0], 3)) * self.std * 255
+            feats = feats.copy()
+            feats[:, :3] = np.clip(noise + feats[:, :3], 0, 255)
+        return coords, feats, labels
+
+
+@cfg.configurable
+class NormalizeColor:
+    def __init__(self, mean=(128, 128, 128), std=(256, 256, 256)):
+        self.mean = np.array([mean], np.float32)
+        self.std = np.array([std], np.float32)
+
+    def __call__(self, coords, feats, labels):
+        return coords, (feats - self.mean) / self.std, labels
+
+
+def _rgb_to_hsv(rgb):
+    rgb = rgb.astype(np.float64)
+    hsv = np.zeros_like(rgb)
+    r, g, b = rgb[..., 0], rgb[..., 1], rgb[..., 2]
+    maxc = rgb.max(-1)
+    minc = rgb.min(-1)
+    hsv[..., 2] = maxc
+    span = np.maximum(maxc - minc, 1e-12)
+    hsv[..., 1] = np.where(maxc > 0, (maxc - minc) / np.maximum(maxc, 1e-12), 0)
+    rc = (maxc - r) / span
+    gc = (maxc - g) / span
+    bc = (maxc - b) / span
+    h = np.select([r == maxc, g == maxc], [bc - gc, 2.0 + rc - bc], 4.0 + gc - rc)
+    hsv[..., 0] = (h / 6.0) % 1.0
+    hsv[..., 0] = np.where(maxc == minc, 0.0, hsv[..., 0])
+    return hsv
+
+
+def _hsv_to_rgb(hsv):
+    h, s, v = hsv[..., 0], hsv[..., 1], hsv[..., 2]
+    i = (h * 6.0).astype(int) % 6
+    f = (h * 6.0) - (h * 6.0).astype(int)
+    p = v * (1.0 - s)
+    q = v * (1.0 - s * f)
+    t = v * (1.0 - s * (1.0 - f))
+    conds = [s == 0.0, i == 1, i == 2, i == 3, i == 4, i == 5]
+    rgb = np.empty_like(hsv)
+    rgb[..., 0] = np.select(conds, [v, q, p, p, t, v], default=v)
+    rgb[..., 1] = np.select(conds, [v, v, v, q, p, p], default=t)
+    rgb[..., 2] = np.select(conds, [v, p, t, v, v, q], default=p)
+    return rgb
+
+
+@cfg.configurable
+class HueSaturationTranslation:
+    def __init__(self, hue_max=0.5, saturation_max=0.2):
+        self.hue_max = hue_max
+        self.saturation_max = saturation_max
+
+    def __call__(self, coords, feats, labels):
+        hsv = _rgb_to_hsv(feats[:, :3])
+        hue_val = (_rand() - 0.5) * 2 * self.hue_max
+        sat_ratio = 1 + (_rand() - 0.5) * 2 * self.saturation_max
+        hsv[..., 0] = np.remainder(hue_val + hsv[..., 0] + 1, 1)
+        hsv[..., 1] = np.clip(sat_ratio * hsv[..., 1], 0, 1)
+        feats = feats.copy()
+        feats[:, :3] = np.clip(_hsv_to_rgb(hsv), 0, 255)
         return coords, feats, labels
 
 
@@ -86,7 +219,7 @@ class RandomCrop:
         if np.prod(coord_range == 0):
             return coords, feats, labels
         for _ in range(self.max_retries):
-            lo = _rng.random((1, 3)) * coord_range
+            lo = _gen().random((1, 3)) * coord_range
             hi = lo + self.max_size
             sel = np.all((norm > lo) & (norm < hi), axis=1)
             if sel.sum() > 0:
@@ -103,7 +236,7 @@ class CoordinateDropout:
     def __call__(self, coords, feats, labels):
         if _rand() < self.application_ratio:
             n = len(coords)
-            keep = _rng.choice(n, int(n * (1 - self.dropout_ratio)),
+            keep = _gen().choice(n, int(n * (1 - self.dropout_ratio)),
                                replace=False)
             return _sel(coords, feats, labels, keep)
         return coords, feats, labels
@@ -118,7 +251,7 @@ class CoordinateJitter:
     def __call__(self, coords, feats, labels):
         if _rand() < self.application_ratio:
             coords = coords + (2 * self.jitter_std) * (
-                _rng.random((len(coords), 3)) - 0.5
+                _gen().random((len(coords), 3)) - 0.5
             )
         return coords, feats, labels
 
@@ -130,7 +263,7 @@ class CoordinateUniformTranslation:
 
     def __call__(self, coords, feats, labels):
         if self.max_translation > 0:
-            coords = coords + _rng.uniform(
+            coords = coords + _gen().uniform(
                 -self.max_translation, self.max_translation, (1, 3)
             )
         return coords, feats, labels
@@ -157,7 +290,7 @@ class RandomRotation:
 
     def __call__(self, coords, feats, labels):
         if _rand() < self.application_ratio:
-            axis = self.axis_std * _rng.standard_normal(3)
+            axis = self.axis_std * _gen().standard_normal(3)
             axis[self.upright_axis] += 1
             angle = _rand() * 2 * np.pi
             coords = coords @ rotation_matrix(axis, angle)
@@ -172,7 +305,7 @@ class RandomScale:
 
     def __call__(self, coords, feats, labels):
         if _rand() < self.application_ratio:
-            coords = coords * _rng.uniform(
+            coords = coords * _gen().uniform(
                 1 - self.scale_ratio, 1 + self.scale_ratio
             )
         return coords, feats, labels
@@ -186,7 +319,7 @@ class RandomTranslation:
 
     def __call__(self, coords, feats, labels):
         if _rand() < self.application_ratio:
-            coords = coords + 2 * (_rng.random((1, 3)) - 0.5) * self.max_translation
+            coords = coords + 2 * (_gen().random((1, 3)) - 0.5) * self.max_translation
         return coords, feats, labels
 
 
@@ -204,12 +337,12 @@ class RandomAffine:
 
     def __call__(self, coords, feats, labels):
         if _rand() < self.application_ratio:
-            axis = self.axis_std * _rng.standard_normal(3)
+            axis = self.axis_std * _gen().standard_normal(3)
             axis[self.upright_axis] += 1
             angle = 2 * (_rand() - 0.5) * np.pi
             T = rotation_matrix(axis, angle) @ (
-                np.diag(2 * (_rng.random(3) - 0.5) * self.scale_range + 1)
-                + 2 * (_rng.random((3, 3)) - 0.5) * self.affine_range
+                np.diag(2 * (_gen().random(3) - 0.5) * self.scale_range + 1)
+                + 2 * (_gen().random((3, 3)) - 0.5) * self.affine_range
             )
             coords = coords @ T
         return coords, feats, labels
@@ -317,7 +450,7 @@ class ElasticDistortion:
         noise_dim = ((coords - coords_min).max(0) // granularity).astype(int) + 3
         # float32 generation: same distribution, half the RNG cost (the
         # float64 default was ~half this transform's host time)
-        noise = _rng.standard_normal((*noise_dim, 3), dtype=np.float32)
+        noise = _gen().standard_normal((*noise_dim, 3), dtype=np.float32)
         noise = _box_smooth3(noise, iterations=2)
         # the ax grids are uniform (linspace spacing == granularity), so
         # the generic scipy interpolator reduces to uniform trilinear

@@ -1,6 +1,7 @@
-"""Evaluation entry point, with pruned checkpoints (counterpart of
-``co3d_3d/eval.py``, without gin and without the dataset readers, which
-the port does not have yet).
+"""Preset-driven evaluation of pruned checkpoints on synthetic batches
+(the pruned-eval half of ``co3d_3d/eval.py`` without gin and without a
+dataset; ``nerf_downstream_tpu_torch.co3d_3d.eval`` is the reference's
+command itself).
 
     python -m nerf_downstream_tpu_torch.eval3d --preset eval_64k \
         --load_path ckpt/last.ckpt --sparsify --sparse_mode 1,1,1,1,1,1,1,1,1 \
@@ -49,43 +50,13 @@ from nerf_downstream_tpu_torch.models.mink.layers import (
 from nerf_downstream_tpu_torch.train import metrics as M
 from nerf_downstream_tpu_torch.train.checkpoints import load_checkpoint
 from nerf_downstream_tpu_torch.utils.prune import (
-    block_live_map,
     count_parameters_tree,
+    derive_maps,
     fold_pruning_masks,
-    pruned_offsets_map,
+    parse_sparse_mode,
 )
 
 LAYOUTS = ("csr", "coo", "strided")
-
-
-def parse_sparse_mode(sparsify: bool, sparse_mode: str) -> list[int]:
-    """The nine conv modes: as given with ``--sparsify`` (nine positive
-    values), else all dense."""
-    if not sparsify:
-        return [0] * 9
-    modes = [int(n) for n in sparse_mode.split(",")]
-    assert len(modes) == 9, "sparse mode should have length 9."
-    assert 0 not in modes, (
-        "sparse_mode should be positive when sparsify is on.")
-    return modes
-
-
-def derive_maps(params: dict, sparse_mode, layout: str,
-                granularity: int = 128) -> tuple[dict | None, dict | None]:
-    """(valid_offsets_map, block_live_map) of a pruned parameter tree for
-    the mode-1 convs: the live offsets of every conv, and with layout csr
-    or coo the live weight blocks at ``granularity`` (None where empty)."""
-    vmap = bmap = None
-    if 1 in list(sparse_mode):
-        vmap = pruned_offsets_map(params) or None
-        if vmap:
-            print("pruned offset map:", {k: len(v) for k, v in vmap.items()})
-        if layout in ("csr", "coo"):
-            bmap = block_live_map(params, block=granularity) or None
-            if bmap:
-                print("block-live map:", {k: f"{int(v.sum())}/{v.size}"
-                                          for k, v in bmap.items()})
-    return vmap, bmap
 
 
 def build_evaluator(preset: str, variables: dict, *, sparse_mode=None,
@@ -125,22 +96,13 @@ def evaluate(*, preset: str = "eval_64k", load_path: str | None = None,
              save_path: str | None = None, sparse_mode=None,
              layout: str = "csr", block_live_granularity: int = 128,
              tag: str = "default", replace: bool = False, batches: int = 3,
-             seed: int = 777, device="cuda", convert_powernorm: bool = False,
-             visualize: bool = False, model: str = "Res16UNet18A",
+             seed: int = 777, device="cuda", model: str = "Res16UNet18A",
              **model_kwargs) -> dict | None:
     """Evaluate a checkpoint (or seeded random weights without
     ``load_path``) on ``batches`` synthetic batches of ``preset``. Returns
     {"results", "ms", "routes", "num_params"} and writes
     ``[results]`` to ``{save_path}/{tag}.json``; None when that file
     exists and ``replace`` is False."""
-    if convert_powernorm:
-        raise NotImplementedError(
-            "--convert_powernorm needs PowerNorm (models/mink/powernorm.py), "
-            "which the port does not have yet")
-    if visualize:
-        raise NotImplementedError(
-            "--visualize needs the prediction writer of Trainer.validate "
-            "(train/loop.py), which the port does not have yet")
     if layout not in LAYOUTS:
         raise ValueError(f"layout {layout!r} not in {LAYOUTS}")
     if save_path is None:
@@ -230,8 +192,6 @@ def main(argv=None, **model_kwargs):
     ap.add_argument("--batches", type=int, default=3)
     ap.add_argument("--seed", type=int, default=777)
     ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
-    ap.add_argument("--convert_powernorm", action="store_true")
-    ap.add_argument("--visualize", action="store_true")
     args = ap.parse_args(argv)
 
     sparse_mode = parse_sparse_mode(args.sparsify, args.sparse_mode)
@@ -249,8 +209,7 @@ def main(argv=None, **model_kwargs):
         layout=args.layout,
         block_live_granularity=args.block_live_granularity, tag=tag,
         replace=args.replace, batches=args.batches, seed=args.seed,
-        device=args.device, convert_powernorm=args.convert_powernorm,
-        visualize=args.visualize, model=args.model, **model_kwargs)
+        device=args.device, model=args.model, **model_kwargs)
     if out is not None:
         summary = dict(out["results"], tag=tag, preset=args.preset,
                        ms=out["ms"], routes=out["routes"])

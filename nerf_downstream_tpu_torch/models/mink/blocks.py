@@ -9,6 +9,8 @@ same coarser level (the context caches it)."""
 
 from __future__ import annotations
 
+import functools
+
 import torch
 from torch import nn
 
@@ -19,19 +21,18 @@ from nerf_downstream_tpu_torch.models.mink.layers import (
 )
 
 
-def _downsample(inplanes, outplanes, stride, norm_type, compute_dtype,
-                bn_momentum):
+def _downsample(inplanes, outplanes, stride, norm, compute_dtype):
     return nn.ModuleDict({
         "conv": SparseConv(inplanes, outplanes, 1, stride,
                            compute_dtype=compute_dtype),
-        "norm": make_norm(norm_type, outplanes, bn_momentum=bn_momentum),
+        "norm": norm(outplanes),
     })
 
 
 class BasicBlock(nn.Module):
     """conv3-norm-act-conv3-norm (+ skip) - act. Expansion 1. ``stride``
     goes to the first 3x3 conv; ``conv_mode`` to both 3x3 convs
-    (``SparseConv``)."""
+    (``SparseConv``); ``num_batches`` to instance norms."""
 
     expansion = 1
 
@@ -39,22 +40,24 @@ class BasicBlock(nn.Module):
                  nonlinearity: str = "MinkowskiReLU",
                  compute_dtype: torch.dtype = torch.float32,
                  conv_mode: int = 0, bn_momentum: float = 0.1,
-                 stride: int = 1):
+                 stride: int = 1, num_batches: int = 1):
         super().__init__()
+        norm = functools.partial(make_norm, norm_type,
+                                 bn_momentum=bn_momentum,
+                                 num_batches=num_batches)
         self.non = get_nonlinearity(nonlinearity)
         self.conv1 = SparseConv(inplanes, planes, 3, stride,
                                 compute_dtype=compute_dtype,
                                 conv_mode=conv_mode)
-        self.norm1 = make_norm(norm_type, planes, bn_momentum=bn_momentum)
+        self.norm1 = norm(planes)
         self.conv2 = SparseConv(planes, planes, 3, 1,
                                 compute_dtype=compute_dtype,
                                 conv_mode=conv_mode)
-        self.norm2 = make_norm(norm_type, planes, bn_momentum=bn_momentum)
+        self.norm2 = norm(planes)
         self.downsample = None
         if stride != 1 or inplanes != planes * self.expansion:
             self.downsample = _downsample(inplanes, planes * self.expansion,
-                                          stride, norm_type, compute_dtype,
-                                          bn_momentum)
+                                          stride, norm, compute_dtype)
 
     def forward(self, sv, ctx):
         out = self.non(self.norm1(self.conv1(sv, ctx)))
@@ -76,24 +79,27 @@ class Bottleneck(nn.Module):
                  nonlinearity: str = "MinkowskiReLU",
                  compute_dtype: torch.dtype = torch.float32,
                  conv_mode: int = 0, bn_momentum: float = 0.1,
-                 stride: int = 1):
+                 stride: int = 1, num_batches: int = 1):
         super().__init__()
         out = planes * self.expansion
+        norm = functools.partial(make_norm, norm_type,
+                                 bn_momentum=bn_momentum,
+                                 num_batches=num_batches)
         self.non = get_nonlinearity(nonlinearity)
         self.conv1 = SparseConv(inplanes, planes, 1, 1,
                                 compute_dtype=compute_dtype)
-        self.norm1 = make_norm(norm_type, planes, bn_momentum=bn_momentum)
+        self.norm1 = norm(planes)
         self.conv2 = SparseConv(planes, planes, 3, stride,
                                 compute_dtype=compute_dtype,
                                 conv_mode=conv_mode)
-        self.norm2 = make_norm(norm_type, planes, bn_momentum=bn_momentum)
+        self.norm2 = norm(planes)
         self.conv3 = SparseConv(planes, out, 1, 1,
                                 compute_dtype=compute_dtype)
-        self.norm3 = make_norm(norm_type, out, bn_momentum=bn_momentum)
+        self.norm3 = norm(out)
         self.downsample = None
         if stride != 1 or inplanes != out:
-            self.downsample = _downsample(inplanes, out, stride, norm_type,
-                                          compute_dtype, bn_momentum)
+            self.downsample = _downsample(inplanes, out, stride, norm,
+                                          compute_dtype)
 
     def forward(self, sv, ctx):
         out = self.non(self.norm1(self.conv1(sv, ctx)))

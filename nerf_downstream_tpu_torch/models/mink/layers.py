@@ -1,7 +1,7 @@
-"""Layers over SparseVoxels: windowed conv, conv-transpose, BN, activations
-(counterpart of ``nerf_downstream_tpu/models/mink/layers.py``, the
-fully-windowed path, forward and backward, with the weight-sparse
-inference modes).
+"""Layers over SparseVoxels: windowed conv, conv-transpose, norms (BN, IN,
+LN; PowerNorm in ``powernorm.py``), activations (counterpart of
+``nerf_downstream_tpu/models/mink/layers.py``, the fully-windowed path,
+forward and backward, with the weight-sparse inference modes).
 
 Every k3/s1 conv and k2/s2 or k1/s2 down conv rides window plans built
 from the level's sorted keys; the k2 transpose conv reuses the down conv's
@@ -38,6 +38,8 @@ from torch.nn import functional as F
 from nerf_downstream_tpu_torch.ops.consts import const
 from nerf_downstream_tpu_torch.ops.norm import (
     batch_norm_apply,
+    instance_norm_stats,
+    layer_norm,
     masked_mean_var,
 )
 from nerf_downstream_tpu_torch.ops.pool import global_pool, window_pool
@@ -397,12 +399,64 @@ def get_nonlinearity(name: str):
     return apply
 
 
+class MinkLayerNorm(nn.Module):
+    """LayerNorm of each row over its channels (no statistics kept; the
+    same in train and eval mode)."""
+
+    flax_name = "MinkLayerNorm"
+
+    def __init__(self, num_channels: int, eps: float = 1e-5):
+        super().__init__()
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(num_channels))
+        self.bias = nn.Parameter(torch.zeros(num_channels))
+
+    def forward(self, sv: SparseVoxels) -> SparseVoxels:
+        return sv.replace(feats=layer_norm(sv.feats, self.weight, self.bias,
+                                           self.eps))
+
+
+class MinkInstanceNorm(nn.Module):
+    """Per-scene norm: each (scene, channel)'s mean and variance over the
+    scene's valid rows (``num_batches`` scenes; padding rows count in
+    none). The same in train and eval mode."""
+
+    flax_name = "MinkInstanceNorm"
+
+    def __init__(self, num_channels: int, num_batches: int = 1,
+                 eps: float = 1e-5):
+        super().__init__()
+        self.num_batches = num_batches
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(num_channels))
+        self.bias = nn.Parameter(torch.zeros(num_channels))
+
+    def forward(self, sv: SparseVoxels) -> SparseVoxels:
+        mean, var = instance_norm_stats(
+            sv.feats, sv.batch_ids(self.num_batches), self.num_batches)
+        f = (sv.feats.to(torch.float32) - mean) * torch.rsqrt(var + self.eps)
+        return sv.replace(
+            feats=(f * self.weight + self.bias).to(sv.feats.dtype))
+
+
 def make_norm(norm_type: str, num_channels: int, *,
-              bn_momentum: float = 0.1) -> nn.Module:
-    """Norm factory; the port has BatchNorm ("BN") only."""
+              bn_momentum: float = 0.1, num_batches: int = 1) -> nn.Module:
+    """Norm factory (the reference's get_norm): BatchNorm ("BN"),
+    instance norm ("IN", over ``num_batches`` scenes), LayerNorm ("LN")
+    and PowerNorm ("PN")."""
     if norm_type == "BN":
         return MaskedBatchNorm(num_channels, momentum=bn_momentum)
-    raise ValueError(f"norm type {norm_type!r} is not ported")
+    if norm_type == "IN":
+        return MinkInstanceNorm(num_channels, num_batches=num_batches)
+    if norm_type == "LN":
+        return MinkLayerNorm(num_channels)
+    if norm_type == "PN":
+        from nerf_downstream_tpu_torch.models.mink.powernorm import (
+            MinkPowerNorm,
+        )
+
+        return MinkPowerNorm(num_channels)
+    raise ValueError(f"unknown norm type {norm_type!r}")
 
 
 def cat(a: SparseVoxels, b: SparseVoxels) -> SparseVoxels:

@@ -1,8 +1,8 @@
 """Res16UNet sparse U-Net family (counterpart of
 ``nerf_downstream_tpu/models/mink/res16unet.py``). ``model.train()``
-selects training (batch statistics in every BatchNorm, which update the
-running ones); ``model.eval()`` inference. Nothing else in the forward
-depends on the mode.
+selects training (batch statistics in every BatchNorm and PowerNorm,
+which update the running ones); ``model.eval()`` inference. Nothing else
+in the forward depends on the mode.
 
 Encoder: a two-conv stem at stride 1, then 4 x [k2/s2 down conv -> residual
 stage]; decoder: 4 x [k2 transpose conv onto the cached encoder level ->
@@ -44,10 +44,12 @@ from nerf_downstream_tpu_torch.sparse.types import PointField
 
 class _ConvNormAct(nn.Module):
     def __init__(self, conv: nn.Module, channels: int, norm_type: str,
-                 nonlinearity: str, bn_momentum: float = 0.1):
+                 nonlinearity: str, bn_momentum: float = 0.1,
+                 num_batches: int = 1):
         super().__init__()
         self.conv = conv
-        self.norm = make_norm(norm_type, channels, bn_momentum=bn_momentum)
+        self.norm = make_norm(norm_type, channels, bn_momentum=bn_momentum,
+                              num_batches=num_batches)
         self.non = get_nonlinearity(nonlinearity)
 
     def forward(self, *args):
@@ -63,7 +65,11 @@ class Res16UNet(nn.Module):
     one-point-per-voxel declaration; None leaves it to the
     ``field_to_sparse.assume_unique`` binding (default False).
     ``num_batches`` is the batch's scene count (the reference's, for the
-    row path's grid index); ``dilations`` other than 1 are not ported."""
+    row path's grid index and the instance norms); ``dilations`` other
+    than 1 are not ported. ``norm_type`` is "BN", "IN", "LN" or "PN".
+    With ``insseg`` the forward also returns per-point offsets from a
+    second head (``offset_conv1`` -> norm -> nonlinearity ->
+    ``offset_conv2`` to 3 channels): ``(offsets, logits)``."""
 
     def __init__(
         self,
@@ -81,6 +87,7 @@ class Res16UNet(nn.Module):
         dilations: Sequence[int] = (1,) * 8,
         bn_momentum: float = 0.1,
         num_batches: int = 1,
+        insseg: bool = False,
     ):
         super().__init__()
         if block not in BLOCKS:
@@ -103,7 +110,7 @@ class Res16UNet(nn.Module):
 
         def unit(conv, ch):
             return _ConvNormAct(conv, ch, norm_type, nonlinearity,
-                                bn_momentum)
+                                bn_momentum, num_batches)
 
         def stage(idx, inplanes):
             blocks = []
@@ -111,7 +118,8 @@ class Res16UNet(nn.Module):
                 blocks.append(block_cls(inplanes, p[idx], norm_type,
                                         nonlinearity, cd,
                                         self._conv_mode(idx + 1),
-                                        bn_momentum))
+                                        bn_momentum,
+                                        num_batches=num_batches))
                 inplanes = p[idx] * exp
             return nn.ModuleList(blocks), inplanes
 
@@ -139,6 +147,16 @@ class Res16UNet(nn.Module):
             setattr(self, f"block{5 + i}", blk)
         self.final = SparseConv(cin, out_channel, 1, 1, use_bias=True,
                                 compute_dtype=cd)
+        self.insseg = insseg
+        if insseg:
+            self.offset_conv1 = SparseConv(cin, cin, 1, 1, use_bias=True,
+                                           compute_dtype=cd)
+            self.offset_norm = make_norm(norm_type, cin,
+                                         bn_momentum=bn_momentum,
+                                         num_batches=num_batches)
+            self.offset_non = get_nonlinearity(nonlinearity)
+            self.offset_conv2 = SparseConv(cin, 3, 1, 1, use_bias=True,
+                                           compute_dtype=cd)
         # each conv's name in the reference's variable tree keys the
         # pruned-eval maps (ctx.valid_offsets_map, ctx.block_live_map)
         for name, mod in self.named_modules():
@@ -155,8 +173,9 @@ class Res16UNet(nn.Module):
             sv = b(sv, ctx)
         return sv
 
-    def forward(self, field: PointField) -> torch.Tensor:
-        """Per-point logits [N, out_channel] (f32)."""
+    def forward(self, field: PointField):
+        """Per-point logits [N, out_channel] (f32); with ``insseg``
+        (offsets [N, 3], logits)."""
         ctx = CoordinateContext(**dict(dict(num_batches=self.num_batches),
                                        **self.ctx_kwargs))
         if self.assume_unique is None:
@@ -174,7 +193,12 @@ class Res16UNet(nn.Module):
             out = self._run(getattr(self, f"block{5 + i}"), cat(out, skip),
                             ctx)
         logits_sv = as_rows(self.final(out, ctx))
-        return sparse_to_field(logits_sv, field, p2v).feats
+        logits = sparse_to_field(logits_sv, field, p2v).feats
+        if not self.insseg:
+            return logits
+        off = self.offset_non(self.offset_norm(self.offset_conv1(out, ctx)))
+        off = as_rows(self.offset_conv2(off, ctx))
+        return sparse_to_field(off, field, p2v).feats, logits
 
 
 # Variant tables (reference res16unet.py:175-234)
@@ -219,6 +243,10 @@ def _variant_table() -> dict:
         )
     for name, layers in _LAYER_OVERRIDES.items():
         table[name] = dict(table[name[:-1]], layers=layers)
+    # instance-segmentation variants (reference :145-160)
+    for name in ("Res16UNet14A", "Res16UNet14B", "Res16UNet18A",
+                 "Res16UNet18B"):
+        table[name + "Ins"] = dict(table[name], insseg=True)
     table["MinkUNet14"] = table["Res16UNet14"]
     table["MinkUNet18"] = table["Res16UNet18"]
     table["MinkUNet34"] = table["Res16UNet34"]

@@ -77,7 +77,8 @@ class MinkResNetBase(nn.Module):
         self.non = get_nonlinearity(nonlinearity)
         self.conv1 = SparseConv(in_channels, init_dim, 3, 1,
                                 compute_dtype=compute_dtype)
-        self.norm = make_norm(norm_type, init_dim, bn_momentum=bn_momentum)
+        self.norm = make_norm(norm_type, init_dim, bn_momentum=bn_momentum,
+                              num_batches=num_batches)
         self.pool = SparsePool(2, 2, "sum")
         block_cls = BLOCKS[block]
         inplanes = init_dim
@@ -88,7 +89,8 @@ class MinkResNetBase(nn.Module):
                 name = f"layer{i}_block{j}"
                 setattr(self, name, block_cls(
                     inplanes, p, norm_type, nonlinearity, compute_dtype,
-                    bn_momentum=bn_momentum, stride=2 if j == 0 else 1))
+                    bn_momentum=bn_momentum, stride=2 if j == 0 else 1,
+                    num_batches=num_batches))
                 inplanes = p * block_cls.expansion
                 names.append(name)
             self.stages.append(names)

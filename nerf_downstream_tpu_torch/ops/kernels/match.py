@@ -124,6 +124,10 @@ def window_starts(hi, lo, o_hi, o_lo, n_valid_in, n_valid_out, deltas, tile,
     nested [G][M] (hi, lo) words of each (group, member)'s key delta.
     Tile t of group g has the coverage window [starts[g, t], starts[g, t]
     + blocks * window); emax[g, t] is the last lower bound its rows reach.
+    Groups are independent: where one launch's bounds of every (group,
+    member, tile) would not fit the shared memory (more than about half a
+    million rows of a 27-offset plan), the groups go to launches of their
+    own, as many per launch as fit.
     """
     dev = hi.device
     if dev.type == "cpu":
@@ -131,8 +135,26 @@ def window_starts(hi, lo, o_hi, o_lo, n_valid_in, n_valid_out, deltas, tile,
                                    n_valid_out, deltas, tile, window, blocks)
     if dev.type != "cuda":
         raise ValueError(f"window_starts: unsupported device {dev}")
-    return _launch_starts(hi, lo, o_hi, o_lo, n_valid_in, n_valid_out,
-                          deltas, tile, window, blocks)
+    return starts_by_groups(_launch_starts, hi, lo, o_hi, o_lo, n_valid_in,
+                            n_valid_out, deltas, tile, window, blocks)
+
+
+def starts_by_groups(launch, hi, lo, o_hi, o_lo, n_valid_in, n_valid_out,
+                     deltas, tile, window, blocks):
+    """``launch`` (the pass's, or its plain version's, signature) over as
+    many groups of ``deltas`` at a time as the pass's shared memory holds
+    (4 bytes per (group, member, tile)); starts and emax concatenated by
+    group, the escape counts summed."""
+    nt = o_hi.shape[0] // tile
+    per = max(1, _MAX_SMEM // (4 * len(deltas[0]) * nt))
+    if per >= len(deltas):
+        return launch(hi, lo, o_hi, o_lo, n_valid_in, n_valid_out, deltas,
+                      tile, window, blocks)
+    parts = [launch(hi, lo, o_hi, o_lo, n_valid_in, n_valid_out,
+                    deltas[g:g + per], tile, window, blocks)
+             for g in range(0, len(deltas), per)]
+    return (torch.cat([p[0] for p in parts]),
+            torch.cat([p[1] for p in parts]), sum(p[2] for p in parts))
 
 
 def _launch_starts(hi, lo, o_hi, o_lo, n_valid_in, n_valid_out, deltas,

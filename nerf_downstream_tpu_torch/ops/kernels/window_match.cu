@@ -392,8 +392,12 @@ __global__ void __launch_bounds__(kMatchThreads, 16) window_match_kernel(
   }
 }
 
+// Opts the kernel in to ``bytes`` of dynamic shared memory where the
+// default 48 KB would not hold them beside its static shared memory
+// (the delta words or a flag, under 1 KB): dynamic bytes just under
+// 48 KB fail to launch without the opt-in.
 int set_smem(const void* kernel, size_t bytes) {
-  if (bytes <= 48 * 1024) return 0;
+  if (bytes + 1024 <= 48 * 1024) return 0;
   return static_cast<int>(cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(bytes)));

@@ -27,3 +27,35 @@ def batch_norm_apply(feats, mean, var, scale, bias, eps=1e-5):
     inv = torch.rsqrt(var + eps)
     out = (feats.to(torch.float32) - mean) * inv
     return (out * scale + bias).to(feats.dtype)
+
+
+def layer_norm(feats, scale, bias, eps=1e-5):
+    """Per-row LayerNorm over the channels (the reference's
+    MinkowskiLayerNorm), statistics in f32, output in the type of
+    ``feats``."""
+    f = feats.to(torch.float32)
+    mean = f.mean(-1, keepdim=True)
+    var = ((f - mean) ** 2).mean(-1, keepdim=True)
+    out = (f - mean) * torch.rsqrt(var + eps)
+    return (out * scale + bias).to(feats.dtype)
+
+
+def instance_norm_stats(feats: torch.Tensor, batch_ids: torch.Tensor,
+                        num_batches: int):
+    """Per-(scene, channel) mean and (biased, clamped at 0) variance of
+    ``feats`` [N, C] in f32, broadcast back to the rows. ``batch_ids``
+    puts padding rows in the spare segment ``num_batches``, so they count
+    in no scene's statistics. The segment sums accumulate with a sorting
+    ``index_put`` (a fixed order on the card, as ``ops/pool.py``'s)."""
+    f = feats.to(torch.float32)
+    ids = batch_ids.long()
+    ns = num_batches + 1
+    cnt = f.new_zeros(ns).index_put((ids,), f.new_ones(f.shape[0]),
+                                    accumulate=True)
+    s1 = f.new_zeros(ns, f.shape[1]).index_put((ids,), f, accumulate=True)
+    s2 = f.new_zeros(ns, f.shape[1]).index_put((ids,), f * f,
+                                               accumulate=True)
+    cnt = torch.clamp(cnt, min=1.0)[:, None]
+    mean = s1 / cnt
+    var = torch.clamp(s2 / cnt - mean * mean, min=0.0)
+    return mean[ids], var[ids]

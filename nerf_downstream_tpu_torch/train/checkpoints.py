@@ -20,7 +20,8 @@ them to and from a model). A training state (``save_training_state``,
 ``restore_into``) also carries ``global_step`` and the optimizer state in
 the layout of the reference's optax chain (``sgd_state_to_optax``,
 ``sgd_state_from_optax``), so a checkpoint written by either package
-resumes in the other; the 2D models' states (``train/modules2d.py``:
+resumes in the other (PowerNorm's statistics ``running_phi``, ``iters``
+and ``ema_gz`` with them); the 2D models' states (``train/modules2d.py``:
 weights, BatchNorm statistics, the SGD momentum trace and the schedule's
 count) take the same path through ``convert.py``'s 2D layout. A port checkpoint may also hold
 ``pruning_masks``: {"path/to/kernel": bool array}, folded into the
@@ -301,7 +302,8 @@ def sgd_state_to_optax(model, optimizer, step: int,
         for name, p in model.named_parameters():
             buf = optimizer.state.get(p, {}).get("momentum_buffer")
             bufs[name] = torch.zeros_like(p) if buf is None else buf
-        inner["0"] = {"trace": convert.state_dict_to_flax(bufs)["params"]}
+        inner["0"] = {"trace": convert.state_dict_to_flax(
+            bufs, convert.norm_name(model))["params"]}
     if scheduled:
         inner["1"] = {"count": np.asarray(step, np.int32)}
     return _optax_chain(wd, inner)
@@ -330,7 +332,8 @@ def save_training_state(path: str, state, meta: dict | None = None) -> None:
     """Write ``state`` (``train.state.TrainState``) in the reference's
     layout: params and batch_stats, the optax optimizer state and
     ``global_step``."""
-    tree = convert.state_dict_to_flax(state.model.state_dict())
+    tree = convert.state_dict_to_flax(state.model.state_dict(),
+                                      convert.norm_name(state.model))
     save_checkpoint(
         path, tree.get("params", {}), tree.get("batch_stats", {}),
         opt_state=sgd_state_to_optax(state.model, state.optimizer,

@@ -32,8 +32,9 @@ def init_variables(model: torch.nn.Module, seed: int) -> torch.nn.Module:
     distributions drawn from a ``torch.Generator`` seeded by ``seed``:
     conv kernels He-normal over fan-in K * Cin, a dense head's kernel
     LeCun-normal (flax's default: a normal truncated at two standard
-    deviations, of variance 1 / fan-in), biases 0, BatchNorm scale 1, bias
-    0, running mean 0 and variance 1."""
+    deviations, of variance 1 / fan-in), biases 0, norm scale 1, bias 0,
+    running mean 0 and variance 1, PowerNorm's running_phi 1, iters 0
+    and ema_gz 0."""
     gen = torch.Generator().manual_seed(int(seed))
     with torch.no_grad():
         for name, t in model.state_dict(keep_vars=True).items():
@@ -49,9 +50,9 @@ def init_variables(model: torch.nn.Module, seed: int) -> torch.nn.Module:
                 k, cin, _ = t.shape
                 w = torch.randn(t.shape, generator=gen) * (2.0 / (k * cin)) ** 0.5
                 t.copy_(w.to(t.dtype))
-            elif leaf in ("weight", "running_var"):
+            elif leaf in ("weight", "running_var", "running_phi"):
                 t.fill_(1.0)
-            elif leaf in ("bias", "running_mean"):
+            elif leaf in ("bias", "running_mean", "iters", "ema_gz"):
                 t.zero_()
     return model
 
@@ -114,7 +115,9 @@ class BaseTask:
     ``checkpoint_path`` with ``load_weights`` / ``load_optimizers`` loads a
     checkpoint into the state ``create_state`` makes (the reference's
     three load modes but ``transfer_self_supervised``, which is not
-    ported). ``axis_name`` (data parallelism) is not ported and raises
+    ported), its pruning masks folded into the weights, after
+    ``checkpoint_transform`` (a function of the loaded dict, such as the
+    BN -> PN conversion of ``co3d_3d/eval.py``) where one is given. ``axis_name`` (data parallelism) is not ported and raises
     (ROADMAP.md Queue 1 item 4); ``use_sync_grad`` is moot on one device.
     """
 
@@ -133,7 +136,8 @@ class BaseTask:
                  export_path: str | None = None, debug: bool = False,
                  use_sync_grad: bool = False, datamodule=None,
                  scheduler_interval: str = "step", save_pred: bool = False,
-                 save_pred_path: str | None = None, axis_name=None):
+                 save_pred_path: str | None = None, axis_name=None,
+                 checkpoint_transform=None):
         if axis_name is not None:
             raise NotImplementedError(
                 "data-parallel training (axis_name) is not ported "
@@ -158,6 +162,7 @@ class BaseTask:
         self.load_weights = load_weights
         self.load_optimizers = load_optimizers
         self.checkpoint_path = checkpoint_path
+        self.checkpoint_transform = checkpoint_transform
         self.export_path = export_path
         self.debug = debug
         self.use_sync_grad = use_sync_grad
@@ -192,8 +197,15 @@ class BaseTask:
         if self.checkpoint_path is None:
             return state
         from nerf_downstream_tpu_torch.train import checkpoints
+        from nerf_downstream_tpu_torch.utils.prune import fold_pruning_masks
 
         ckpt = checkpoints.load_checkpoint(self.checkpoint_path)
+        if self.checkpoint_transform is not None:
+            ckpt = self.checkpoint_transform(ckpt)
+        ckpt["params"], folded = fold_pruning_masks(ckpt["params"],
+                                                    ckpt["pruning_masks"])
+        if folded:
+            logging.info(f"folded pruning masks: {folded['folded']}")
         if self.load_weights:
             checkpoints.restore_into(state, ckpt, weights=True)
             logging.info(f"Loaded model weights from {self.checkpoint_path}")

@@ -2,14 +2,16 @@
 ``nerf_downstream_tpu/train/profilers.py``).
 
 Host wall time per action, as the reference's: a section around a step
-that is not synchronised times its dispatch. The reference's
-``device_trace`` (a ``jax.profiler`` trace) has no caller and no port;
-``torch.profiler`` traces the card directly.
+that is not synchronised times its dispatch. ``device_trace`` is the
+counterpart of the reference's ``jax.profiler`` trace: a
+``torch.profiler`` context that writes a Chrome trace of the host and
+(on the card) the device under a directory.
 """
 
 from __future__ import annotations
 
 import contextlib
+import os
 import time
 from collections import defaultdict
 
@@ -55,3 +57,22 @@ class SumProfiler:
             c = self._counts[action]
             lines.append(f"{action:<40}{t:>12.4f}{c:>8}{t / max(c, 1):>12.5f}")
         return "\n".join(lines)
+
+
+@contextlib.contextmanager
+def device_trace(logdir: str):
+    """Trace what runs inside the context with ``torch.profiler`` (host
+    ops, and device kernels where CUDA is available) and write it as a
+    Chrome trace, ``<logdir>/trace.json``."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    acts = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        acts.append(ProfilerActivity.CUDA)
+    os.makedirs(logdir, exist_ok=True)
+    with profile(activities=acts) as prof:
+        yield prof
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+    prof.export_chrome_trace(os.path.join(logdir, "trace.json"))

@@ -122,3 +122,33 @@ def block_live_map(params, block: int = 128) -> dict:
         ):
             out["/".join(path[:-1])] = live
     return out
+
+
+def parse_sparse_mode(sparsify: bool, sparse_mode: str) -> list[int]:
+    """The nine conv modes: as given with ``--sparsify`` (nine positive
+    values), else all dense."""
+    if not sparsify:
+        return [0] * 9
+    modes = [int(n) for n in sparse_mode.split(",")]
+    assert len(modes) == 9, "sparse mode should have length 9."
+    assert 0 not in modes, (
+        "sparse_mode should be positive when sparsify is on.")
+    return modes
+
+
+def derive_maps(params: dict, sparse_mode, layout: str,
+                granularity: int = 128) -> tuple[dict | None, dict | None]:
+    """(valid_offsets_map, block_live_map) of a pruned parameter tree for
+    the mode-1 convs: the live offsets of every conv, and with layout csr
+    or coo the live weight blocks at ``granularity`` (None where empty)."""
+    vmap = bmap = None
+    if 1 in list(sparse_mode):
+        vmap = pruned_offsets_map(params) or None
+        if vmap:
+            print("pruned offset map:", {k: len(v) for k, v in vmap.items()})
+        if layout in ("csr", "coo"):
+            bmap = block_live_map(params, block=granularity) or None
+            if bmap:
+                print("block-live map:", {k: f"{int(v.sum())}/{v.size}"
+                                          for k, v in bmap.items()})
+    return vmap, bmap

@@ -239,6 +239,46 @@ def test_automatic_calibration_leaves_the_run_stream_alone(tmp_path,
     assert "without 100 in a row" in caplog.text
 
 
+def test_loader_threads_draw_per_batch(tmp_path, monkeypatch):
+    """With more than one loader thread, each train batch draws its host
+    transforms from its own generator: two runs with four threads yield
+    the same batches, whichever thread loads which when, and the
+    automatic calibration (one thread, on copies of the streams) measures
+    the batches such a run then trains on."""
+    data_root, fdir = reference_test_tree(tmp_path)
+    binds = [f'Co3DDatasetBase.data_root = "{data_root}"',
+             f'Co3DDatasetBase.filelist_dir = "{fdir}"',
+             "Co3DDatasetBase.downsample_stride = 1"]
+    measured = []
+    measure = TC.calibrate
+
+    def recording_calibrate(batches, **kw):
+        measured.append(list(batches))
+        return measure(batches, **kw)
+
+    monkeypatch.setattr(TC, "calibrate", recording_calibrate)
+    monkeypatch.setattr(TC, "MAX_DRAWS", 2)
+
+    def first_train(calibrate: bool) -> list:
+        tcfg.clear_config()
+        tcli.seed_everything(1)
+        tcfg.parse_config_files_and_bindings(CLS, binds)
+        dm = DataModule(batch_size=2, val_batch_size=2, train_num_workers=4,
+                        val_num_workers=4)
+        if calibrate:
+            assert TC.maybe_auto_calibrate(dm, device="cpu")
+        it = dm.train_batches()
+        return [next(it) for _ in range(4)]
+
+    runs = [first_train(False), first_train(False), first_train(True)]
+    for other in runs[1:]:
+        for a, b in zip(runs[0], other):
+            for k in ("coordinates", "features", "labels"):
+                np.testing.assert_array_equal(a[k], b[k])
+    for a, b in zip(runs[0][:2], measured[0][:2]):
+        np.testing.assert_array_equal(a["coordinates"], b["coordinates"])
+
+
 # -- the reference's NaN -----------------------------------------------------
 
 def test_reference_knobs_poison_validation_in_both(tmp_path, monkeypatch):

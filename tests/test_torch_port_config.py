@@ -44,6 +44,51 @@ def test_every_repo_config_parses_as_the_reference_does():
         assert tcfg.query_parameter("train.lr") == 0.5
 
 
+def test_check_bindings_takes_every_class_of_a_name():
+    """The 2D and the 3D ``RandomHorizontalFlip`` share a name: with both
+    modules imported, a binding passes ``check_bindings`` when either
+    class takes the parameter (the one registered first included), and
+    still raises when neither does."""
+    import importlib
+
+    for mod in ("transforms", "transforms2d"):
+        importlib.import_module(f"nerf_downstream_tpu_torch.data.{mod}")
+    for binding in ('RandomHorizontalFlip.upright_axis = "y"',
+                    "RandomHorizontalFlip.p = 0.5"):
+        tcfg.clear_config()
+        tcfg.parse_config_files_and_bindings([], [binding])
+        tcfg.check_bindings()
+    tcfg.clear_config()
+    tcfg.parse_config_files_and_bindings(
+        [], ["RandomHorizontalFlip.nonsense = 1"])
+    with pytest.raises(tcfg.ConfigError, match="nonsense"):
+        tcfg.check_bindings()
+    tcfg.clear_config()
+
+
+def test_every_repo_config_applies_in_the_port():
+    """Every binding of every config names a configurable of the port and
+    one of its parameters, and its dataset resolves; ``modelnet40_cls.gin``
+    alone still raises at its dataset, naming the ROADMAP item."""
+    import importlib
+
+    from nerf_downstream_tpu_torch.data.datasets import get_dataset
+
+    for mod in ("co3d_3d.train", "co3d_3d.eval", "data.co3d",
+                "data.scannet", "data.transforms", "models",
+                "models.mink.powernorm", "sparse.context", "train.optim"):
+        importlib.import_module(f"nerf_downstream_tpu_torch.{mod}")
+    for path in CONFIGS:
+        tcfg.clear_config()
+        tcfg.parse_config_files_and_bindings([path], [])
+        if path.endswith("modelnet40_cls.gin"):
+            with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
+                get_dataset()
+            continue
+        tcfg.check_bindings()
+        assert get_dataset() is not None, path
+
+
 def test_later_wins_includes_macros_and_refs(tmp_path):
     (tmp_path / "base.gin").write_text(
         "A = 3\nf.x = %A\nf.y = [1,\n  2]  # comment\nf.z = @g\n")

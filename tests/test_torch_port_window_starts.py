@@ -73,6 +73,31 @@ def test_window_starts_plain_matches_reference(case):
         assert int(emax.max()) == table[0].shape[0] + 1
 
 
+@pytest.mark.parametrize("case", sorted(STARTS_CASES))
+def test_starts_split_by_groups_equal_one_launch(case, monkeypatch):
+    """Where one launch of the pass would not fit its shared memory, the
+    groups go to launches of their own: with the budget shrunk to one
+    group (and to two) per launch, the starts, emax and escape count
+    equal one launch's, here through the plain version."""
+    table, query, offs, kw = starts_case(case)
+    args = starts_args(table, query, offs, **kw)
+    whole = K.window_starts_plain(*args)
+    deltas, nt = args[6], args[2].shape[0] // args[7]
+    for per in (1, 2):
+        monkeypatch.setattr(match, "_MAX_SMEM", 4 * len(deltas[0]) * nt * per)
+        calls = []
+
+        def launch(*a):
+            calls.append(len(a[6]))
+            return K.window_starts_plain(*a)
+
+        got = match.starts_by_groups(launch, *args)
+        assert calls == [min(per, len(deltas) - g)
+                         for g in range(0, len(deltas), per)]
+        for a, b in zip(got, whole):
+            assert torch.equal(a, b)
+
+
 class _FakeLaunch:
     """Stands in for a C entry point: records its arguments."""
 
