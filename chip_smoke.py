@@ -6,9 +6,10 @@
 Drives the port's main paths on the card at full width:
 Res16UNet18A sparse-voxel serving (``nerf_downstream_tpu_torch.serve``),
 its training step (``nerf_downstream_tpu_torch.train3d``), the training
-CLI on the flagship segmentation configs and on the README's
+CLI on the flagship segmentation configs, on the README's
 classification command (``nerf_downstream_tpu_torch.co3d_3d.train``,
-ResNet14 with auto-calibration), the 2D classification CLI
+ResNet14 with auto-calibration) and on ModelNet40 (MinkowskiFCNN, every
+conv on the row path), the 2D classification CLI
 (``nerf_downstream_tpu_torch.co3d_2d.train``, ResNet50 and ViT-B/16; no
 TPU kernel lies on that path: cuDNN and cuBLAS stand where XLA's ops
 stood) and the evaluation of pruned checkpoints
@@ -43,6 +44,12 @@ paths give it. Phases:
 6. model: whole-model logits of the kernel path against the plain path,
    both f32 on the card, ``serving_8k``, within 1e-4 relative to the
    largest logit;
+6b. row_route: Res16UNet14A at ``serving_8k`` in f32 with seeded weights
+   on its windowed path and, with the same weights, with every conv on
+   the row path (method "row" with the grid index, and "search"): the
+   row path's logits within 1e-4 x max|logit| of the windowed path's; K6
+   launched, no windowed kernel, launch counts reset just before the row
+   forwards and read just after;
 7. train: ``train_64k`` (8 scenes, 64k rows, device augmentation, bf16)
    for 5 SGD steps through ``train3d``, launch counts reset just before
    and read just after (41 K3 and 1 K4 launches per step); every loss
@@ -109,6 +116,20 @@ paths give it. Phases:
    k3/s2 convs on the row path) and every K2 and K3 call at 512 channels
    against their plain versions in f32 and, at the same shapes, in bf16
    (rtol 1e-5 and 2^-8 of the f32 sum), each timed beside its bound;
+9c'. cli_modelnet: ``modelnet40_cls.gin`` through the training CLI at
+   full width (MinkowskiFCNN, channels 32-128, embedding 1024, batch 32
+   of 2,048-point clouds, val batch 16, f32) on 64 train and 16 test
+   synthetic clouds in the unit sphere (``MN_CLOUDS``; HDF5 files where
+   h5py is installed, else the same clouds through the reader's
+   ``arrays`` constructor), 6 steps with one validation pass, then
+   ``--resume`` to 8, launch counts reset before and read after: finite
+   losses, ``val/acc1`` logged, the resume bit-equal in the momentum
+   buffers, every conv in f32 on the row path, K6 launched and no
+   windowed kernel; then two runs of one step bit-identical, one more
+   step profiled with its synchronising calls counted, every K6 call of a
+   recorded step against its plain version in f32 (``k6_bad``) timed
+   beside its bound, and MinkowskiFCNN's and MinkowskiSplatFCNN's eval
+   logits on the card within 1e-4 x max|logit| of the CPU's;
 9d. model_2d: ResNet50 and ViT-B/16 at 224 x 224, batch 32, seeded
    weights with every norm drawn away from identity, eval mode: f32 on
    the card (TF32 off) against f32 on the CPU within 1e-4 x max|logit|,
@@ -170,9 +191,11 @@ paths give it. Phases:
 13. the ``kernels`` line, the card line, and the ``ok`` line.
 
 On the bf16 main paths (``serve``, ``train``, ``sparse_eval``) every
-K2, K3, K4, K5 and K6 launch must run on the tensor cores; ``cli_train``
-and ``cli_cls`` compute in f32 by their configurations, and their lines
-say so. The input type
+K2, K3, K4, K5 and K6 launch must run on the tensor cores; ``cli_train``,
+``cli_cls``, ``cli_modelnet``, ``cli_semseg`` and ``row_route`` compute in
+f32 by their configurations, and their lines say so. Phase
+``cli_semseg`` also holds each K4 call of one step against its plain
+version and times it beside its bound (``k4_step``). The input type
 is the only switch (``tc.gather_choice``, ``tc.dw_choice``,
 ``tc.row_choice``) and every conv casts its inputs to its compute type, so
 each phase fails unless every conv of its model computes in bf16, and
@@ -1081,6 +1104,80 @@ def phase_model() -> dict:
     if not (np.isfinite(err) and err <= MODEL_TOL * scale):
         raise PhaseError(f"model logits disagree: {line}")
     return line
+
+
+ROW_ROUTE_MODEL = "Res16UNet14A"
+# the row path's contexts: the serving_8k knobs with the method "row"
+# (kernel maps through the grid index) and "search" (by sort and search)
+ROW_ROUTES = {"row_grid": dict(method="row", grid_extent=128),
+              "row_search": dict(method="search")}
+
+
+def phase_row_route(card: str, device: str = "cuda") -> tuple[dict, dict]:
+    """Res16UNet14A at ``serving_8k`` in f32 with seeded weights, through
+    ``serve.eval_step``: on its windowed path (the preset's knobs) and,
+    with the same weights, on the row path for every conv (method "row"
+    with the grid index, and "search"), whose logits must agree with the
+    windowed path's within MODEL_TOL x max|logit|. Launch counts are
+    reset just before the row-path forwards and read just after: K6 must
+    launch and no windowed kernel may. Reports each route's forward
+    device time, its K6 launches and the convs on each route."""
+    import numpy as np
+    import torch
+
+    from nerf_downstream_tpu_torch import serve
+    from nerf_downstream_tpu_torch.models.mink.layers import (
+        SparseConv,
+        SparseConvTranspose,
+    )
+    from nerf_downstream_tpu_torch.ops import kernels
+
+    model = serve.build_segmenter(ROW_ROUTE_MODEL, ctx_preset="serving_8k",
+                                  device=device, seed=0,
+                                  compute_dtype=torch.float32)
+    batch = serve.to_device(
+        serve.make_batch("serving_8k", np.random.default_rng(2)), device)
+    convs = [m for m in model.modules()
+             if isinstance(m, (SparseConv, SparseConvTranspose))]
+    windowed_ctx = dict(model.ctx_kwargs)
+    ref, _ = serve.eval_step(model, batch)
+    valid = batch["mask"]
+    scale = float(ref[valid].abs().max())
+    line = {"phase": "row_route", "card": card, "model": ROW_ROUTE_MODEL,
+            "preset": "serving_8k", "dtype": "float32",
+            "rows": int(valid.sum()), "max_abs_logit": scale,
+            "tolerance": MODEL_TOL * scale,
+            "windowed": {"routes": sorted({m.route for m in convs
+                                           if m.route}),
+                         "forward_ms": device_ms(
+                             lambda: serve.eval_step(model, batch), reps=3)}}
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    for name, knobs in ROW_ROUTES.items():
+        model.ctx_kwargs = dict(windowed_ctx, **knobs)
+        before = kernels.launch_counts()["row_gather_matmul"]
+        logits, _ = serve.eval_step(model, batch)
+        k6 = kernels.launch_counts()["row_gather_matmul"] - before
+        err = float((logits[valid] - ref[valid]).abs().max())
+        line[name] = {"max_abs_err": err, "k6_launches": k6,
+                      "routes": sorted({m.route for m in convs
+                                        if m.route})}
+        if not (np.isfinite(err) and err <= MODEL_TOL * scale
+                and line[name]["routes"] == ["row"]):
+            raise PhaseError(f"row_route: {name} off the windowed path: "
+                             f"{line}")
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    line["launches"] = counts
+    for name, knobs in ROW_ROUTES.items():
+        model.ctx_kwargs = dict(windowed_ctx, **knobs)
+        line[name]["forward_ms"] = device_ms(
+            lambda: serve.eval_step(model, batch), reps=3)
+    model.ctx_kwargs = windowed_ctx
+    if counts["row_gather_matmul"] <= 0 or any(
+            counts[k] for k in WINDOWED_KERNELS):
+        raise PhaseError(f"row_route: launches {counts}")
+    return line, counts
 
 
 def phase_train(card: str, dtype) -> tuple[dict, dict, tuple]:
@@ -2071,59 +2168,55 @@ class ClsStepRecorder(CliStepRecorder):
         return super().__exit__(*exc)
 
 
-def cli_cls_kernels(rec, wide: int = 512) -> dict:
-    """The classification step's kernels on the row path and at 512
-    channels, each call held against its plain version on the step's own
-    inputs, in f32 and at the same shapes in bf16 (inputs rounded to bf16,
-    the plain version on those values in f32):
+def as_bf16(args):
+    """Floating tensors of ``args`` rounded to bf16, the rest as they are."""
+    import torch
 
-    - every K6 call (the four k3/s2 convs): in f32 within 1e-5 x (1 +
-      the sum of absolute products) of the f32 sum (``k6_bad``), rtol 2^-8 with atol 1e-5 x max in bf16; per call its
-      shape, core and step split, ms in both types beside the bound, the
-      plain version's ms and, for information, an im2col plus one
-      ``torch.matmul``;
-    - every K2 call and every K3 call with ``wide`` (512, the widest
-      stage) input or output channels: K2 and K3's d_feats as K6, K3's
-      d_w within 1e-5 of each (g, m)'s largest; per call ms in both
-      types, plain ms and the bound."""
+    return [a.to(torch.bfloat16) if torch.is_tensor(a)
+            and a.is_floating_point() else a for a in args]
+
+
+def up(args):
+    """Floating tensors of ``args`` in f32, the rest as they are."""
+    import torch
+
+    return [a.float() if torch.is_tensor(a) and a.is_floating_point()
+            else a for a in args]
+
+
+def k6_calls(where: str, calls, types=("f32",)) -> list[dict]:
+    """Every recorded K6 call ``(x_ext, km, w)`` against its plain
+    version on the same inputs, in each of ``types`` ("f32": the inputs as
+    recorded, within ``k6_bad``'s 1e-5 x (1 + the sum of absolute
+    products) of the f32 sum; "bf16": the inputs rounded to bf16, rtol
+    2^-8 with atol 1e-5 x max of the f32 sum on those values), each with
+    two launches bit-identical; per call its shape, real pairs, core and
+    step split, device ms beside its bound and roofline share, the plain
+    version's ms and, for information, an im2col plus one
+    ``torch.matmul``. Fails on an empty, non-finite or all-zero record."""
     import torch
 
     from nerf_downstream_tpu_torch.ops.kernels import (
         row_gather_matmul,
         row_gather_matmul_plain,
         tc,
-        window_bwd,
-        window_bwd_plain,
-        window_gather_matmul,
-        window_gather_matmul_plain,
     )
 
-    f32, bf16 = torch.float32, torch.bfloat16
-    where = "cli_cls"
-    if not rec.k6:
+    if not calls:
         raise PhaseError(f"{where}: the step made no K6 call")
-    _finite_nonzero(where, "K6", [a[0] for a in rec.k6])
-
-    def as_bf16(args):
-        return [a.to(bf16) if torch.is_tensor(a) and a.is_floating_point()
-                else a for a in args]
-
-    def up(args):
-        return [a.float() if torch.is_tensor(a) and a.is_floating_point()
-                else a for a in args]
-
-    k6 = []
-    for x, km, w in rec.k6:
+    _finite_nonzero(where, "K6", [a[0] for a in calls])
+    out = []
+    for x, km, w in calls:
         k, n_out = km.shape
         c, cout = w.shape[-2:]
         row = {"K": k, "n_in": x.shape[0] - 1, "n_out": n_out, "C": c,
                "Cout": cout, "pairs": int((km < x.shape[0] - 1).sum())}
-        for name, args in (("f32", [x, km, w]), ("bf16", as_bf16([x, km,
-                                                                    w]))):
+        for name in types:
+            args = [x, km, w] if name == "f32" else as_bf16([x, km, w])
             want = row_gather_matmul_plain(*up(args))
             got = row_gather_matmul(*args)
             bad = (k6_bad(*args, got, want) if name == "f32"
-                   else dfeats_bad(got, want, bf16))
+                   else dfeats_bad(got, want, torch.bfloat16))
             if bad:
                 raise PhaseError(f"{where}: K6 ({name}) outside tolerance: "
                                  f"{bad} elements at {row}")
@@ -2143,7 +2236,43 @@ def cli_cls_kernels(rec, wide: int = 512) -> dict:
         wm = w.reshape(k * c, cout)
         row["im2col_matmul_ms"] = device_ms(lambda: torch.matmul(
             x[cols].reshape(n_out, k * c), wm), reps=2)
-        k6.append(row)
+        out.append(row)
+    return out
+
+
+def k6_summary(calls: list[dict], launches_per_step: int) -> dict:
+    """One step's K6 calls (``k6_calls`` rows) summed in f32: ms, bound,
+    plain ms, the largest error and the shapes."""
+    return {"launches_per_step": launches_per_step,
+            "shapes": [(r["C"], r["Cout"], r["n_out"]) for r in calls],
+            **{k: sum(r["f32"][k] for r in calls)
+               for k in ("ms", "bound_ms")},
+            "plain_ms": sum(r["plain_ms"] for r in calls),
+            "max_abs_err": max(r["f32"]["max_abs_err"] for r in calls)}
+
+
+def cli_cls_kernels(rec, wide: int = 512) -> dict:
+    """The classification step's kernels on the row path and at 512
+    channels, each call held against its plain version on the step's own
+    inputs, in f32 and at the same shapes in bf16 (inputs rounded to bf16,
+    the plain version on those values in f32):
+
+    - every K6 call (the four k3/s2 convs), as ``k6_calls`` holds them,
+      in f32 and bf16;
+    - every K2 call and every K3 call with ``wide`` (512, the widest
+      stage) input or output channels: K2 and K3's d_feats as K6, K3's
+      d_w within 1e-5 of each (g, m)'s largest; per call ms in both
+      types, plain ms and the bound."""
+    from nerf_downstream_tpu_torch.ops.kernels import (
+        tc,
+        window_bwd,
+        window_bwd_plain,
+        window_gather_matmul,
+        window_gather_matmul_plain,
+    )
+
+    where = "cli_cls"
+    k6 = k6_calls(where, rec.k6, ("f32", "bf16"))
 
     k2 = []
     wide2 = [a for a in rec.k2 if wide in a[3].shape[-2:]]
@@ -2399,6 +2528,267 @@ def phase_cli_cls(card: str, device: str = "cuda", bindings=(),
         gin.clear_config()
         if keep is None or "tmp" not in keep:
             shutil.rmtree(tmp, ignore_errors=True)
+
+
+# -- ModelNet40 classification on the row path -------------------------------
+
+# the synthetic ModelNet40 clouds of phase cli_modelnet
+# (data.synthetic.modelnet40_arrays): 64 train (2 steps of 32 per epoch)
+# and 16 test clouds of 2,048 points in the unit sphere, 40 classes
+MN_CLOUDS = dict(n_train=64, n_test=16, n_points=2048, num_classes=40)
+MN_STEPS, MN_RESUME_STEPS, MN_VAL_EVERY = 6, 8, 5
+MN_BATCH, MN_VAL_BATCH = 32, 16
+MN_CONFIG = "modelnet40_cls.gin"
+MN_TOL = 1e-4  # of max|logit|: the FCNNs' eval logits, card against CPU
+# kernels no FCNN forward or step may launch: every conv takes the row path
+WINDOWED_KERNELS = ("window_starts", "window_match", "window_gather_matmul",
+                    "window_bwd", "window_dw", "window_gather_matmul_bs")
+
+
+def modelnet_source(tmp: str, rng) -> tuple[list[str], str]:
+    """(gin bindings that give ``ModelNet40H5Dataset`` the MN_CLOUDS
+    clouds, where they come from): HDF5 files the port's writer makes
+    where h5py is installed; else the same clouds as arrays through the
+    reader's ``arrays`` constructor (a gin reference), whose samples the
+    CPU tests hold equal to the file read."""
+    import importlib.util
+
+    from nerf_downstream_tpu_torch import config as gin
+    from nerf_downstream_tpu_torch.data.synthetic import (
+        modelnet40_arrays,
+        write_modelnet40_tree,
+    )
+
+    kw = dict(MN_CLOUDS)
+    n = {"train": kw.pop("n_train"), "test": kw.pop("n_test")}
+    if importlib.util.find_spec("h5py") is not None:
+        root = write_modelnet40_tree(tmp, rng, n["train"], n["test"], **kw)
+        return [f'ModelNet40H5Dataset.data_root = "{root}"'], "h5 files"
+    clouds = {p: modelnet40_arrays(rng, n[p], **kw) for p in ("train", "test")}
+    gin.external_configurable(lambda: clouds, name="smoke_modelnet40_clouds")
+    return (["ModelNet40H5Dataset.arrays = @smoke_modelnet40_clouds()"],
+            "arrays (h5py is not installed here: the HDF5 read runs in the "
+            "CPU tests only)")
+
+
+def repeat_identical(task, state, batch) -> dict:
+    """Two runs of one training step from the same state: whether their
+    losses, gradients, updated weights and statistics and momentum
+    buffers are bit-identical. The state is left as the second run left
+    it."""
+    import copy
+
+    import torch
+
+    model, opt = state.model, state.optimizer
+    saved = (copy.deepcopy(model.state_dict()),
+             copy.deepcopy(opt.state_dict()), state.step)
+    runs = []
+    for _ in range(2):
+        model.load_state_dict(saved[0])
+        # a copy: the optimizer adopts the loaded tensors and updates them
+        # in place
+        opt.load_state_dict(copy.deepcopy(saved[1]))
+        state.step = saved[2]
+        state, mets = task.train_step(state, batch)
+        runs.append((mets["loss"].detach().clone(),
+                     {n: p.grad.detach().clone()
+                      for n, p in model.named_parameters()},
+                     copy.deepcopy(model.state_dict()),
+                     {n: opt.state[p]["momentum_buffer"].clone()
+                      for n, p in model.named_parameters()}))
+    (l1, g1, s1, m1), (l2, g2, s2, m2) = runs
+    return {"loss": bool(torch.equal(l1, l2)),
+            "gradients": all(torch.equal(g1[k], g2[k]) for k in g1),
+            "state": all(torch.equal(s1[k], s2[k]) for k in s1),
+            "momentum": all(torch.equal(m1[k], m2[k]) for k in m1)}
+
+
+def fcnn_card_vs_cpu(name: str, batch: dict, device: str = "cuda") -> dict:
+    """``name`` at full width with seeded weights and norm statistics
+    drawn away from identity, eval mode: logits on ``device`` against the
+    CPU's on one batch, within MN_TOL x max|logit|."""
+    import numpy as np
+    import torch
+
+    from nerf_downstream_tpu_torch import convert
+    from nerf_downstream_tpu_torch.models import get_model
+
+    tree = convert.init_flax_variables(get_model(
+        name, in_channel=3, out_channel=40), 3)
+    out, forward_ms = {}, None
+    for dev in dict.fromkeys((device, "cpu")):
+        model = get_model(name, in_channel=3, out_channel=40,
+                          num_batches=MN_VAL_BATCH)
+        convert.load_flax_variables(model, tree)
+        model.to(dev).eval()
+        field = batch_field({k: torch.as_tensor(batch[k]).to(dev)
+                             for k in ("coordinates", "features", "mask")})
+        with torch.no_grad():
+            out[dev] = model(field).cpu()
+            if dev == device:
+                forward_ms = device_ms(lambda: model(field), reps=2)
+    scale = float(out["cpu"].abs().max())
+    err = float((out[device] - out["cpu"]).abs().max())
+    line = {"max_abs_err": err, "max_abs_logit": scale,
+            "tolerance": MN_TOL * scale,
+            "top1_agreement": float((out[device].argmax(-1)
+                                     == out["cpu"].argmax(-1)).float().mean()),
+            "forward_device_ms": forward_ms}
+    if not (np.isfinite(err) and err <= MN_TOL * scale):
+        raise PhaseError(f"cli_modelnet: {name} logits off the CPU's: {line}")
+    return line
+
+
+def phase_cli_modelnet(card: str, device: str = "cuda",
+                       bindings=()) -> tuple[dict, dict]:
+    """``modelnet40_cls.gin`` through the port's training CLI at full
+    width: MinkowskiFCNN (channels 32-128, embedding 1024, 40 classes),
+    batch 32 of 2,048-point clouds, val batch 16, voxel 0.05, SGD with
+    momentum 0.9 and cosine lr, the config's host transforms, f32 (the
+    config binds no compute type), on the MN_CLOUDS synthetic clouds
+    (``modelnet_source``); only the clouds, ``max_steps``, the validation
+    cadence and the logs are bound. ``MN_STEPS`` steps with one
+    validation pass, then ``--resume`` to ``MN_RESUME_STEPS``; launch
+    counts reset just before the first run and read just after the
+    second. The config binds no grid extent, so every conv takes the row
+    path: kernel maps by sort and search, K6 forward. Fails unless every
+    loss is finite, ``val/acc1`` is logged, the checkpoints and logs
+    exist, the resumed run starts at step ``MN_STEPS`` from the
+    checkpoint's momentum buffers bit for bit, every conv computes in f32
+    on the row path, K6 launched and no windowed kernel did. Then, on the
+    run's last batch: two runs of one step bit-identical; one more step
+    profiled with its synchronising calls counted; every K6 call of one
+    recorded step held against its plain version in f32 (``k6_calls``)
+    and timed beside its bound; and the FCNN's and the SplatFCNN's eval
+    logits on the card against the CPU's (``fcnn_card_vs_cpu``).
+    ``device`` and ``bindings`` serve a rehearsal on the CPU at a narrow
+    width."""
+    import contextlib
+    import io
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from nerf_downstream_tpu_torch import config as gin
+    from nerf_downstream_tpu_torch import convert
+    from nerf_downstream_tpu_torch.co3d_3d import train as cli
+    from nerf_downstream_tpu_torch.data.data_module import DataModule
+    from nerf_downstream_tpu_torch.data.utils import collate_mink
+    from nerf_downstream_tpu_torch.models.mink.layers import SparseConv
+    from nerf_downstream_tpu_torch.ops import kernels
+    from nerf_downstream_tpu_torch.train import checkpoints
+
+    tmp = tempfile.mkdtemp(prefix="cli_modelnet_")
+    try:
+        t0 = time.perf_counter()
+        source, source_is = modelnet_source(tmp, np.random.default_rng(0))
+        data_s = time.perf_counter() - t0
+        save = os.path.join(tmp, "exp")
+        args = ["--ginc", os.path.join(REPO, "co3d_3d", "configs", MN_CONFIG)]
+        for b in (*source, f"train.val_every_n_steps = {MN_VAL_EVERY}",
+                  "train.log_every_n_steps = 1",
+                  'train.loggers = ["csv", "jsonl"]', *bindings):
+            args += ["--ginb", b]
+        args += ["--save_path", save, "--seed", "777", "--device", device]
+        stdout = io.StringIO()
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        with CliProbe("ClassificationTraining") as probe, \
+                contextlib.redirect_stdout(stdout):
+            t0 = time.perf_counter()
+            gin.clear_config()
+            cli.main(args + ["--ginb", f"train.max_steps = {MN_STEPS}"])
+            first_s = time.perf_counter() - t0
+            last = checkpoints.load_checkpoint(os.path.join(save,
+                                                            "last.ckpt"))
+            probe.resume_trace = convert.flax_to_state_dict(
+                probe.last[0].model, last["opt_state"]["1"]["0"]["trace"])
+            t0 = time.perf_counter()
+            gin.clear_config()
+            cli.main(args + ["--ginb", f"train.max_steps = {MN_RESUME_STEPS}",
+                             "--resume"])
+            resume_s = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        counts = kernels.launch_counts()
+        task, state, batch = probe.last
+        run = os.path.join(save, f"b{MN_BATCH}x1-MinkowskiFCNN")
+        files = {name: os.path.exists(os.path.join(d, name)) for d, name in (
+            (save, "last.ckpt"), (save, "best.ckpt"),
+            (run, "metrics.csv"), (run, "metrics.jsonl"))}
+        with open(os.path.join(run, "metrics.jsonl")) as f:
+            logged = [json.loads(ln) for ln in f]
+        train_losses = [r["train/loss"] for r in logged if "train/loss" in r]
+        val = [{k: r[k] for k in ("step", "val/loss", "val/acc1",
+                                  "val/acc5")}
+               for r in logged if "val/acc1" in r]
+        convs = [m for m in task.model.modules() if isinstance(m, SparseConv)]
+        steps = [s for s, _ in probe.steps]
+        ms = [m for _, m in probe.steps]
+        prof = probe.profilers[-1]
+        line = {
+            "phase": "cli_modelnet", "card": card, "entry":
+            "python -m nerf_downstream_tpu_torch.co3d_3d.train",
+            "config": f"co3d_3d/configs/{MN_CONFIG}",
+            "model": type(task.model).__name__,
+            "channels": list(task.model.channels),
+            "embedding": task.model.embedding_channel,
+            "clouds": dict(MN_CLOUDS, seconds=data_s, read_from=source_is),
+            "dtype": "float32 (the config binds no compute type; every "
+                     "conv on the CUDA cores)",
+            "routes": sorted({m.route for m in convs if m.route}),
+            "batch": MN_BATCH, "val_batch": MN_VAL_BATCH,
+            "capacity": int(batch["mask"].shape[0]),
+            "voxels_finest": probe.rows,
+            "steps": steps, "ms": ms,
+            "ms_median_after_first": float(np.median(ms[1:])),
+            "run_seconds": [first_s, resume_s],
+            "train_losses": train_losses, "val": val,
+            "val_pass_ms": probe.val_ms,
+            "host_ms_per_batch_waited": prof.recorded_time(
+                "get_train_batch") * 1e3,
+            "resume": probe.resume_check, "files": files,
+            "launches": counts,
+        }
+        ok = (all(files.values())
+              and np.isfinite(train_losses).all() and len(train_losses) > 0
+              and len(val) == 1
+              and all(np.isfinite(v["val/loss"])
+                      and 0 <= v["val/acc1"] <= 100 for v in val)
+              and steps == list(range(MN_RESUME_STEPS))
+              and probe.resume_check == {"step": MN_STEPS,
+                                         "momentum_bit_equal": True}
+              and {m.compute_dtype for m in convs} == {torch.float32}
+              and line["routes"] == ["row"]
+              and counts["row_gather_matmul"] > 0
+              and not any(counts[k] for k in WINDOWED_KERNELS))
+        if not ok:
+            raise PhaseError(f"cli_modelnet: {line}")
+
+        line["repeat_step_bit_identical"] = repeat_identical(task, state,
+                                                             batch)
+        if not all(line["repeat_step_bit_identical"].values()):
+            raise PhaseError(f"cli_modelnet: two runs of one step differ: "
+                             f"{line['repeat_step_bit_identical']}")
+        dm = DataModule(batch_size=MN_BATCH, val_batch_size=MN_VAL_BATCH,
+                        train_num_workers=1, capacity=line["capacity"])
+        rec = cli_extra_steps("cli_modelnet", line, task, state, batch, dm,
+                              ClsStepRecorder, 2)
+        line["k6_per_step"] = len(rec.k6)
+        line["row_gather_matmul"] = k6_calls("cli_modelnet", rec.k6)
+        line["tolerance"] = {"k6_f32": f"{K2_F32_TOL} x (1 + sum |x| |w|)",
+                             "logits_card_vs_cpu": f"{MN_TOL} x max|logit|"}
+        ds = task.datamodule.dataset("val")
+        vb = collate_mink([ds[i] for i in range(MN_VAL_BATCH)])
+        line["eval_card_vs_cpu"] = {
+            name: fcnn_card_vs_cpu(name, vb, device)
+            for name in ("MinkowskiFCNN", "MinkowskiSplatFCNN")}
+        return line, counts
+    finally:
+        gin.clear_config()
+        shutil.rmtree(tmp, ignore_errors=True)
 
 
 # -- the 2D classification stack ---------------------------------------------
@@ -3747,6 +4137,69 @@ def phase_cli_eval(card: str, kept: dict,
             shutil.rmtree(kept.get(k, {}).get("tmp", ""), ignore_errors=True)
 
 
+class K4Recorder:
+    """Records the inputs of every K4 call (``window_dw``) of a training
+    step; calls go on to the kernel."""
+
+    def __enter__(self):
+        from nerf_downstream_tpu_torch.ops import window_conv as wc
+
+        self.k4 = []
+        self._dw = wc.window_dw
+        dw = self._dw
+
+        def rec_dw(feats, starts, idx, g_out):
+            self.k4.append((feats.detach(), starts, idx,
+                            g_out.detach().clone()))
+            return dw(feats, starts, idx, g_out)
+
+        wc.window_dw = rec_dw
+        return self
+
+    def __exit__(self, *exc):
+        from nerf_downstream_tpu_torch.ops import window_conv as wc
+
+        wc.window_dw = self._dw
+        return False
+
+
+def k4_step(where: str, calls) -> dict:
+    """One step's K4 calls against the plain version (d_w within DW_TOL
+    of each (g, m)'s largest), summed: device ms, the plain version's ms,
+    the bound and its share, with the shapes and the core."""
+    import torch
+
+    from nerf_downstream_tpu_torch.ops.kernels import (
+        tc,
+        window_dw,
+        window_dw_plain,
+    )
+
+    if not calls:
+        raise PhaseError(f"{where}: the step made no K4 call")
+    _finite_nonzero(where, "K4", [a[3] for a in calls])
+    out = {"calls": len(calls), "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
+           "worst_of_max": 0.0, "shapes": []}
+    for args in calls:
+        rel, _ = dw_err(window_dw(*args), window_dw_plain(*args))
+        if not rel <= DW_TOL:
+            raise PhaseError(f"{where}: K4 off its plain version ({rel})")
+        feats, _, idx, g_out = args
+        b, out["bound_by"] = bound(*k4_work(*args), feats.dtype)
+        out["bound_ms"] += b
+        out["ms"] += device_ms(lambda: window_dw(*args))
+        out["plain_ms"] += device_ms(lambda: window_dw_plain(*args), reps=1)
+        out["worst_of_max"] = max(out["worst_of_max"], rel)
+        g, nt, m, tile = idx.shape
+        out["shapes"].append({"C": feats.shape[1], "Cout": g_out.shape[1],
+                              "rows": nt * tile, "G": g, "M": m,
+                              "core": tc.dw_choice(
+                                  feats.dtype, nt * tile, feats.shape[1],
+                                  g_out.shape[1], g * m).describe(nt * tile)})
+    out["roofline_share"] = out["bound_ms"] / out["ms"]
+    return out
+
+
 def phase_cli_semseg(card: str, device: str = "cuda",
                      bindings=()) -> tuple[dict, dict]:
     """``scannet_semseg.gin`` unchanged through the port's training CLI:
@@ -3768,7 +4221,9 @@ def phase_cli_semseg(card: str, device: str = "cuda",
     Reports the rooms' voxel counts, the batch capacity, the step wall
     median after the first, the calibration's seconds, ms per validation
     pass, host ms per batch (one worker; waited with 8), and for one more
-    step its synchronising calls, device time, busy share and ops."""
+    step its synchronising calls, device time, busy share and ops, and
+    its K4 calls held against the plain version and timed beside their
+    bound (``k4_step``)."""
     import contextlib
     import csv
     import io
@@ -3896,8 +4351,9 @@ def phase_cli_semseg(card: str, device: str = "cuda",
         dm = DataModule(batch_size=8, val_batch_size=2, train_num_workers=1,
                         capacity=line["capacity"])
         state.step = 0  # PolyLR is undefined past max_steps
-        cli_extra_steps("cli_semseg", line, task, state, batch, dm,
-                        contextlib.nullcontext, 2)
+        rec = cli_extra_steps("cli_semseg", line, task, state, batch, dm,
+                              K4Recorder, 2)
+        line["k4_per_step"] = k4_step("cli_semseg", rec.k4)
         return line, counts
     finally:
         calib.maybe_auto_calibrate = scan
@@ -4274,6 +4730,9 @@ def main() -> int:
         del rec
         phase = "model"
         emit(phase_model())
+        phase = "row_route"
+        line, row_launches = phase_row_route(card)
+        emit(line)
         phase = "train"
         line, train_launches, train = phase_train(card, torch.bfloat16)
         emit(line)
@@ -4302,14 +4761,14 @@ def main() -> int:
         phase = "cli_cls"
         line, cls_launches = phase_cli_cls(card, keep=kept["cli_cls"])
         emit(line)
-        cls_k6 = line["row_path_and_512"]["row_gather_matmul"]
-        cls_k6 = {"launches_per_step": line["k6_per_step"],
-                  "shapes": [(r["C"], r["Cout"], r["n_out"]) for r in cls_k6],
-                  **{k: sum(r["f32"][k] for r in cls_k6)
-                     for k in ("ms", "bound_ms")},
-                  "plain_ms": sum(r["plain_ms"] for r in cls_k6),
-                  "max_abs_err": max(r["f32"]["max_abs_err"]
-                                     for r in cls_k6)}
+        cls_k6 = k6_summary(line["row_path_and_512"]["row_gather_matmul"],
+                            line["k6_per_step"])
+        phase = "cli_modelnet"
+        t0 = time.perf_counter()
+        line, mn_launches = phase_cli_modelnet(card)
+        line["seconds"] = time.perf_counter() - t0
+        emit(line)
+        mn_k6 = k6_summary(line["row_gather_matmul"], line["k6_per_step"])
         del line
         phase = "model_2d"
         t0 = time.perf_counter()
@@ -4344,6 +4803,7 @@ def main() -> int:
         line, semseg_launches = phase_cli_semseg(card)
         line["seconds"] = time.perf_counter() - t0
         emit(line)
+        semseg_k4 = line["k4_per_step"]
         del line
     except Exception as e:  # report the failing phase, then fail
         emit({"phase": phase, "ok": False,
@@ -4358,6 +4818,8 @@ def main() -> int:
         by_path = {"serve": launches[name], "train": train_launches[name],
                    "cli_train": cli_launches[name],
                    "cli_cls": cls_launches[name],
+                   "cli_modelnet": mn_launches[name],
+                   "row_route": row_launches[name],
                    "cli_eval": eval_launches[name],
                    "cli_semseg": semseg_launches[name],
                    "sparse_eval": sparse_launches[name]}
@@ -4410,7 +4872,8 @@ def main() -> int:
              **k3),
         dict(name="window_dw", route="cuda", source=src + "window_dw.cu",
              replaces=f"{tpu}:590", library_ms=None,
-             shapes="one train_64k step (bf16)", **paths("window_dw"), **k4),
+             shapes="one train_64k step (bf16)", **paths("window_dw"), **k4,
+             cli_semseg_f32_per_step=semseg_k4),
         dict(name="window_gather_matmul_bs", route="cuda",
              source=src + "window_gather_matmul_bs.cu",
              replaces=f"{tpu}:284", library_ms=None,
@@ -4421,7 +4884,7 @@ def main() -> int:
              replaces="nerf_downstream_tpu/ops/pallas/gather_matmul.py:76",
              library_ms=None, shapes="one eval_64k forward, ZAXIS (bf16 "
              "inputs, f32 output)", **paths("row_gather_matmul"), **k6,
-             cli_cls_f32_per_step=cls_k6),
+             cli_cls_f32_per_step=cls_k6, cli_modelnet_f32_per_step=mn_k6),
     ]
     for k in kernels:
         k["library_ms_null_because"] = no_library[k["name"]]

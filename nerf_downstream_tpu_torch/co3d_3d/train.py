@@ -16,9 +16,14 @@ table and the ``val/mIoU`` log lines. ``--device`` defaults to ``cuda`` and
 raises without a GPU; ``--device cpu`` runs the kernels' plain PyTorch
 versions on the host.
 
-Both configs of the reference run: ``scannet_plenoxel.gin``
-(segmentation, Res16UNet) and ``co3d_cls.gin`` (classification, ResNet;
-``monitor_metric = "val/acc1"`` picks the best checkpoint). A windowed
+Every 3D config of the reference runs: ``scannet_plenoxel.gin`` and
+``scannet_semseg.gin`` (segmentation, Res16UNet), ``co3d_cls.gin``
+(classification, ResNet) and ``modelnet40_cls.gin`` (classification,
+MinkowskiFCNN on the row path; ``monitor_metric = "val/acc1"`` picks the
+best checkpoint). With a val batch smaller than the train batch (as
+``modelnet40_cls.gin`` binds) the classification loss drops the model's
+spare scene slots, where the reference's CLI raises at its first
+validation. A windowed
 config that binds neither ``CoordinateContext.level_caps`` nor
 ``window_escape_cap`` is calibrated from its own batches first
 (``utils/calibrate.py::maybe_auto_calibrate``, on the run's device; off
@@ -29,7 +34,8 @@ A fresh model is initialised from ``--seed`` with the reference's
 distributions (``train.modules.init_variables``). The parts the port lacks
 raise instead of falling back: ``--gpus`` above 1, ``parallel_mode``,
 ``model_parallel`` and ``--dist_*`` (ROADMAP.md Queue 1 item 4), and
-conv methods other than the fully-windowed one (Queue 1 item 3).
+the conv methods "block", "block_resident" and "window" (Queue 1 item
+3d).
 """
 
 from __future__ import annotations

@@ -22,6 +22,7 @@ from nerf_downstream_tpu_torch.config.engine import (
     config_str,
     configurable,
     constant,
+    declare_unported,
     external_configurable,
     get_configurable,
     operative_config_str,
@@ -39,6 +40,7 @@ __all__ = [
     "config_str",
     "configurable",
     "constant",
+    "declare_unported",
     "external_configurable",
     "get_configurable",
     "operative_config_str",

@@ -1,4 +1,4 @@
-"""Carry Res16UNet, ResNet and the 2D models' weights between the
+"""Carry Res16UNet, ResNet, FCNN and the 2D models' weights between the
 reference's flax variable trees and the port's ``state_dict``.
 
 The reference stores ``{"params": ..., "batch_stats": ...}`` as nested
@@ -13,6 +13,12 @@ Res16UNet's eleventh), the class being the norm type's
 keep the reference layout ``[K, Cin, Cout]`` with x-fastest offsets, and
 the ResNet head flax's ``kernel [C, out]``, so no tensor is transposed. Trees are read as nested
 dicts of numpy arrays (or anything ``np.asarray`` accepts).
+
+The FCNNs (``models/mink/fcnn.py``, keys starting with ``mlp1.``) map by
+``fcnn_flax_path``: ``mlp1.dense`` is ``mlp1/Dense_0`` and ``mlp1.norm``
+``mlp1/MaskedBatchNorm_0``; a conv block ``convX.conv`` / ``convX.bn`` is
+``convX_conv`` / ``convX_bn``; the heads keep their names, their flax
+BatchNorms' ``scale``, ``bias``, ``mean`` and ``var`` their leaves.
 
 The 2D models (``models/image``: ``_ResNetBased``, whose keys start with
 ``model.``, and ``ViT``, with ``patch_embed.``) carry the reference's
@@ -77,11 +83,42 @@ def norm_name(model: torch.nn.Module) -> str:
     return BN
 
 
+def is_fcnn(keys) -> bool:
+    """Whether these ``state_dict`` keys are an FCNN's."""
+    return any(k.startswith("mlp1.") for k in keys)
+
+
+_FLAX_BN_LEAF = {"scale": "params", "bias": "params", "mean": "batch_stats",
+                 "var": "batch_stats"}
+
+
+def fcnn_flax_path(key: str) -> tuple[str, ...]:
+    """(collection, module..., leaf) of an FCNN's ``state_dict`` key."""
+    p = key.split(".")
+    if p[0] == "mlp1":
+        if p[1] == "dense":
+            return ("params", "mlp1", "Dense_0", p[2])
+        coll, leaf = _NORM_LEAF[p[2]]
+        return (coll, "mlp1", f"{BN}_0", leaf)
+    if p[0].startswith("conv") and len(p) == 3:
+        if p[1] == "conv":
+            return ("params", f"{p[0]}_conv", p[2])
+        coll, leaf = _NORM_LEAF[p[2]]
+        return (coll, f"{p[0]}_bn", leaf)
+    if p[0] in ("head1_bn", "head2_bn"):
+        return (_FLAX_BN_LEAF[p[1]], p[0], p[1])
+    if p[0] in ("head1", "head2", "final"):
+        return ("params", p[0], p[1])
+    raise KeyError(f"no flax counterpart for {key!r}")
+
+
 def _paths(keys, norm: str = BN):
     """``key -> flax path`` for the keys of one model whose norms are of
     flax class ``norm``."""
     if is_image(keys):
         return image_flax_path
+    if is_fcnn(keys):
+        return fcnn_flax_path
     bottleneck = is_bottleneck(keys)
     return lambda key: flax_path(key, bottleneck, norm)
 
@@ -206,7 +243,8 @@ def init_flax_variables(model: torch.nn.Module, seed: int) -> dict:
     state = model.state_dict()
     bottleneck, norm = is_bottleneck(state), norm_name(model)
     for key, ref in state.items():
-        path = flax_path(key, bottleneck, norm)
+        path = (fcnn_flax_path(key) if is_fcnn(state)
+                else flax_path(key, bottleneck, norm))
         shape = tuple(ref.shape)
         leaf = path[-1]
         if leaf == "kernel" and len(shape) == 2:

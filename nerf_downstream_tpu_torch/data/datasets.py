@@ -1,25 +1,25 @@
 """Dataset registry (counterpart of ``nerf_downstream_tpu/data/datasets.py``).
 
 The reference's table names nine datasets; the port has
-``ScannetDataset``, ``PlenoxelScannetDataset`` and the three CO3D
-classification readers, and raises ``NotImplementedError`` for the others
-(ROADMAP.md Queue 1 item 3).
+``ScannetDataset``, ``PlenoxelScannetDataset``, the three CO3D
+classification readers and ModelNet40 (``ModelNet40H5Dataset`` and its
+alias ``ModelNet40H5``), and raises ``NotImplementedError`` for the others
+(ROADMAP.md Queue 1 item 3d).
 """
 
 from __future__ import annotations
 
 from nerf_downstream_tpu_torch import config as cfg
 
-NOT_PORTED = (
-    "ModelNet40H5", "ModelNet40H5Dataset",
-    "SemanticKITTIDataset", "StanfordDataset",
-)
+NOT_PORTED = ("SemanticKITTIDataset", "StanfordDataset")
 
 
 def _table():
-    from nerf_downstream_tpu_torch.data import co3d, scannet
+    from nerf_downstream_tpu_torch.data import co3d, modelnet40, scannet
 
     return {
+        "ModelNet40H5": modelnet40.ModelNet40H5,
+        "ModelNet40H5Dataset": modelnet40.ModelNet40H5Dataset,
         "Co3DDataset": co3d.Co3DDataset,
         "Co3D10pDataset": co3d.Co3D10pDataset,
         "Co3DDatasetBase": co3d.Co3DDatasetBase,
@@ -33,7 +33,7 @@ def get_dataset(dataset_name: str = "Co3DDataset"):
     if dataset_name in NOT_PORTED:
         raise NotImplementedError(
             f"dataset {dataset_name!r} is not ported (ROADMAP.md Queue 1 "
-            "item 3)")
+            "item 3d)")
     table = _table()
     if dataset_name not in table:
         raise ValueError(

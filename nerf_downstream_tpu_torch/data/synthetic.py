@@ -3,8 +3,9 @@ the presets, the tests and the smoke run: the port's
 ``data/plenoxel.py::make_synthetic_scene`` and ``data/utils.py::
 collate_mink``, one scene as the serving benchmark builds it, the trees
 the 3D training configs read (``write_scannet_tree``,
-``write_co3d_tree``, and ``write_scannet_ply_tree`` for the raw-mesh
-``scannet_semseg.gin``), and the frame trees the 2D configs read
+``write_co3d_tree``, ``write_scannet_ply_tree`` for the raw-mesh
+``scannet_semseg.gin`` and ``write_modelnet40_tree`` for
+``modelnet40_cls.gin``, over ``modelnet40_arrays``), and the frame trees the 2D configs read
 (``write_perfception_2d_tree``)."""
 
 from __future__ import annotations
@@ -14,9 +15,10 @@ import numpy as np
 from nerf_downstream_tpu_torch.data.plenoxel import make_synthetic_scene
 from nerf_downstream_tpu_torch.data.utils import collate_mink
 
-__all__ = ["collate_mink", "make_synthetic_scene", "scene_sample",
-           "write_co3d_tree", "write_perfception_2d_tree",
-           "write_scannet_ply_tree", "write_scannet_tree"]
+__all__ = ["collate_mink", "make_synthetic_scene", "modelnet40_arrays",
+           "scene_sample", "write_co3d_tree", "write_modelnet40_tree",
+           "write_perfception_2d_tree", "write_scannet_ply_tree",
+           "write_scannet_tree"]
 
 
 def scene_sample(rng, n_voxels: int, num_classes: int) -> dict:
@@ -254,3 +256,44 @@ def write_perfception_2d_tree(root: str, rng, n_train: int = 4,
         with open(os.path.join(fdir, f"{phase}.txt"), "w") as f:
             f.write("\n".join(lst) + "\n")
     return {"perfception": per, "co3d": co3d, "filelist": fdir}
+
+
+def modelnet40_arrays(rng, n_clouds: int, n_points: int = 2048,
+                      num_classes: int = 40):
+    """(points f32 [n_clouds, n_points, 3], labels uint8 [n_clouds, 1]) in
+    the layout of ModelNet40's HDF5 release: each cloud samples the
+    surface of a box or an ellipsoid whose kind and axes follow its class,
+    jittered, centred on the origin and scaled into the unit sphere."""
+    labels = rng.integers(0, num_classes, n_clouds)
+    data = np.empty((n_clouds, n_points, 3), np.float32)
+    for i, c in enumerate(labels):
+        axes = 0.3 + 0.7 * np.array([(c * 7) % 10, (c * 3) % 10 + 1,
+                                     (c * 11) % 10 + 2]) / 12.0
+        d = rng.normal(size=(n_points, 3))
+        if c % 2:  # a box: push each direction onto its largest face
+            d = d / np.abs(d).max(1, keepdims=True)
+        else:  # an ellipsoid
+            d = d / np.linalg.norm(d, axis=1, keepdims=True)
+        p = d * axes + rng.normal(scale=0.01, size=(n_points, 3))
+        p -= p.mean(0)
+        data[i] = p / np.linalg.norm(p, axis=1).max()
+    return data, labels.astype(np.uint8)[:, None]
+
+
+def write_modelnet40_tree(root: str, rng, n_train: int = 8, n_test: int = 4,
+                          n_points: int = 2048, num_classes: int = 40) -> str:
+    """Write ``ply_data_train0.h5`` and ``ply_data_test0.h5`` (``data``
+    f32 [N, n_points, 3], ``label`` uint8 [N, 1], as the HDF5 release
+    holds them) of ``modelnet40_arrays`` clouds under ``root`` and return
+    it."""
+    import os
+
+    import h5py
+
+    os.makedirs(root, exist_ok=True)
+    for phase, n in (("train", n_train), ("test", n_test)):
+        data, label = modelnet40_arrays(rng, n, n_points, num_classes)
+        with h5py.File(os.path.join(root, f"ply_data_{phase}0.h5"), "w") as f:
+            f.create_dataset("data", data=data)
+            f.create_dataset("label", data=label)
+    return root

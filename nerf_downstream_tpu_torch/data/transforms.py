@@ -6,8 +6,11 @@ draw from the module's ``_rng`` stream: the same ``seed`` gives the same
 arrays), with the colour transforms of ``scannet_semseg.gin``
 (``ChromaticTranslation``, ``ChromaticAutoContrast``, ``ChromaticJitter``,
 ``NormalizeColor``, ``HueSaturationTranslation``; colours in [0, 255]).
-The reference's other transforms (PerlinNoise, FPS, ...) are not ported
-yet (ROADMAP.md Queue 1 item 3); ``build`` raises on their names. Rotations use the closed-form Rodrigues formula (the reference's
+The reference's other transforms (``NOT_PORTED``: PerlinNoise, FPS, ...)
+are not ported yet (ROADMAP.md Queue 1 item 3d): bindings of their
+parameters are accepted, as the reference's engine accepts them
+(``config.declare_unported``), and ``build`` raises on their names.
+Rotations use the closed-form Rodrigues formula (the reference's
 ``scipy.expm`` matrix).
 """
 
@@ -506,6 +509,13 @@ TRANSFORMS = {
     and name not in ("Compose",)
 }
 
+# the reference's transforms that the port does not have
+NOT_PORTED = ("DimensionlessCoordinates", "FarthestPointSample",
+              "LabelBasedSample", "PerlinNoise", "RandomSample",
+              "RegionDropout")
+for _name in NOT_PORTED:
+    cfg.declare_unported(_name, "ROADMAP.md Queue 1 item 3d")
+
 # transforms that read or write coordinates (vs feature-only): moving one
 # of these to the device reorders it after every host transform, which is
 # only sound when it was already last among the coordinate transforms
@@ -533,6 +543,10 @@ def build(
     always run everything on host."""
     if not names:
         return None
+    unported = [n for n in names if n in NOT_PORTED]
+    if unported:
+        raise NotImplementedError(f"transforms {unported} are not ported "
+                                  "(ROADMAP.md Queue 1 item 3d)")
     missing = [n for n in names if n not in TRANSFORMS]
     if missing:
         raise ValueError(f"unknown transforms: {missing}")

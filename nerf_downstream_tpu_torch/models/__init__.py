@@ -1,5 +1,6 @@
 """Model registry (counterpart of ``nerf_downstream_tpu/models/__init__.py``:
-the Res16UNet family and the ResNet classifiers).
+the Res16UNet family, the ResNet classifiers and MinkowskiFCNN /
+MinkowskiSplatFCNN).
 
 ``get_model`` and the ``Res16UNet`` factory are gin-configurable under the
 reference's names and parameters, so ``get_model.name = "Res16UNet"`` and
@@ -49,13 +50,15 @@ def res16unet_factory(
 @cfg.configurable("get_model")
 def get_model(name: str = "Res16UNet18A", in_channel: int = 27,
               out_channel: int = 20, sparse=None, **kwargs):
-    """Build a Res16UNet or a ResNet by registry name. ``in_channel`` is
-    required here (PyTorch sizes weights at construction; the reference
-    infers it). ``sparse`` is the Res16UNet's nine-slot conv-mode list
-    (``Res16UNet.sparse_mode``; None = dense). Other registry names raise
-    (ROADMAP.md Queue 1 item 3)."""
-    from nerf_downstream_tpu_torch.models.mink import res16unet, resnet
+    """Build a Res16UNet, a ResNet or an FCNN by registry name.
+    ``in_channel`` is required here (PyTorch sizes weights at
+    construction; the reference infers it). ``sparse`` is the Res16UNet's
+    nine-slot conv-mode list (``Res16UNet.sparse_mode``; None = dense).
+    Other registry names raise (ROADMAP.md Queue 1 item 3c)."""
+    from nerf_downstream_tpu_torch.models.mink import fcnn, res16unet, resnet
 
+    if name in ("MinkowskiFCNN", "MinkowskiSplatFCNN"):
+        return fcnn.make_fcnn(name, in_channel, out_channel, **kwargs)
     if name in resnet._VARIANTS:
         return resnet.make_resnet(name, in_channel, out_channel, **kwargs)
     if sparse is not None:
@@ -66,5 +69,5 @@ def get_model(name: str = "Res16UNet18A", in_channel: int = 27,
         return res16unet.make_res16unet(name, in_channel, out_channel,
                                         **kwargs)
     raise NotImplementedError(
-        f"model {name!r} is not ported (the Res16UNet family and the ResNets "
-        "only; ROADMAP.md Queue 1 item 3)")
+        f"model {name!r} is not ported (the Res16UNet family, the ResNets "
+        "and the FCNNs only; ROADMAP.md Queue 1 item 3c)")

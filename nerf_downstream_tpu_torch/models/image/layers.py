@@ -7,7 +7,8 @@ them from ``flax.linen``).
 - ``Dense``: flax's ``DenseGeneral`` layout, kernel ``[*in_shape,
   *out_shape]`` and bias ``out_shape`` (a plain dense layer is
   ``Dense((C,), (Cout,))``), computed in ``dtype``.
-- ``BatchNorm``: flax's ``nn.BatchNorm(momentum=0.9)``: statistics in at
+- ``BatchNorm``: flax's ``nn.BatchNorm(momentum=0.9)`` (also the dense
+  heads' of ``models/mink/fcnn.py``): statistics in at
   least f32 whatever the compute type, the running variance updated with the
   *biased* batch variance (``nn.BatchNorm2d`` uses the unbiased one),
   epsilon 1e-5, the output in ``dtype``.
@@ -94,7 +95,8 @@ class Dense(nn.Module):
 
 
 class BatchNorm(nn.Module):
-    """flax's BatchNorm over the channels of an NCHW input. ``zero_scale``
+    """flax's BatchNorm over the channels (axis 1) of an NCHW or [N, C]
+    input: statistics over every other axis. ``zero_scale``
     starts the scale at 0 (the last norm of a residual branch)."""
 
     def __init__(self, c: int, zero_scale: bool = False, dtype=torch.float32,
@@ -122,7 +124,8 @@ class BatchNorm(nn.Module):
         y = F.batch_norm(x, None, None, self.scale, self.bias, True, 0.0,
                          self.eps)
         with torch.no_grad():
-            var, mean = torch.var_mean(at_least_f32(x), dim=(0, 2, 3),
+            dims = [d for d in range(x.dim()) if d != 1]
+            var, mean = torch.var_mean(at_least_f32(x), dim=dims,
                                        unbiased=False)
             m = self.momentum
             self.mean.mul_(m).add_(mean, alpha=1 - m)

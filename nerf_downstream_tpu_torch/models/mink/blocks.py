@@ -31,8 +31,8 @@ def _downsample(inplanes, outplanes, stride, norm, compute_dtype):
 
 class BasicBlock(nn.Module):
     """conv3-norm-act-conv3-norm (+ skip) - act. Expansion 1. ``stride``
-    goes to the first 3x3 conv; ``conv_mode`` to both 3x3 convs
-    (``SparseConv``); ``num_batches`` to instance norms."""
+    goes to the first 3x3 conv; ``conv_mode`` and ``dilation`` to both 3x3
+    convs (``SparseConv``); ``num_batches`` to instance norms."""
 
     expansion = 1
 
@@ -40,7 +40,7 @@ class BasicBlock(nn.Module):
                  nonlinearity: str = "MinkowskiReLU",
                  compute_dtype: torch.dtype = torch.float32,
                  conv_mode: int = 0, bn_momentum: float = 0.1,
-                 stride: int = 1, num_batches: int = 1):
+                 stride: int = 1, num_batches: int = 1, dilation: int = 1):
         super().__init__()
         norm = functools.partial(make_norm, norm_type,
                                  bn_momentum=bn_momentum,
@@ -48,11 +48,11 @@ class BasicBlock(nn.Module):
         self.non = get_nonlinearity(nonlinearity)
         self.conv1 = SparseConv(inplanes, planes, 3, stride,
                                 compute_dtype=compute_dtype,
-                                conv_mode=conv_mode)
+                                conv_mode=conv_mode, dilation=dilation)
         self.norm1 = norm(planes)
         self.conv2 = SparseConv(planes, planes, 3, 1,
                                 compute_dtype=compute_dtype,
-                                conv_mode=conv_mode)
+                                conv_mode=conv_mode, dilation=dilation)
         self.norm2 = norm(planes)
         self.downsample = None
         if stride != 1 or inplanes != planes * self.expansion:
@@ -70,7 +70,8 @@ class BasicBlock(nn.Module):
 
 class Bottleneck(nn.Module):
     """1x1-3x3-1x1 bottleneck, expansion 4: conv1-norm1-act (1x1),
-    conv2-norm2-act (3x3, ``stride`` and ``conv_mode``), conv3-norm3 (1x1
+    conv2-norm2-act (3x3, ``stride``, ``conv_mode`` and ``dilation``),
+    conv3-norm3 (1x1
     to ``4 * planes``), + skip, act."""
 
     expansion = 4
@@ -79,7 +80,7 @@ class Bottleneck(nn.Module):
                  nonlinearity: str = "MinkowskiReLU",
                  compute_dtype: torch.dtype = torch.float32,
                  conv_mode: int = 0, bn_momentum: float = 0.1,
-                 stride: int = 1, num_batches: int = 1):
+                 stride: int = 1, num_batches: int = 1, dilation: int = 1):
         super().__init__()
         out = planes * self.expansion
         norm = functools.partial(make_norm, norm_type,
@@ -91,7 +92,7 @@ class Bottleneck(nn.Module):
         self.norm1 = norm(planes)
         self.conv2 = SparseConv(planes, planes, 3, stride,
                                 compute_dtype=compute_dtype,
-                                conv_mode=conv_mode)
+                                conv_mode=conv_mode, dilation=dilation)
         self.norm2 = norm(planes)
         self.conv3 = SparseConv(planes, out, 1, 1,
                                 compute_dtype=compute_dtype)

@@ -1,20 +1,25 @@
-"""Layers over SparseVoxels: windowed conv, conv-transpose, norms (BN, IN,
-LN; PowerNorm in ``powernorm.py``), activations (counterpart of
-``nerf_downstream_tpu/models/mink/layers.py``, the fully-windowed path,
-forward and backward, with the weight-sparse inference modes).
+"""Layers over SparseVoxels: conv, conv-transpose, norms (BN, IN, LN;
+PowerNorm in ``powernorm.py``), activations (counterpart of
+``nerf_downstream_tpu/models/mink/layers.py``: the fully-windowed path and
+the row path, forward and backward, with the weight-sparse inference
+modes).
 
-Every k3/s1 conv and k2/s2 or k1/s2 down conv rides window plans built
-from the level's sorted keys; the k2 transpose conv reuses the down conv's
-plans (the cache returns them). A k3/s2 conv (ResNet's strided block
-conv) takes the row path, as in the reference: a row kernel map onto the
-next coarser level, K6 forward, d_feats through the inverted map. 1x1
-stride-1 convs are plain matrix products, as the reference leaves them to
-XLA. ``SparsePool`` pools over a row kernel map (``ops/pool.py``) and
-``GlobalPool`` pools each batch element's rows. Conv kernels are stored [K, Cin, Cout]
-with x-fastest offsets, the reference's layout. Parameters start at zero
-(no hidden random state): weights come from
-``convert.load_flax_variables``, or from ``convert.init_flax_variables``
-with an explicit seed.
+Each conv asks the context for its route (``CoordinateContext.
+conv_route``). On the fully-windowed path every k3/s1 conv and k2/s2 or
+k1/s2 down conv rides window plans built from the level's sorted keys;
+the k2 transpose conv reuses the down conv's plans (the cache returns
+them). Every other conv (a k3/s2 conv, such as ResNet's strided block
+conv; a dilated conv; a strided conv over an offset subset), and every
+conv when the context resolves to the row path ("row", "search", or
+"auto" without a grid extent), takes the row path, as in the reference:
+a row kernel map onto the output level, K6 forward, d_feats through the
+inverted map. 1x1 stride-1 convs are plain matrix products, as the
+reference leaves them to XLA. ``SparsePool`` pools over a row kernel map
+(``ops/pool.py``) and ``GlobalPool`` pools each batch element's rows.
+Conv kernels are stored [K, Cin, Cout] with x-fastest offsets, the
+reference's layout. Parameters start at zero (no hidden random state):
+weights come from ``convert.load_flax_variables``, or from
+``convert.init_flax_variables`` with an explicit seed.
 
 Weight-sparse inference (``eval3d --sparsify``), in the reference's order
 of decisions: a conv in mode 2 (ZAXIS) runs over its z-column offsets; in
@@ -79,10 +84,12 @@ def _window_groups_ok(offs) -> bool:
 
 
 class SparseConv(nn.Module):
-    """Sparse convolution; stride 2 emits the next coarser level.
+    """Sparse convolution; a stride above 1 emits the coarser level.
 
-    ``input_grad=False`` declares that the input is never differentiated
-    (first-layer convs over the data batch): no transpose plan is built.
+    ``dilation`` spaces the kernel's offsets (dilated convs take the row
+    path). ``input_grad=False`` declares that the input is never
+    differentiated (first-layer convs over the data batch): no windowed
+    transpose plan is built.
     ``conv_mode``: 0 dense, 1 the live offsets of a pruned checkpoint
     (``ctx.valid_offsets_map``), 2 ZAXIS (the dx = dy = 0 offsets); a
     static ``valid_offsets`` tuple sets the subset directly. ``path`` is
@@ -95,16 +102,11 @@ class SparseConv(nn.Module):
                  use_bias: bool = False,
                  compute_dtype: torch.dtype = torch.float32,
                  input_grad: bool = True, conv_mode: int = 0,
-                 valid_offsets: tuple | None = None):
+                 valid_offsets: tuple | None = None, dilation: int = 1):
         super().__init__()
-        if (kernel_size, stride) not in ((1, 1), (3, 1), (2, 2), (1, 2),
-                                         (3, 2)):
-            raise ValueError(
-                f"neither the windowed nor the row path takes kernel "
-                f"{kernel_size} / stride {stride}"
-            )
         self.kernel_size = kernel_size
         self.stride = stride
+        self.dilation = dilation
         self.compute_dtype = compute_dtype
         self.input_grad = input_grad
         self.conv_mode = conv_mode
@@ -138,12 +140,14 @@ class SparseConv(nn.Module):
             if self.bias is not None:
                 out_f = out_f + self.bias
             return sv.replace(feats=out_f)
-        ctx.require_window_full()
-        full_offs = kernel_offsets(self.kernel_size, sv.stride)
+        full_offs = kernel_offsets(self.kernel_size, sv.stride,
+                                   self.dilation)
         subset = self._subset(full_offs, ctx)
         offs = full_offs if subset is None else full_offs[list(subset)]
         s1 = self.kernel_size == 3 and self.stride == 1
-        if not s1 and (subset is not None or self.kernel_size == 3):
+        down = (self.kernel_size in (1, 2) and self.stride == 2
+                and subset is None)
+        if ctx.conv_route(self.dilation == 1 and (s1 or down)) == "row":
             return self._row_conv(sv, ctx, offs, subset)
         # a subset with non-uniform (dx, dy) groups is padded with
         # zero-weight repeats of each group's first offset
@@ -243,11 +247,11 @@ class SparseConv(nn.Module):
         return self._bs_cache[1:]
 
     def _row_conv(self, sv, ctx, offs, subset):
-        """A k3/s2 conv, or a strided conv over an offset subset: the row
-        path (kernel map, then K6). The inverse map is built only when
-        autograd may need it."""
+        """The row path (a kernel map, then K6) for any kernel size,
+        stride, dilation and offset subset. The inverse map is built only
+        when autograd may need it."""
         self.route = "row"
-        out_sv = ctx.strided(sv, self.stride)
+        out_sv = ctx.strided(sv, self.stride) if self.stride > 1 else sv
         km = ctx.kernel_map(sv.coords, sv.mask, out_sv.coords, out_sv.mask,
                             offs, in_stride=sv.stride)
         inv = None
@@ -259,39 +263,57 @@ class SparseConv(nn.Module):
         out_f = sparse_conv_apply(sv.feats, km, w, self.bias,
                                   compute_dtype=self.compute_dtype,
                                   inv_map=inv).to(self.compute_dtype)
-        out_f = ctx.level_poison(out_sv.coords, out_f)
+        if out_sv is not sv:
+            out_f = ctx.level_poison(out_sv.coords, out_f)
         return SparseVoxels(coords=out_sv.coords, feats=out_f,
                             mask=out_sv.mask, stride=out_sv.stride)
 
 
 class SparseConvTranspose(nn.Module):
-    """k2/s2 transposed conv onto the cached finer level ``target``: its
-    plan is the transpose of the encoder down conv's, and its inverse plan
-    is that down conv's own plan. Dense in every sparse mode, as in the
-    reference."""
-
-    route = "windowed"
+    """k2/s2 transposed conv onto the cached finer level ``target``. On
+    the fully-windowed path its plan is the transpose of the encoder down
+    conv's, and its inverse plan is that down conv's own plan. On the row
+    path its map is the down conv's map inverted (the context's cache),
+    with the forward map as its inverse. Dense in every sparse mode, as
+    in the reference. ``route`` records the path of the last forward."""
 
     def __init__(self, in_channels: int, out_channels: int,
                  use_bias: bool = False,
                  compute_dtype: torch.dtype = torch.float32):
         super().__init__()
         self.compute_dtype = compute_dtype
+        self.route = None
         self.kernel = nn.Parameter(torch.zeros(8, in_channels, out_channels))
         self.bias = (nn.Parameter(torch.zeros(out_channels)) if use_bias
                      else None)
 
     def forward(self, sv: SparseVoxels, ctx: CoordinateContext,
                 target: SparseVoxels):
-        ctx.require_window_full()
+        # offsets in units of the finer (output) level's stride: the
+        # adjoint of the down conv that made ``sv`` from ``target``
         offs = kernel_offsets(2, target.stride)
-        plan = ctx.window_plan_cross(sv, target, offs, transpose=True)
-        inv_plan = ctx.window_plan_cross(target, sv, offs, expanding=True)
-        out_f = window_conv_apply(
-            sv.feats, plan, inv_plan, self.kernel, self.bias,
-            compute_dtype=self.compute_dtype,
-        ).to(self.compute_dtype)
-        out_f = ctx.level_poison(target.coords, out_f)
+        self.route = ctx.conv_route(True)
+        if self.route == "windowed":
+            plan = ctx.window_plan_cross(sv, target, offs, transpose=True)
+            inv_plan = ctx.window_plan_cross(target, sv, offs,
+                                             expanding=True)
+            out_f = window_conv_apply(
+                sv.feats, plan, inv_plan, self.kernel, self.bias,
+                compute_dtype=self.compute_dtype,
+            ).to(self.compute_dtype)
+            out_f = ctx.level_poison(target.coords, out_f)
+        else:
+            km = ctx.kernel_map(sv.coords, sv.mask, target.coords,
+                                target.mask, offs, transpose=True,
+                                in_stride=sv.stride)
+            inv = None
+            if torch.is_grad_enabled():
+                inv = ctx.kernel_map(target.coords, target.mask, sv.coords,
+                                     sv.mask, offs, in_stride=target.stride)
+            out_f = sparse_conv_apply(
+                sv.feats, km, self.kernel, self.bias,
+                compute_dtype=self.compute_dtype, inv_map=inv,
+            ).to(self.compute_dtype)
         return SparseVoxels(coords=target.coords, feats=out_f,
                             mask=target.mask, stride=target.stride)
 

@@ -65,8 +65,9 @@ class Res16UNet(nn.Module):
     one-point-per-voxel declaration; None leaves it to the
     ``field_to_sparse.assume_unique`` binding (default False).
     ``num_batches`` is the batch's scene count (the reference's, for the
-    row path's grid index and the instance norms); ``dilations`` other
-    than 1 are not ported. ``norm_type`` is "BN", "IN", "LN" or "PN".
+    row path's grid index and the instance norms); ``dilations`` (one
+    per stage, given to the stage's blocks) other than 1 put those
+    blocks' 3x3 convs on the row path, as in the reference. ``norm_type`` is "BN", "IN", "LN" or "PN".
     With ``insseg`` the forward also returns per-point offsets from a
     second head (``offset_conv1`` -> norm -> nonlinearity ->
     ``offset_conv2`` to 3 channels): ``(offsets, logits)``."""
@@ -92,11 +93,6 @@ class Res16UNet(nn.Module):
         super().__init__()
         if block not in BLOCKS:
             raise NotImplementedError(f"block {block!r} is not ported")
-        if any(int(d) != 1 for d in dilations):
-            raise NotImplementedError(
-                f"dilations {tuple(dilations)} are not ported (the "
-                "reference runs dilated convs on the row path; ROADMAP.md "
-                "Queue 1 item 3)")
         self.num_batches = num_batches
         self.out_channel = out_channel
         self.planes, self.layers = tuple(planes), tuple(layers)
@@ -104,6 +100,7 @@ class Res16UNet(nn.Module):
         self.ctx_kwargs = dict(ctx or {})
         self.assume_unique = assume_unique
         self.sparse_mode = tuple(sparse_mode)
+        self.dilations = tuple(int(d) for d in dilations)
         p, cd = self.planes, compute_dtype
         block_cls = BLOCKS[block]
         exp = block_cls.expansion
@@ -119,7 +116,8 @@ class Res16UNet(nn.Module):
                                         nonlinearity, cd,
                                         self._conv_mode(idx + 1),
                                         bn_momentum,
-                                        num_batches=num_batches))
+                                        num_batches=num_batches,
+                                        dilation=self.dilations[idx]))
                 inplanes = p[idx] * exp
             return nn.ModuleList(blocks), inplanes
 

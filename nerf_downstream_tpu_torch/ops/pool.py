@@ -6,6 +6,10 @@ The reference computes both with XLA ops (a scan over the map's offsets,
 computes them in plain PyTorch: gathers, an accumulating ``index_put``
 (which sorts its indices and adds each row's terms in a fixed order on
 the card, so a training step stays reproducible) and ``scatter_reduce``.
+The global max's backward is written out (``_SegmentMax``): each row
+equal to its element's maximum takes the gradient divided by the count
+of such rows, the reference's rule for ties, with the count added by an
+accumulating ``index_put``.
 """
 
 from __future__ import annotations
@@ -51,6 +55,27 @@ def window_pool(feats: torch.Tensor, kernel_map: torch.Tensor,
     raise ValueError(f"unknown pool mode {mode!r}")
 
 
+class _SegmentMax(torch.autograd.Function):
+    """Per-segment maximum [num_segments, C] of ``feats`` [N, C] over
+    ``ids`` (-inf where a segment has no rows)."""
+
+    @staticmethod
+    def forward(ctx, feats, ids, num_segments: int):
+        c = feats.shape[1]
+        out = feats.new_full((num_segments, c), float("-inf"))
+        out = out.scatter_reduce(0, ids[:, None].expand(-1, c), feats,
+                                 "amax", include_self=True)
+        ctx.save_for_backward(feats, ids, out)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        feats, ids, out = ctx.saved_tensors
+        hit = (feats == out[ids]).to(g.dtype)
+        ties = torch.zeros_like(g).index_put((ids,), hit, accumulate=True)
+        return hit * (g / torch.clamp(ties, min=1))[ids], None, None
+
+
 def global_pool(feats: torch.Tensor, batch_ids: torch.Tensor,
                 num_batches: int, mode: str = "avg") -> torch.Tensor:
     """Pooling of each batch element's rows to [num_batches, C] (avg, max
@@ -59,9 +84,7 @@ def global_pool(feats: torch.Tensor, batch_ids: torch.Tensor,
     c = feats.shape[1]
     ids = batch_ids.long()
     if mode == "max":
-        out = feats.new_full((num_batches + 1, c), float("-inf"))
-        out = out.scatter_reduce(0, ids[:, None].expand(-1, c), feats,
-                                 "amax", include_self=True)[:num_batches]
+        out = _SegmentMax.apply(feats, ids, num_batches + 1)[:num_batches]
         return torch.where(torch.isfinite(out), out, 0)
     sums = feats.new_zeros((num_batches + 1, c)).index_put(
         (ids,), feats, accumulate=True)[:num_batches]

@@ -12,8 +12,9 @@ in f32. The forward is K6 (``row_gather_matmul``). The backward is a
 outside any Pallas kernel: d_w[k] is the gathered rows' product with the
 output gradient; d_feats is a scatter-add of ``g @ W[k]^T`` onto the
 gathered rows, or, given the inverted map, a gather of the output
-gradient rows instead. Only the inputs are saved; the backward gathers
-again.
+gradient rows instead; d_feats is skipped when the input needs no
+gradient (a stem conv over the data batch). Only the inputs are saved;
+the backward gathers again.
 """
 
 from __future__ import annotations
@@ -45,15 +46,17 @@ class _SparseConvCore(torch.autograd.Function):
     def backward(ctx, g):
         feats_ext, kernel_map, w = ctx.saved_tensors
         gc = g.to(w.dtype)
-        d_feats = torch.zeros(feats_ext.shape, dtype=torch.float32,
-                              device=g.device)
-        for k in range(kernel_map.shape[0]):
-            contrib = gc.float() @ w[k].float().t()
-            d_feats.index_put_((kernel_map[k].long(),), contrib,
-                               accumulate=True)
-        d_feats[-1] = 0.0  # the sentinel row has no gradient
-        return (d_feats.to(feats_ext.dtype), None,
-                _d_w(feats_ext, kernel_map, gc).to(w.dtype))
+        d_feats = None
+        if ctx.needs_input_grad[0]:
+            d_feats = torch.zeros(feats_ext.shape, dtype=torch.float32,
+                                  device=g.device)
+            for k in range(kernel_map.shape[0]):
+                contrib = gc.float() @ w[k].float().t()
+                d_feats.index_put_((kernel_map[k].long(),), contrib,
+                                   accumulate=True)
+            d_feats[-1] = 0.0  # the sentinel row has no gradient
+            d_feats = d_feats.to(feats_ext.dtype)
+        return d_feats, None, _d_w(feats_ext, kernel_map, gc).to(w.dtype)
 
 
 class _SparseConvCoreInv(torch.autograd.Function):
@@ -70,16 +73,19 @@ class _SparseConvCoreInv(torch.autograd.Function):
     def backward(ctx, g):
         feats_ext, kernel_map, inv_map, w = ctx.saved_tensors
         gc = g.to(w.dtype)
-        g_ext = torch.cat([gc, gc.new_zeros((1, gc.shape[1]))])
-        d_in = torch.zeros((inv_map.shape[1], feats_ext.shape[1]),
-                           dtype=torch.float32, device=g.device)
-        for k in range(inv_map.shape[0]):
-            d_in += g_ext[inv_map[k].long()].float() @ w[k].float().t()
-        d_feats = torch.zeros(feats_ext.shape, dtype=torch.float32,
-                              device=g.device)
-        d_feats[:inv_map.shape[1]] = d_in
-        d_feats[-1] = 0.0
-        return (d_feats.to(feats_ext.dtype), None, None,
+        d_feats = None
+        if ctx.needs_input_grad[0]:
+            g_ext = torch.cat([gc, gc.new_zeros((1, gc.shape[1]))])
+            d_in = torch.zeros((inv_map.shape[1], feats_ext.shape[1]),
+                               dtype=torch.float32, device=g.device)
+            for k in range(inv_map.shape[0]):
+                d_in += g_ext[inv_map[k].long()].float() @ w[k].float().t()
+            d_feats = torch.zeros(feats_ext.shape, dtype=torch.float32,
+                                  device=g.device)
+            d_feats[:inv_map.shape[1]] = d_in
+            d_feats[-1] = 0.0
+            d_feats = d_feats.to(feats_ext.dtype)
+        return (d_feats, None, None,
                 _d_w(feats_ext, kernel_map, gc).to(w.dtype))
 
 

@@ -4,6 +4,7 @@ from nerf_downstream_tpu_torch.sparse.context import CoordinateContext
 from nerf_downstream_tpu_torch.sparse.kernels import (
     field_to_sparse,
     kernel_offsets,
+    slice_field,
     sparse_to_field,
     stride_coords_capped,
     unique_coords,
@@ -16,6 +17,7 @@ __all__ = [
     "SparseVoxels",
     "field_to_sparse",
     "kernel_offsets",
+    "slice_field",
     "sparse_to_field",
     "stride_coords_capped",
     "unique_coords",

@@ -1,7 +1,6 @@
 """Per-forward coordinate context: window-plan, kernel-map and stride
 caches (counterpart of ``nerf_downstream_tpu/sparse/context.py``: its
-windowed branch, and the row kernel maps that convs over a pruned offset
-subset of a stride-2 down conv fall back to).
+windowed branch and its row kernel maps).
 
 Every conv of a level reuses one window plan; plans, kernel maps, strided
 levels and their overflow counters are cached by the identity of the
@@ -13,21 +12,22 @@ pass.
 The constructor takes the reference's arguments and is gin-configurable
 under the same name (``CoordinateContext.window_size = 128``); the meaning
 of each knob is documented on the reference class. ``method`` resolves as
-the reference's does: "auto" with a ``grid_extent``, or "hybrid", is the
-fully-windowed path, the only one ported. Every other resolution ("row",
-"search", "block", "block_resident", "window", or "auto" without an
-extent, which the reference runs on the row path) raises
-``NotImplementedError`` when a conv asks for its route (ROADMAP Queue 1
-item 3); nothing falls back quietly. ``block_cap_divisor`` and
-``block_caps`` configure only the unported block paths and are accepted
-for the configs' sake; ``overflow_guard = False`` turns off the level
-caps' NaN poisoning, as in the reference.
+the reference's does (``conv_route``): "auto" with a ``grid_extent``, or
+"hybrid", is the fully-windowed path for the convs it takes (k3/s1, k2/s2
+and k1/s2 without dilation, the k2 transpose conv); every other conv, and
+every conv under "row", "search" or "auto" without an extent, takes the
+row path (a kernel map, then K6). "block", "block_resident" and "window"
+raise ``NotImplementedError`` when a conv asks for its route (ROADMAP.md
+Queue 1 item 3d); nothing falls back quietly. ``block_cap_divisor`` and
+``block_caps`` configure only those unported paths and are accepted for
+the configs' sake; ``overflow_guard = False`` turns off the level caps'
+NaN poisoning, as in the reference.
 The pruned-eval knobs (``eval3d --sparsify``): ``valid_offsets_map``
 {conv module path -> live offset tuple} is read by mode-1 convs;
 ``block_live_map`` {conv module path -> bool[K, nbi, nbo]} by every
 windowed conv at inference, at granularity ``block_live_granularity``.
-Row kernel maps use a dense grid index when ``grid_extent`` is set, else
-sort and binary search.
+Row kernel maps use a dense grid index when ``grid_extent`` is set (and
+``method`` is not "search"), else sort and binary search.
 """
 
 from __future__ import annotations
@@ -38,6 +38,11 @@ import torch
 from nerf_downstream_tpu_torch import config as cfg
 from nerf_downstream_tpu_torch.sparse import kernels
 from nerf_downstream_tpu_torch.sparse.types import SparseVoxels
+
+
+# methods whose conv paths (block layouts, plans from kernel maps) the
+# port does not have
+UNPORTED_METHODS = ("block", "block_resident", "window")
 
 
 def _level(stride: int) -> int:
@@ -98,16 +103,16 @@ class CoordinateContext:
         return self.method == "hybrid" or (
             self.method == "auto" and self.grid_extent is not None)
 
-    def require_window_full(self) -> None:
-        """Raise unless ``method`` resolves to the fully-windowed path, the
-        only conv path the port has."""
-        if not self.use_window_full():
-            path = ("the row path (method 'auto' without a grid_extent)"
-                    if self.method == "auto" else f"method {self.method!r}")
+    def conv_route(self, windowable: bool) -> str:
+        """The path of a conv: "windowed" when the fully-windowed path is
+        on and the conv is one it takes (``windowable``), else "row".
+        Raises for the methods whose paths are not ported."""
+        if self.method in UNPORTED_METHODS:
             raise NotImplementedError(
-                f"CoordinateContext resolves to {path}, which is not ported "
-                "(ROADMAP.md Queue 1 item 3); bind a grid_extent or "
-                "method = 'hybrid' for the fully-windowed path")
+                f"CoordinateContext.method {self.method!r} is not ported "
+                "(ROADMAP.md Queue 1 item 3d); the ported methods are "
+                "'auto', 'hybrid', 'row' and 'search'")
+        return "windowed" if windowable and self.use_window_full() else "row"
 
     @staticmethod
     def _get(cache: dict, key):
@@ -237,7 +242,7 @@ class CoordinateContext:
         return feats * scale.to(feats.dtype)
 
     def _use_grid(self) -> bool:
-        return self.grid_extent is not None
+        return self.method != "search" and self.grid_extent is not None
 
     def grid_index(self, coords, mask, stride: int):
         key = (id(coords), stride)

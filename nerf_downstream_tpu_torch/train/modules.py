@@ -26,6 +26,10 @@ from nerf_downstream_tpu_torch.train import metrics as M
 from nerf_downstream_tpu_torch.train.optim import get_optimizer, get_scheduler
 from nerf_downstream_tpu_torch.train.state import TrainState
 
+# the dropout generator of step s is seeded with DROPOUT_SEED + s, apart
+# from the device augmentation's (seeded with s)
+DROPOUT_SEED = 1 << 40
+
 
 def init_variables(model: torch.nn.Module, seed: int) -> torch.nn.Module:
     """A fresh model's weights, in place, with the reference's
@@ -33,8 +37,8 @@ def init_variables(model: torch.nn.Module, seed: int) -> torch.nn.Module:
     conv kernels He-normal over fan-in K * Cin, a dense head's kernel
     LeCun-normal (flax's default: a normal truncated at two standard
     deviations, of variance 1 / fan-in), biases 0, norm scale 1, bias 0,
-    running mean 0 and variance 1, PowerNorm's running_phi 1, iters 0
-    and ema_gz 0."""
+    running mean 0 and variance 1 (flax's BatchNorm names them scale,
+    mean and var), PowerNorm's running_phi 1, iters 0 and ema_gz 0."""
     gen = torch.Generator().manual_seed(int(seed))
     with torch.no_grad():
         for name, t in model.state_dict(keep_vars=True).items():
@@ -50,9 +54,10 @@ def init_variables(model: torch.nn.Module, seed: int) -> torch.nn.Module:
                 k, cin, _ = t.shape
                 w = torch.randn(t.shape, generator=gen) * (2.0 / (k * cin)) ** 0.5
                 t.copy_(w.to(t.dtype))
-            elif leaf in ("weight", "running_var", "running_phi"):
+            elif leaf in ("weight", "scale", "running_var", "var",
+                          "running_phi"):
                 t.fill_(1.0)
-            elif leaf in ("bias", "running_mean", "iters", "ema_gz"):
+            elif leaf in ("bias", "running_mean", "mean", "iters", "ema_gz"):
                 t.zero_()
     return model
 
@@ -103,8 +108,10 @@ class BaseTask:
 
     ``train_step`` runs the device augmentation (``device_transforms``,
     drawn from a generator seeded from the step count), the forward in
-    train mode, the loss, the backward and the optimizer step with the lr
-    of the schedule at the step count before the update.
+    train mode (a model with ``uses_dropout`` draws its dropout from a
+    generator seeded from the step count plus ``DROPOUT_SEED``), the
+    loss, the backward and the optimizer step with the lr of the schedule
+    at the step count before the update.
     ``transform_params`` overrides the
     transforms' defaults by name (None: the gin bindings of their host
     twins); ``num_scenes`` is the batch's scene count (ElasticDistortion
@@ -251,7 +258,12 @@ class BaseTask:
         batch = self.augment(batch, state.step)
         field = PointField(coords=batch["coordinates"],
                            feats=batch["features"], mask=batch["mask"])
-        logits = model(field)
+        kw = {}
+        if getattr(model, "uses_dropout", False):
+            gen = torch.Generator(device=field.coords.device)
+            gen.manual_seed(DROPOUT_SEED + int(state.step))
+            kw["generator"] = gen
+        logits = model(field, **kw)
         loss, mets = self.loss_and_metrics(logits, batch)
         state.optimizer.zero_grad(set_to_none=True)
         loss.backward()

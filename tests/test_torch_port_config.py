@@ -68,25 +68,29 @@ def test_check_bindings_takes_every_class_of_a_name():
 
 def test_every_repo_config_applies_in_the_port():
     """Every binding of every config names a configurable of the port and
-    one of its parameters, and its dataset resolves; ``modelnet40_cls.gin``
-    alone still raises at its dataset, naming the ROADMAP item."""
+    one of its parameters, or a transform of the reference that the port
+    declares unported (``modelnet40_cls.gin`` binds ``PerlinNoise``'s,
+    which its pipeline does not list), and its dataset resolves;
+    ``modelnet40_cls.gin`` now among them, with its ModelNet40 reader."""
     import importlib
 
     from nerf_downstream_tpu_torch.data.datasets import get_dataset
+    from nerf_downstream_tpu_torch.data.modelnet40 import ModelNet40H5Dataset
 
     for mod in ("co3d_3d.train", "co3d_3d.eval", "data.co3d",
-                "data.scannet", "data.transforms", "models",
-                "models.mink.powernorm", "sparse.context", "train.optim"):
+                "data.modelnet40", "data.scannet", "data.transforms",
+                "models", "models.mink.powernorm", "sparse.context",
+                "train.optim"):
         importlib.import_module(f"nerf_downstream_tpu_torch.{mod}")
     for path in CONFIGS:
         tcfg.clear_config()
         tcfg.parse_config_files_and_bindings([path], [])
-        if path.endswith("modelnet40_cls.gin"):
-            with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
-                get_dataset()
-            continue
         tcfg.check_bindings()
         assert get_dataset() is not None, path
+        if path.endswith("modelnet40_cls.gin"):
+            assert get_dataset() is ModelNet40H5Dataset
+    with pytest.raises(NotImplementedError, match="Queue 1 item 3d"):
+        tcfg.get_configurable("PerlinNoise")
 
 
 def test_later_wins_includes_macros_and_refs(tmp_path):
