@@ -1,4 +1,5 @@
-"""Carry Res16UNet, ResNet, FCNN and the 2D models' weights between the
+"""Carry the 3D models' (Res16UNet, ResNet, FCNN, ResUNet2 and the point
+models) and the 2D models' weights between the
 reference's flax variable trees and the port's ``state_dict``.
 
 The reference stores ``{"params": ..., "batch_stats": ...}`` as nested
@@ -19,6 +20,20 @@ The FCNNs (``models/mink/fcnn.py``, keys starting with ``mlp1.``) map by
 ``mlp1/MaskedBatchNorm_0``; a conv block ``convX.conv`` / ``convX.bn`` is
 ``convX_conv`` / ``convX_bn``; the heads keep their names, their flax
 BatchNorms' ``scale``, ``bias``, ``mean`` and ``var`` their leaves.
+
+The point models (``models/mink/dgcnn.py``, ``pointnet.py``,
+``encoding.py``, ``models/paconv``; keys starting with ``linear1.``,
+``conv9.`` or ``enc_mlp.``) carry the reference's module names, flax's
+automatic ones included (``conv1.Dense_0``, ``conv1.BatchNorm_0``,
+``conv1.MaskedBatchNorm_0``), so their paths map one to one
+(``point_flax_path``): a norm's ``weight``, ``running_mean`` and
+``running_var`` are flax's ``scale``, ``mean`` and ``var``, a flax
+BatchNorm's ``mean`` and ``var`` go to ``batch_stats``, and PAConv's
+weight banks ``matrice<i>`` keep their [Cin, m * Cout] layout. An
+EncodedRes16UNet's ``trunk.`` keys map as a Res16UNet's under ``trunk``.
+ResUNet2 (keys with ``conv1_tr.``) maps the same way but for its blocks'
+norms, which the reference names by class in creation order
+(``resunet_flax_path``); its top-level norms carry those names already.
 
 The 2D models (``models/image``: ``_ResNetBased``, whose keys start with
 ``model.``, and ``ViT``, with ``patch_embed.``) carry the reference's
@@ -74,8 +89,11 @@ def image_flax_path(key: str) -> tuple[str, ...]:
 
 
 def norm_name(model: torch.nn.Module) -> str:
-    """The flax class name of ``model``'s 3D norms (BatchNorm's when it
-    has none)."""
+    """The flax class name of ``model``'s 3D norms (its ``flax_norm`` where
+    it names one, as ResUNet2 does for its blocks' norms; BatchNorm's when
+    it has none)."""
+    if getattr(model, "flax_norm", None):
+        return model.flax_norm
     for m in model.modules():
         name = getattr(type(m), "flax_name", None)
         if name is not None:
@@ -112,6 +130,49 @@ def fcnn_flax_path(key: str) -> tuple[str, ...]:
     raise KeyError(f"no flax counterpart for {key!r}")
 
 
+def is_point_model(keys) -> bool:
+    """Whether these ``state_dict`` keys are a point model's (DGCNN,
+    PointNet, MinkowskiPointNet, PAConv, EncodedRes16UNet)."""
+    return any(k.startswith(("linear1.", "conv9.", "enc_mlp."))
+               for k in keys)
+
+
+def is_resunet(keys) -> bool:
+    """Whether these ``state_dict`` keys are a ResUNet2's."""
+    return any(k.startswith("conv1_tr.") for k in keys)
+
+
+def direct_flax_path(key: str) -> tuple[str, ...]:
+    """(collection, module..., leaf) of a key whose modules carry the
+    reference's names: only the norms' leaves are renamed."""
+    p = key.split(".")
+    if p[-1] in _NORM_LEAF:
+        coll, leaf = _NORM_LEAF[p[-1]]
+    else:
+        coll, leaf = _FLAX_BN_LEAF.get(p[-1], "params"), p[-1]
+    return (coll, *p[:-1], leaf)
+
+
+def point_flax_path(key: str, bottleneck: bool = False,
+                    norm: str = BN) -> tuple[str, ...]:
+    """(collection, module..., leaf) of a point model's key; an
+    EncodedRes16UNet's trunk maps as a Res16UNet (``flax_path``)."""
+    if key.startswith("trunk."):
+        coll, *rest = flax_path(key[len("trunk."):], bottleneck, norm)
+        return (coll, "trunk", *rest)
+    return direct_flax_path(key)
+
+
+def resunet_flax_path(key: str, norm: str = BN) -> tuple[str, ...]:
+    """(collection, module..., leaf) of a ResUNet2 key; ``norm`` is the
+    flax class of its blocks' norms."""
+    p = key.split(".")
+    if p[0].startswith("block") and p[1] in _BLOCK_NORMS:
+        coll, leaf = _NORM_LEAF[p[2]]
+        return (coll, p[0], f"{norm}_{_BLOCK_NORMS.index(p[1])}", leaf)
+    return direct_flax_path(key)
+
+
 def _paths(keys, norm: str = BN):
     """``key -> flax path`` for the keys of one model whose norms are of
     flax class ``norm``."""
@@ -119,7 +180,11 @@ def _paths(keys, norm: str = BN):
         return image_flax_path
     if is_fcnn(keys):
         return fcnn_flax_path
+    if is_resunet(keys):
+        return lambda key: resunet_flax_path(key, norm)
     bottleneck = is_bottleneck(keys)
+    if is_point_model(keys):
+        return lambda key: point_flax_path(key, bottleneck, norm)
     return lambda key: flax_path(key, bottleneck, norm)
 
 
@@ -241,13 +306,14 @@ def init_flax_variables(model: torch.nn.Module, seed: int) -> dict:
     rng = np.random.default_rng(seed)
     tree: dict = {}
     state = model.state_dict()
-    bottleneck, norm = is_bottleneck(state), norm_name(model)
+    path_of = _paths(state, norm_name(model))
     for key, ref in state.items():
-        path = (fcnn_flax_path(key) if is_fcnn(state)
-                else flax_path(key, bottleneck, norm))
+        path = path_of(key)
         shape = tuple(ref.shape)
         leaf = path[-1]
-        if leaf == "kernel" and len(shape) == 2:
+        if leaf.startswith("matrice"):  # PAConv's bank [Cin, m * Cout]
+            arr = rng.normal(size=shape) * np.sqrt(2.0 / shape[0])
+        elif leaf == "kernel" and len(shape) == 2:
             arr = rng.normal(size=shape) * np.sqrt(1.0 / shape[0])
         elif leaf == "kernel":
             arr = rng.normal(size=shape) * np.sqrt(2.0 / (shape[0] * shape[1]))

@@ -61,15 +61,17 @@ def _leaky(x):
 
 
 class Linear(nn.Module):
-    """``x @ kernel`` in f32 with flax's ``kernel [C_in, C_out]``, no
-    bias (``nn.Dense(use_bias=False)``)."""
+    """``x @ kernel`` with flax's ``kernel [C_in, C_out]``, no bias
+    (``nn.Dense(use_bias=False)``), in the wider of the input's type and
+    the kernel's (f32 unless the model was cast to f64)."""
 
     def __init__(self, in_features: int, out_features: int):
         super().__init__()
         self.kernel = nn.Parameter(torch.zeros(in_features, out_features))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return x.float() @ self.kernel
+        return x.to(torch.promote_types(x.dtype, self.kernel.dtype)) \
+            @ self.kernel
 
 
 class Dropout(nn.Module):

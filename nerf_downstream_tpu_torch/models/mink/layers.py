@@ -270,20 +270,25 @@ class SparseConv(nn.Module):
 
 
 class SparseConvTranspose(nn.Module):
-    """k2/s2 transposed conv onto the cached finer level ``target``. On
-    the fully-windowed path its plan is the transpose of the encoder down
-    conv's, and its inverse plan is that down conv's own plan. On the row
-    path its map is the down conv's map inverted (the context's cache),
-    with the forward map as its inverse. Dense in every sparse mode, as
-    in the reference. ``route`` records the path of the last forward."""
+    """Stride-2 transposed conv onto the cached finer level ``target``
+    (``kernel_size`` 2, or 3 as in ResUNet2's decoder). A k2 conv on the
+    fully-windowed path takes a plan that is the transpose of the encoder
+    down conv's, and its inverse plan is that down conv's own plan. On
+    the row path (every k3 transpose, as in the reference) its map is the
+    matching forward map inverted (the context's cache), with the forward
+    map as its inverse. Dense in every sparse mode, as in the reference.
+    ``route`` records the path of the last forward."""
 
     def __init__(self, in_channels: int, out_channels: int,
                  use_bias: bool = False,
-                 compute_dtype: torch.dtype = torch.float32):
+                 compute_dtype: torch.dtype = torch.float32,
+                 kernel_size: int = 2):
         super().__init__()
         self.compute_dtype = compute_dtype
+        self.kernel_size = kernel_size
         self.route = None
-        self.kernel = nn.Parameter(torch.zeros(8, in_channels, out_channels))
+        self.kernel = nn.Parameter(torch.zeros(kernel_size ** 3, in_channels,
+                                               out_channels))
         self.bias = (nn.Parameter(torch.zeros(out_channels)) if use_bias
                      else None)
 
@@ -291,8 +296,8 @@ class SparseConvTranspose(nn.Module):
                 target: SparseVoxels):
         # offsets in units of the finer (output) level's stride: the
         # adjoint of the down conv that made ``sv`` from ``target``
-        offs = kernel_offsets(2, target.stride)
-        self.route = ctx.conv_route(True)
+        offs = kernel_offsets(self.kernel_size, target.stride)
+        self.route = ctx.conv_route(self.kernel_size == 2)
         if self.route == "windowed":
             plan = ctx.window_plan_cross(sv, target, offs, transpose=True)
             inv_plan = ctx.window_plan_cross(target, sv, offs,

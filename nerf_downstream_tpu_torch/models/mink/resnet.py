@@ -32,7 +32,9 @@ from nerf_downstream_tpu_torch.sparse.types import PointField
 
 
 class Dense(nn.Module):
-    """``x @ kernel + bias`` in f32, with flax's ``kernel [C_in, C_out]``."""
+    """``x @ kernel + bias`` with flax's ``kernel [C_in, C_out]``, in the
+    wider of the input's type and the kernel's (f32 unless the model was
+    cast to f64)."""
 
     def __init__(self, in_features: int, out_features: int):
         super().__init__()
@@ -40,7 +42,8 @@ class Dense(nn.Module):
         self.bias = nn.Parameter(torch.zeros(out_features))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return x.float() @ self.kernel + self.bias
+        x = x.to(torch.promote_types(x.dtype, self.kernel.dtype))
+        return x @ self.kernel + self.bias
 
 
 class MinkResNetBase(nn.Module):

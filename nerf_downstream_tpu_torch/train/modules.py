@@ -34,7 +34,8 @@ DROPOUT_SEED = 1 << 40
 def init_variables(model: torch.nn.Module, seed: int) -> torch.nn.Module:
     """A fresh model's weights, in place, with the reference's
     distributions drawn from a ``torch.Generator`` seeded by ``seed``:
-    conv kernels He-normal over fan-in K * Cin, a dense head's kernel
+    conv kernels He-normal over fan-in K * Cin, PAConv's weight banks
+    ``matrice<i>`` normal of variance 2 / Cin, a dense kernel
     LeCun-normal (flax's default: a normal truncated at two standard
     deviations, of variance 1 / fan-in), biases 0, norm scale 1, bias 0,
     running mean 0 and variance 1 (flax's BatchNorm names them scale,
@@ -49,6 +50,13 @@ def init_variables(model: torch.nn.Module, seed: int) -> torch.nn.Module:
                 w = torch.empty(t.shape)
                 torch.nn.init.trunc_normal_(w, 0.0, std, -2 * std, 2 * std,
                                             generator=gen)
+                t.copy_(w.to(t.dtype))
+            elif leaf.startswith("matrice"):
+                # PAConv's bank [Cin, m * Cout]: the reference draws
+                # [m, Cin, Cout] of variance 2 / Cin and transposes it;
+                # its entries are independent, so one draw in place is
+                # the same distribution
+                w = torch.randn(t.shape, generator=gen) * (2.0 / t.shape[0]) ** 0.5
                 t.copy_(w.to(t.dtype))
             elif leaf == "kernel":
                 k, cin, _ = t.shape
@@ -250,20 +258,24 @@ class BaseTask:
         gen.manual_seed(int(step))
         return self.device_aug(batch, gen)
 
+    def model_input(self, batch: dict):
+        """What the model takes from a batch: a ``PointField`` of the
+        batch's rows (a dense task overrides it)."""
+        return PointField(coords=batch["coordinates"],
+                          feats=batch["features"], mask=batch["mask"])
+
     def train_step(self, state: TrainState, batch: dict):
         """One update of ``state`` (in place, and returned) on a batch of
         tensors on the model's device: (state, {"loss", and the task's
         step metrics})."""
         model = state.model.train()
         batch = self.augment(batch, state.step)
-        field = PointField(coords=batch["coordinates"],
-                           feats=batch["features"], mask=batch["mask"])
         kw = {}
         if getattr(model, "uses_dropout", False):
-            gen = torch.Generator(device=field.coords.device)
+            gen = torch.Generator(device=batch["coordinates"].device)
             gen.manual_seed(DROPOUT_SEED + int(state.step))
             kw["generator"] = gen
-        logits = model(field, **kw)
+        logits = model(self.model_input(batch), **kw)
         loss, mets = self.loss_and_metrics(logits, batch)
         state.optimizer.zero_grad(set_to_none=True)
         loss.backward()
@@ -279,13 +291,12 @@ class BaseTask:
         eval mode on a batch of tensors on its device."""
         model = state.model.eval()
         with torch.no_grad():
-            field = PointField(coords=batch["coordinates"],
-                               feats=batch["features"], mask=batch["mask"])
-            logits = model(field)
+            logits = model(self.model_input(batch))
             loss, mets = self.loss_and_metrics(logits, batch)
         return logits, self._step_metrics(loss, mets)
 
 
+@cfg.configurable("SegmentationTraining")
 class SegmentationTraining(BaseTask):
     """Per-point segmentation training: the reference's weighted CE with
     ``class_weight`` and ``void_weight`` (the void class is the last one),
@@ -406,11 +417,15 @@ def classification_loss(logits, labels, sample_mask=None):
     return loss, M.topk_accuracy(logits, labels, ks=(1, 5))
 
 
+@cfg.configurable("ClassificationTraining")
 class ClassificationTraining(BaseTask):
     """Whole-sample classification (the reference's
     ``ClassificationTraining``): ``classification_loss`` per step, and at
     validation the top-1 and top-5 hits over the samples ``sample_mask``
-    keeps: ``val/acc1``, ``val/acc5`` (percent) and ``val/loss``."""
+    keeps: ``val/acc1``, ``val/acc5`` (percent) and ``val/loss``. Both
+    tasks are gin-configurable under the reference's names (a binding
+    fills a constructor argument no caller passes, such as
+    ``ClassificationTraining.checkpoint_path`` for the PAConv CLI)."""
 
     def __init__(self, model, **kwargs):
         super().__init__(model, **kwargs)
