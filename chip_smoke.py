@@ -58,8 +58,10 @@ paths give it. Phases:
    EncodedRes16UNet on the preset's windowed knobs (K1, the pass, K2-K4),
    launch counts reset before each step and read after; every K6 call
    (``k6_calls``) and every K1-K4 call (``cli_kernels_f32``) of the steps
-   held against its plain version and timed beside its bound, and the
-   eval-mode output before the step within 1e-4 x max of the CPU's;
+   held against its plain version and timed beside its bound; then the
+   eval-mode and the train-mode output before the step, each within
+   1e-4 x max of the CPU's (on a miss, the first module that leaves
+   the CPU's is named);
 7. train: ``train_64k`` (8 scenes, 64k rows, device augmentation, bf16)
    for 5 SGD steps through ``train3d``, launch counts reset just before
    and read just after (41 K3 and 1 K4 launches per step); every loss
@@ -232,6 +234,7 @@ script exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import sys
@@ -3184,6 +3187,26 @@ EXTRA_MODELS = {"ResUNetBN2C": ("row", 32), "EncodedRes16UNet": ("windowed",
                                                                 20)}
 
 
+@contextlib.contextmanager
+def cpu_reference():
+    """Compute a CPU reference under ``torch.use_deterministic_algorithms``.
+    At more than one thread PyTorch's CPU ``index_put_`` with
+    ``accumulate=True`` adds float values with parallel atomics, in
+    whatever order they land, so a reference that accumulates (a windowed
+    conv's escape entries, the norms' segment sums) moves from run to run;
+    in this mode it adds them in index order. (On the card the port's
+    accumulating ``index_put`` sorts, and repeats bit for bit.)"""
+    import torch
+
+    was = (torch.are_deterministic_algorithms_enabled(),
+           torch.is_deterministic_algorithms_warn_only_enabled())
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(was[0], warn_only=was[1])
+
+
 def output_rows(out):
     """A model's output rows: a SparseVoxels' features or the tensor."""
     return out.feats if hasattr(out, "feats") else out
@@ -3202,6 +3225,146 @@ def extra_step(model, field, w):
     opt.step()
 
 
+def module_outputs(model, field) -> dict:
+    """One train-mode forward of ``model`` with a hook on every module:
+    each call's output rows and row mask (on the CPU) under
+    ``<module>#<call>``, in the order the calls end, the model's output
+    under ``<output>#1``; and for each train-mode MaskedBatchNorm how its
+    input conditions the one-pass variance it computes (``bn``: the
+    largest E[x^2] / (var + eps) over its channels, the f32 one-pass
+    variance's largest error relative to var + eps, the least var)."""
+    import torch
+
+    from nerf_downstream_tpu_torch.models.mink.layers import MaskedBatchNorm
+    from nerf_downstream_tpu_torch.ops.norm import masked_mean_var
+
+    n = field.mask.shape[0]
+    out, seen, hooks = {}, {}, []
+
+    def hook(name):
+        def fn(mod, inputs, output):
+            seen[name] = seen.get(name, 0) + 1
+            if hasattr(output, "feats"):
+                rows, mask = output.feats, output.mask
+            elif torch.is_tensor(output) and output.ndim == 2:
+                rows = output
+                mask = field.mask if output.shape[0] == n else None
+            else:
+                return
+            entry = {"rows": rows.detach().float().cpu(),
+                     "mask": None if mask is None else mask.cpu()}
+            if isinstance(mod, MaskedBatchNorm) and mod.training:
+                sv = inputs[0]
+                x = sv.feats[sv.mask].double()
+                var = x.var(0, unbiased=False)
+                _, var32 = masked_mean_var(sv.feats, sv.mask)
+                entry["bn"] = {
+                    "condition": float(((x * x).mean(0)
+                                        / (var + mod.eps)).max()),
+                    "one_pass_var_err": float(((var32.double() - var).abs()
+                                               / (var + mod.eps)).max()),
+                    "min_var": float(var.min())}
+            out[f"{name}#{seen[name]}"] = entry
+        return fn
+
+    for name, mod in model.named_modules():
+        if name:
+            hooks.append(mod.register_forward_hook(hook(name)))
+    model.train()
+    try:
+        with torch.no_grad():
+            final = output_rows(model(field))
+    finally:
+        for h in hooks:
+            h.remove()
+    out["<output>#1"] = {"rows": final.detach().float().cpu(),
+                         "mask": field.mask.cpu()}
+    return out
+
+
+def rows_gap(got, want, mask=None) -> float:
+    """max |got - want| over the valid rows, of the largest |want| there."""
+    if mask is not None:
+        got, want = got[mask], want[mask]
+    if not want.numel():
+        return 0.0
+    scale = float(want.abs().max())
+    d = float((got - want).abs().max())
+    return d / scale if scale > 0 else d
+
+
+def train_divergence(build, failing, device: str = "cuda") -> dict:
+    """Where a train-mode forward on the card leaves the CPU's: fresh
+    models from ``build(device)`` (model, field) on both sides, every
+    module's output compared (``module_outputs``); the first module whose
+    valid rows are more than 1e-5 and more than EXTRA_TOL of their
+    largest apart, the largest gap, whether the fresh card forward gives
+    the card's train-mode output of the gate (``failing``) again bit for
+    bit and its gap to the fresh CPU reference (``cpu_reference``), and
+    the worst conditioned train-mode BatchNorms."""
+    import torch
+
+    recs = {}
+    for dev in ("cpu", device):
+        model, field = build(dev)
+        with (cpu_reference() if dev == "cpu"
+              else contextlib.nullcontext()):
+            recs["cpu" if dev == "cpu" else "card"] = module_outputs(model,
+                                                                     field)
+        del model
+    cpu, card = recs["cpu"], recs["card"]
+    first = {}
+    worst = (0.0, "")
+    for key, want in cpu.items():
+        got = card.get(key)
+        if got is None or got["rows"].shape != want["rows"].shape:
+            continue
+        g = rows_gap(got["rows"], want["rows"], want["mask"])
+        if g > worst[0]:
+            worst = (g, key)
+        for lim in (1e-5, EXTRA_TOL):
+            if g > lim and lim not in first:
+                first[lim] = {"module": key, "gap_of_max": g}
+    m = card["<output>#1"]["mask"]
+    bns = sorted(((e["bn"]["condition"], k, e["bn"]) for k, e in cpu.items()
+                  if "bn" in e), key=lambda t: t[0], reverse=True)[:3]
+    return {"first_module_over_1e-5": first.get(1e-5),
+            "first_module_over_tolerance": first.get(EXTRA_TOL),
+            "largest_module_gap": {"module": worst[1] or None,
+                                   "gap_of_max": worst[0]},
+            "fresh_card_output_equals_failing": bool(torch.equal(
+                card["<output>#1"]["rows"][m], failing[m])),
+            "fresh_card_output_gap": rows_gap(card["<output>#1"]["rows"],
+                                              cpu["<output>#1"]["rows"], m),
+            "worst_conditioned_batch_norms": [dict(module=k, **b)
+                                              for _, k, b in bns]}
+
+
+def extra_model(name: str, seed: int, device: str, batch: dict, tree=None):
+    """Phase models_extra's model ``name`` on ``device`` with the flax
+    variables ``tree`` (drawn from ``seed`` when None), and the batch
+    there as a PointField: (model, field, tree)."""
+    from nerf_downstream_tpu_torch import convert, serve
+    from nerf_downstream_tpu_torch.models import get_model
+    from nerf_downstream_tpu_torch.sparse.types import PointField
+
+    route, out_ch = EXTRA_MODELS[name]
+    preset = serve.PRESETS["serving_8k"]
+    kw = dict(num_batches=preset["scenes"],
+              assume_unique=preset["assume_unique"])
+    if route == "windowed":
+        kw["ctx"] = preset["ctx"]
+    model = get_model(name, in_channel=serve.IN_CHANNELS, out_channel=out_ch,
+                      **kw)
+    tree = tree or convert.init_flax_variables(model, seed)
+    convert.load_flax_variables(model, tree)
+    model.to(device)
+    t = serve.to_device(batch, device)
+    field = PointField(coords=t["coordinates"], feats=t["features"],
+                       mask=t["mask"])
+    return model, field, tree
+
+
 def phase_models_extra(card: str, device: str = "cuda") -> tuple[dict, dict]:
     """The rest of the 3D registry, one f32 training step each on the
     ``serving_8k`` batch that row_route uses, at full width with seeded
@@ -3212,64 +3375,54 @@ def phase_models_extra(card: str, device: str = "cuda") -> tuple[dict, dict]:
     are reset before each step and read after; every K6 call of the
     ResUNet's step is held to its plain version (``k6_calls``), every K1-K4
     call of the Encoded model's step to its plain version
-    (``cli_kernels_f32``), each timed beside its bound; the eval-mode
-    output on the card, before the step, within EXTRA_TOL x max of the
-    CPU's on the same weights and batch; and whether two train-mode
-    forwards on the card are bit-identical (reported). (In one of four
-    runs, EncodedRes16UNet's train-mode outputs card against CPU were
-    3.6e-4 of the largest apart, 8.5e-6 in the other three, on the same
-    inputs and code; the cause is not isolated, so the gate compares
-    eval mode.)"""
+    (``cli_kernels_f32``), each timed beside its bound. Then the gates:
+    the card's eval-mode output and its train-mode output (batch
+    statistics), each from the weights before the step, within EXTRA_TOL
+    x max of the CPU's on the same weights and batch (``cpu_reference``);
+    and whether two
+    train-mode forwards on the card are bit-identical (reported). Where
+    an output gate fails, ``train_divergence`` names the first module at
+    which the card leaves the CPU."""
     import copy
 
     import numpy as np
     import torch
 
-    from nerf_downstream_tpu_torch import convert, serve
-    from nerf_downstream_tpu_torch.models import get_model
+    from nerf_downstream_tpu_torch import serve
     from nerf_downstream_tpu_torch.models.mink.layers import (
         SparseConv,
         SparseConvTranspose,
     )
     from nerf_downstream_tpu_torch.ops import kernels
-    from nerf_downstream_tpu_torch.sparse.types import PointField
 
-    preset = serve.PRESETS["serving_8k"]
     batch = serve.make_batch("serving_8k", np.random.default_rng(2))
     line = {"phase": "models_extra", "card": card, "preset": "serving_8k",
-            "dtype": "float32", "rows": int(batch["mask"].sum())}
+            "dtype": "float32", "rows": int(batch["mask"].sum()),
+            "cpu_threads": torch.get_num_threads(),
+            "tolerance_of_max": EXTRA_TOL}
     total = {}
     for seed, (name, (route, out_ch)) in enumerate(EXTRA_MODELS.items()):
-        kw = dict(num_batches=preset["scenes"],
-                  assume_unique=preset["assume_unique"])
-        if route == "windowed":
-            kw["ctx"] = preset["ctx"]
         tree = None
         outs = {}
-        for ref, dev in ((True, "cpu"), (False, device)):
-            model = get_model(name, in_channel=serve.IN_CHANNELS,
-                              out_channel=out_ch, **kw)
-            tree = tree or convert.init_flax_variables(model, seed)
-            convert.load_flax_variables(model, tree)
-            model.to(dev)
-            t = serve.to_device(batch, dev)
-            field = PointField(coords=t["coordinates"], feats=t["features"],
-                               mask=t["mask"])
+        for dev in ("cpu", device):
+            model, field, tree = extra_model(name, seed, dev, batch, tree)
+            side = "cpu" if dev == "cpu" else "card"
+            with (cpu_reference() if dev == "cpu"
+                  else contextlib.nullcontext()), torch.no_grad():
+                model.eval()
+                outs[side, "eval"] = output_rows(model(field)).cpu()
+                model.train()
+                outs[side, "train"] = output_rows(model(field)).cpu()
+            if dev == "cpu":
+                continue
+            twin = copy.deepcopy(model)
+            with torch.no_grad():
+                repeat = bool(torch.equal(output_rows(twin(field)).cpu(),
+                                          outs["card", "train"]))
+            del twin
             w = torch.as_tensor(np.random.default_rng(9).normal(
                 size=(field.mask.shape[0], out_ch)).astype(np.float32),
                 device=dev) / float(field.mask.sum())
-            model.eval()
-            with torch.no_grad():
-                out = model(field)
-            outs["cpu" if ref else "card"] = output_rows(out).cpu()
-            if ref:
-                continue
-            twin = copy.deepcopy(model).train()
-            model.train()
-            with torch.no_grad():
-                repeat = bool(torch.equal(output_rows(model(field)),
-                                          output_rows(twin(field))))
-            del twin
             torch.cuda.synchronize()
             kernels.reset_launch_counts()
             with ClsStepRecorder() as rec:
@@ -3279,19 +3432,21 @@ def phase_models_extra(card: str, device: str = "cuda") -> tuple[dict, dict]:
             for k, v in counts.items():
                 total[k] = total.get(k, 0) + v
             step_ms = device_ms(lambda: extra_step(model, field, w), reps=2)
-        m = batch["mask"]
-        scale = float(outs["cpu"][m].abs().max())
-        err = float((outs["card"][m] - outs["cpu"][m]).abs().max())
+        m = torch.as_tensor(batch["mask"])
+        gaps = {mode: rows_gap(outs["card", mode], outs["cpu", mode], m)
+                for mode in ("eval", "train")}
         convs = [c for c in model.modules()
                  if isinstance(c, (SparseConv, SparseConvTranspose))]
         entry = {"route": route, "routes": sorted({c.route for c in convs
                                                    if c.route}),
-                 "max_abs_err": err, "max_abs_output": scale,
-                 "tolerance": EXTRA_TOL * scale, "launches": counts,
+                 "gap_of_max": gaps,
+                 "max_abs_output": {mode: float(outs["cpu", mode][m].abs()
+                                                .max())
+                                    for mode in ("eval", "train")},
+                 "launches": counts,
                  "train_forward_repeat_bit_identical": repeat,
                  "step_device_ms": step_ms}
-        if not (np.isfinite(err) and err <= EXTRA_TOL * scale
-                and entry["routes"] == [route]):
+        if entry["routes"] != [route]:
             raise PhaseError(f"models_extra: {name}: {entry}")
         if route == "row":
             if counts["row_gather_matmul"] <= 0 or any(
@@ -3307,6 +3462,13 @@ def phase_models_extra(card: str, device: str = "cuda") -> tuple[dict, dict]:
             if rec.k6:
                 entry["row_gather_matmul"] = k6_calls("models_extra",
                                                       rec.k6)
+        del rec, model
+        if not all(np.isfinite(g) and g <= EXTRA_TOL for g in gaps.values()):
+            entry["divergence"] = train_divergence(
+                lambda dev, n=name, s=seed, t=tree:
+                    extra_model(n, s, dev, batch, t)[:2],
+                outs["card", "train"], device)
+            raise PhaseError(f"models_extra: {name}: {entry}")
         line[name] = entry
     line["launches"] = total
     return line, total

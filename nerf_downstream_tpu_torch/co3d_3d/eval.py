@@ -120,7 +120,7 @@ def evaluate(
     )
     state = task.create_state()
     params = convert.state_dict_to_flax(
-        model.state_dict(), convert.norm_name(model)).get("params", {})
+        model.state_dict(), convert.flax_layout(model)).get("params", {})
     sparse_mode = gin.query_parameter("get_model.sparse", default=None)
     vmap, bmap = derive_maps(
         params, sparse_mode or [0] * 9, layout,

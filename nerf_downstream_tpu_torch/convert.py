@@ -15,37 +15,41 @@ keep the reference layout ``[K, Cin, Cout]`` with x-fastest offsets, and
 the ResNet head flax's ``kernel [C, out]``, so no tensor is transposed. Trees are read as nested
 dicts of numpy arrays (or anything ``np.asarray`` accepts).
 
-The FCNNs (``models/mink/fcnn.py``, keys starting with ``mlp1.``) map by
-``fcnn_flax_path``: ``mlp1.dense`` is ``mlp1/Dense_0`` and ``mlp1.norm``
+Each model class names its family's path function (``flax_paths``;
+``flax_layout`` reads it, with the norm class and the block type, and
+``FlaxLayout()`` is a Res16UNet's or a ResNet's with BatchNorm). The
+FCNNs (``models/mink/fcnn.py``) map by ``fcnn_flax_path``:
+``mlp1.dense`` is ``mlp1/Dense_0`` and ``mlp1.norm``
 ``mlp1/MaskedBatchNorm_0``; a conv block ``convX.conv`` / ``convX.bn`` is
 ``convX_conv`` / ``convX_bn``; the heads keep their names, their flax
 BatchNorms' ``scale``, ``bias``, ``mean`` and ``var`` their leaves.
 
 The point models (``models/mink/dgcnn.py``, ``pointnet.py``,
-``encoding.py``, ``models/paconv``; keys starting with ``linear1.``,
-``conv9.`` or ``enc_mlp.``) carry the reference's module names, flax's
-automatic ones included (``conv1.Dense_0``, ``conv1.BatchNorm_0``,
+``encoding.py``, ``models/paconv``) carry the reference's module names,
+flax's automatic ones included (``conv1.Dense_0``, ``conv1.BatchNorm_0``,
 ``conv1.MaskedBatchNorm_0``), so their paths map one to one
 (``point_flax_path``): a norm's ``weight``, ``running_mean`` and
 ``running_var`` are flax's ``scale``, ``mean`` and ``var``, a flax
 BatchNorm's ``mean`` and ``var`` go to ``batch_stats``, and PAConv's
 weight banks ``matrice<i>`` keep their [Cin, m * Cout] layout. An
 EncodedRes16UNet's ``trunk.`` keys map as a Res16UNet's under ``trunk``.
-ResUNet2 (keys with ``conv1_tr.``) maps the same way but for its blocks'
-norms, which the reference names by class in creation order
+ResUNet2 maps the same way but for its blocks' norms, which the
+reference names by class in creation order
 (``resunet_flax_path``); its top-level norms carry those names already.
 
-The 2D models (``models/image``: ``_ResNetBased``, whose keys start with
-``model.``, and ``ViT``, with ``patch_embed.``) carry the reference's
-module names, so their paths map one to one (``image_flax_path``): a ViT's
-``blocks.<i>`` is ``block<i>`` and its LayerNorms, attention and MLP take
-flax's automatic names; BatchNorm ``mean`` and ``var`` go to
-``batch_stats``. Their conv kernels are transposed between the port's
-OIHW and flax's HWIO; dense and attention kernels keep flax's layouts
-(``[C, out]``, ``[dim, heads, head_dim]``, ``[heads, head_dim, dim]``).
+The 2D models (``models/image``: ``_ResNetBased`` and ``ViT``) carry the
+reference's module names, so their paths map one to one
+(``image_flax_path``): a ViT's ``blocks.<i>`` is ``block<i>`` and its
+LayerNorms, attention and MLP take flax's automatic names; BatchNorm
+``mean`` and ``var`` go to ``batch_stats``. Their conv kernels are
+transposed between the port's OIHW and flax's HWIO; dense and attention
+kernels keep flax's layouts (``[C, out]``, ``[dim, heads, head_dim]``,
+``[heads, head_dim, dim]``).
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -73,11 +77,6 @@ _IMAGE_NAMES = {"norm1": "LayerNorm_0", "norm2": "LayerNorm_1",
                 "fc1": "Dense_0", "fc2": "Dense_1"}
 
 
-def is_image(keys) -> bool:
-    """Whether these ``state_dict`` keys are a 2D model's."""
-    return any(k.startswith(("model.", "patch_embed.")) for k in keys)
-
-
 def image_flax_path(key: str) -> tuple[str, ...]:
     """(collection, module..., leaf) of a 2D model's ``state_dict`` key."""
     p = key.split(".")
@@ -99,11 +98,6 @@ def norm_name(model: torch.nn.Module) -> str:
         if name is not None:
             return name
     return BN
-
-
-def is_fcnn(keys) -> bool:
-    """Whether these ``state_dict`` keys are an FCNN's."""
-    return any(k.startswith("mlp1.") for k in keys)
 
 
 _FLAX_BN_LEAF = {"scale": "params", "bias": "params", "mean": "batch_stats",
@@ -128,18 +122,6 @@ def fcnn_flax_path(key: str) -> tuple[str, ...]:
     if p[0] in ("head1", "head2", "final"):
         return ("params", p[0], p[1])
     raise KeyError(f"no flax counterpart for {key!r}")
-
-
-def is_point_model(keys) -> bool:
-    """Whether these ``state_dict`` keys are a point model's (DGCNN,
-    PointNet, MinkowskiPointNet, PAConv, EncodedRes16UNet)."""
-    return any(k.startswith(("linear1.", "conv9.", "enc_mlp."))
-               for k in keys)
-
-
-def is_resunet(keys) -> bool:
-    """Whether these ``state_dict`` keys are a ResUNet2's."""
-    return any(k.startswith("conv1_tr.") for k in keys)
 
 
 def direct_flax_path(key: str) -> tuple[str, ...]:
@@ -173,25 +155,40 @@ def resunet_flax_path(key: str, norm: str = BN) -> tuple[str, ...]:
     return direct_flax_path(key)
 
 
-def _paths(keys, norm: str = BN):
-    """``key -> flax path`` for the keys of one model whose norms are of
-    flax class ``norm``."""
-    if is_image(keys):
+class FlaxLayout(NamedTuple):
+    """How a model's ``state_dict`` keys map to the reference's trees: the
+    path function of its family (``paths``, the model class's
+    ``flax_paths``: "image", "fcnn", "resunet", "point", or "sparse" for
+    Res16UNet and ResNet), the flax class of its 3D norms
+    (``norm_name``) and whether its blocks are ``Bottleneck``s (whose
+    shortcut norm is the fourth)."""
+    paths: str = "sparse"
+    norm: str = BN
+    bottleneck: bool = False
+
+
+def flax_layout(model: torch.nn.Module) -> FlaxLayout:
+    """``model``'s ``FlaxLayout``, from what its classes declare."""
+    from nerf_downstream_tpu_torch.models.mink.blocks import Bottleneck
+
+    return FlaxLayout(getattr(model, "flax_paths", "sparse"), norm_name(model),
+                      any(isinstance(m, Bottleneck) for m in model.modules()))
+
+
+def _paths(layout: FlaxLayout):
+    """``key -> flax path`` for the keys of a model of ``layout``."""
+    if layout.paths == "image":
         return image_flax_path
-    if is_fcnn(keys):
+    if layout.paths == "fcnn":
         return fcnn_flax_path
-    if is_resunet(keys):
-        return lambda key: resunet_flax_path(key, norm)
-    bottleneck = is_bottleneck(keys)
-    if is_point_model(keys):
-        return lambda key: point_flax_path(key, bottleneck, norm)
-    return lambda key: flax_path(key, bottleneck, norm)
-
-
-def is_bottleneck(keys) -> bool:
-    """Whether the model of these ``state_dict`` keys is built from
-    ``Bottleneck`` blocks (whose shortcut norm is the fourth)."""
-    return any(".norm3." in k for k in keys)
+    if layout.paths == "resunet":
+        return lambda key: resunet_flax_path(key, layout.norm)
+    if layout.paths == "point":
+        return lambda key: point_flax_path(key, layout.bottleneck,
+                                           layout.norm)
+    if layout.paths != "sparse":
+        raise ValueError(f"unknown flax layout {layout.paths!r}")
+    return lambda key: flax_path(key, layout.bottleneck, layout.norm)
 
 
 def flax_path(key: str, bottleneck: bool = False,
@@ -247,8 +244,9 @@ def flax_to_state_dict(model: torch.nn.Module,
     else:
         keys = list(model.state_dict())
     refs = model.state_dict()
-    path_of = _paths(refs, norm_name(model))
-    image = is_image(refs)
+    layout = flax_layout(model)
+    path_of = _paths(layout)
+    image = layout.paths == "image"
     out = {}
     for key in keys:
         ref = refs[key]
@@ -272,15 +270,17 @@ def load_flax_variables(model: torch.nn.Module, variables: dict):
     return model
 
 
-def state_dict_to_flax(state: dict, norm: str = BN) -> dict:
+def state_dict_to_flax(state: dict,
+                       layout: FlaxLayout = FlaxLayout()) -> dict:
     """The reference's ``{"params", "batch_stats"}`` trees (nested dicts of
     float32 numpy arrays, int32 for PowerNorm's ``iters``) of a port
     ``state_dict`` (or of any mapping from its keys to tensors, such as
-    parameter gradients). ``norm`` is the flax class name of the model's
-    norms (``norm_name(model)``; a 3D model's other norms need it)."""
+    parameter gradients) of a model of ``layout`` (``flax_layout(model)``;
+    the default is a Res16UNet's or a ResNet's with BatchNorm and
+    ``BasicBlock``s)."""
     tree: dict = {}
-    path_of = _paths(state, norm)
-    image = is_image(state)
+    path_of = _paths(layout)
+    image = layout.paths == "image"
     for key, value in state.items():
         path = path_of(key)
         node = tree
@@ -306,7 +306,7 @@ def init_flax_variables(model: torch.nn.Module, seed: int) -> dict:
     rng = np.random.default_rng(seed)
     tree: dict = {}
     state = model.state_dict()
-    path_of = _paths(state, norm_name(model))
+    path_of = _paths(flax_layout(model))
     for key, ref in state.items():
         path = path_of(key)
         shape = tuple(ref.shape)

@@ -40,6 +40,7 @@ class _ResNetBased(nn.Module):
     In train mode the dropout mask comes from the ``generator`` passed to
     ``forward``."""
 
+    flax_paths = "image"  # convert.flax_layout
     pretrained_submodule = "model"
 
     def __init__(self, model: str = "resnet18", dropout_rate: float = 0.2,

@@ -96,8 +96,11 @@ class Dense(nn.Module):
 
 class BatchNorm(nn.Module):
     """flax's BatchNorm over the channels (axis 1) of an NCHW or [N, C]
-    input: statistics over every other axis. ``zero_scale``
-    starts the scale at 0 (the last norm of a residual branch)."""
+    input: statistics over every other axis, by cuDNN's fused kernels
+    (a two-pass variance, where flax computes ``E[x^2] - E[x]^2``;
+    ``models/mink/dgcnn.py::BatchNorm`` computes flax's, for the point
+    models, whose steps need it). ``zero_scale`` starts the scale at 0
+    (the last norm of a residual branch)."""
 
     def __init__(self, c: int, zero_scale: bool = False, dtype=torch.float32,
                  momentum: float = 0.9, eps: float = 1e-5):

@@ -268,7 +268,8 @@ def apply_pretrained(model, arch: str, submodule: str | None):
             else:
                 dst[k] = np.asarray(v, np.float32)
 
-    tree = convert.state_dict_to_flax(model.state_dict())
+    tree = convert.state_dict_to_flax(model.state_dict(),
+                                      convert.flax_layout(model))
     for coll, src in zip(("params", "batch_stats"), loaded):
         if not src:
             continue

@@ -90,6 +90,8 @@ class EncoderBlock(nn.Module):
 
 
 class ViT(nn.Module):
+    flax_paths = "image"  # convert.flax_layout
+
     # backbone params sit at the module root; only the head is fresh
     pretrained_submodule = None
 

@@ -43,7 +43,13 @@ class BatchNorm(image_layers.BatchNorm):
     ``max(E[x^2] - E[x]^2, 0)``, then ``(x - mean) * (rsqrt(var + eps) *
     scale) + bias``), so that a training step's gradients round as the
     reference's do: these models stack many train-mode norms over small
-    batches, which amplify the difference of a two-pass variance."""
+    batches, which amplify the difference of a two-pass variance
+    (PAConvDGCNN's step gradients sat 10x the reference's own one-ulp
+    spread away with one). The 2D models and the FCNN heads keep the
+    parent's cuDNN BatchNorm (two-pass statistics, within their parity
+    tests' 1e-5): these statistics, written out as here, made a ResNet50
+    2D step on the H100 2.7x longer on the device (16.6 to 44.8 ms,
+    ``chip_smoke.py``'s ``cli_2d``)."""
 
     def forward(self, x):
         shape = x.shape
@@ -112,6 +118,7 @@ class EdgeConv(nn.Module):
 class DGCNN_cls(nn.Module):
     """Logits [B, output_channels] of dense clouds [B, N, in_channel]."""
 
+    flax_paths = "point"  # convert.flax_layout
     uses_dropout = True
 
     def __init__(self, in_channel: int = 3, output_channels: int = 40,
@@ -152,6 +159,7 @@ class DGCNN_cls(nn.Module):
 class DGCNN_semseg(nn.Module):
     """Per-point logits [B, N, output_channels]."""
 
+    flax_paths = "point"  # convert.flax_layout
     uses_dropout = True
 
     def __init__(self, in_channel: int = 3, output_channels: int = 13,

@@ -106,6 +106,8 @@ class EncodedRes16UNet(nn.Module):
     trunk (``Res16UNet``: planes, layers, dilations, block, norm_type,
     bn_momentum, num_batches, compute_dtype, ctx, assume_unique)."""
 
+    flax_paths = "point"  # convert.flax_layout
+
     def __init__(self, in_channel: int, out_channel: int,
                  enc_planes: Sequence[int] = (32, 32),
                  dec_planes: Sequence[int] = (64, 64),

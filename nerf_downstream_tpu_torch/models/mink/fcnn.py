@@ -128,6 +128,7 @@ class MinkowskiFCNN(nn.Module):
     """Logits [num_batches, out_channel] (f32) of a batch of point
     clouds; ``use_splat`` selects the splat variant."""
 
+    flax_paths = "fcnn"  # convert.flax_layout
     uses_dropout = True
 
     def __init__(

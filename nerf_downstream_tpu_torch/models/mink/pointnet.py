@@ -49,6 +49,7 @@ class PointBlock(nn.Module):
 
 
 class _Head(nn.Module):
+    flax_paths = "point"  # convert.flax_layout
     uses_dropout = True
 
     def _head(self, x, generator):

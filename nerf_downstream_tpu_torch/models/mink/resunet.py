@@ -52,6 +52,8 @@ class ResUNet2(nn.Module):
     masked). ``assume_unique`` is the quantization's one-point-per-voxel
     declaration (None: the ``field_to_sparse.assume_unique`` binding)."""
 
+    flax_paths = "resunet"  # convert.flax_layout
+
     def __init__(
         self,
         in_channel: int,

@@ -101,6 +101,7 @@ class ScoreNet(nn.Module):
 
 
 class _PAConvBase(nn.Module):
+    flax_paths = "point"  # convert.flax_layout
     uses_dropout = True
 
     def _bank(self, tag: str, m: int, cin: int, cout: int):

@@ -303,7 +303,7 @@ def sgd_state_to_optax(model, optimizer, step: int,
             buf = optimizer.state.get(p, {}).get("momentum_buffer")
             bufs[name] = torch.zeros_like(p) if buf is None else buf
         inner["0"] = {"trace": convert.state_dict_to_flax(
-            bufs, convert.norm_name(model))["params"]}
+            bufs, convert.flax_layout(model))["params"]}
     if scheduled:
         inner["1"] = {"count": np.asarray(step, np.int32)}
     return _optax_chain(wd, inner)
@@ -333,7 +333,7 @@ def save_training_state(path: str, state, meta: dict | None = None) -> None:
     layout: params and batch_stats, the optax optimizer state and
     ``global_step``."""
     tree = convert.state_dict_to_flax(state.model.state_dict(),
-                                      convert.norm_name(state.model))
+                                      convert.flax_layout(state.model))
     save_checkpoint(
         path, tree.get("params", {}), tree.get("batch_stats", {}),
         opt_state=sgd_state_to_optax(state.model, state.optimizer,

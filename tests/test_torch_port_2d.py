@@ -61,6 +61,8 @@ from nerf_downstream_tpu_torch.models.image import vit as tvit  # noqa: E402
 from nerf_downstream_tpu_torch.models.image.vit import ViT  # noqa: E402
 from nerf_downstream_tpu_torch.train import modules2d as tm2d  # noqa: E402
 
+IMAGE = convert.FlaxLayout("image")  # the 2D models' trees
+
 SIZE = 64
 # small ResNets: one block per stage, registered in both packages
 BLOCKS = {
@@ -326,7 +328,7 @@ def reference_spread(fn, x, seed=5):
 def test_resnet_blocks_match_reference(block, train):
     model = randomise(timage._ResNetBased(f"test_{block}", dropout_rate=0.0),
                       1)
-    tree = convert.state_dict_to_flax(model.state_dict())
+    tree = convert.state_dict_to_flax(model.state_dict(), IMAGE)
     jmodel = jimage._ResNetBased(model=f"test_{block}", dropout_rate=0.0)
     x = images()
     model.train(train)
@@ -340,7 +342,7 @@ def test_resnet_blocks_match_reference(block, train):
     ref_logits, mut = ref(x)
     tol = max(1e-5, 2 * reference_spread(lambda xx: ref(xx)[0], x))
     close_to_largest(logits, ref_logits, tol, "train logits")
-    stats = dict(flat(convert.state_dict_to_flax(model.state_dict())[
+    stats = dict(flat(convert.state_dict_to_flax(model.state_dict(), IMAGE)[
         "batch_stats"]))
     for k, v in flat(mut["batch_stats"]):
         close_to_largest(stats[k], v, 1e-5, k)
@@ -350,7 +352,7 @@ def test_resnet_blocks_match_reference(block, train):
 def test_vit_matches_reference(kind):
     kw = dict(VIT_SMALL, **VITS[kind])
     model = randomise(ViT(num_classes=51, image_size=SIZE, **kw), 2)
-    tree = convert.state_dict_to_flax(model.state_dict())
+    tree = convert.state_dict_to_flax(model.state_dict(), IMAGE)
     x = images(4)
     ref = ref_apply(jvit.ViT(num_classes=51, **kw), tree, x)(x)
     close_to_largest(model(nchw(x)).detach().numpy(), ref, 1e-5, "logits")
@@ -397,7 +399,7 @@ def test_fresh_init_follows_the_reference_distributions(name):
     the sampling spread of a leaf of its size (at least 5 %)."""
     tcfg.parse_config(f"ViTBased.image_size = {SIZE}\n")
     model = init_weights(timage.select_model(name), 7)
-    got = dict(flat(convert.state_dict_to_flax(model.state_dict())))
+    got = dict(flat(convert.state_dict_to_flax(model.state_dict(), IMAGE)))
     jmodel = jimage.select_model(name)
     x = jnp.zeros((1, SIZE, SIZE, 3))
     ref = dict(flat(jax.jit(lambda k: jmodel.init(k, x)).lower(
@@ -424,7 +426,7 @@ def test_decayed_leaves_match_reference(name):
     task = tm2d.LitModel(model_name=name)
     jtask = jm2d.LitModel(model_name=name)
     randomise(task.model, 3)
-    tree = convert.state_dict_to_flax(task.model.state_dict())
+    tree = convert.state_dict_to_flax(task.model.state_dict(), IMAGE)
     seen = []
     jnorm = jnp.linalg.norm
 
@@ -508,7 +510,7 @@ def test_litmodel_steps_match_reference(name, steps):
                for i in range(steps)]
     task = tm2d.LitModel(model_name=name, num_training_steps=20)
     randomise(task.model, 4)
-    tree = convert.state_dict_to_flax(task.model.state_dict())
+    tree = convert.state_dict_to_flax(task.model.state_dict(), IMAGE)
     task.model.double()
     state = task.create_state()
     with jax.enable_x64(True):
@@ -538,9 +540,9 @@ def test_litmodel_steps_match_reference(name, steps):
             bufs = {n: state.optimizer.state[p]["momentum_buffer"]
                     for n, p in task.model.named_parameters()}
             got = dict(flat(convert.state_dict_to_flax(
-                task.model.state_dict())))
+                task.model.state_dict(), IMAGE)))
             got.update(("trace/" + k, v) for k, v in flat(
-                convert.state_dict_to_flax(bufs)["params"]))
+                convert.state_dict_to_flax(bufs, IMAGE)["params"]))
             assert set(got) == set(ref)
             largest = max(float(np.abs(v).max()) for k, v in ref.items()
                           if k.startswith("trace/"))
@@ -568,14 +570,15 @@ def test_training_state_checkpoints_cross_packages(name, tmp_path):
         "labels": torch.tensor([3, 7])})
     bufs = {n: state.optimizer.state[p]["momentum_buffer"]
             for n, p in task.model.named_parameters()}
-    want = dict(flat(convert.state_dict_to_flax(task.model.state_dict())))
+    want = dict(flat(convert.state_dict_to_flax(task.model.state_dict(),
+                                                IMAGE)))
     want.update(("trace/" + k, v) for k, v in flat(
-        convert.state_dict_to_flax(bufs)["params"]))
+        convert.state_dict_to_flax(bufs, IMAGE)["params"]))
 
     # port -> reference
     tck.save_training_state(str(tmp_path / "port.ckpt"), state)
     blank = jax_state(jtask, convert.state_dict_to_flax(
-        init_weights(timage.select_model(name), 0).state_dict()))
+        init_weights(timage.select_model(name), 0).state_dict(), IMAGE))
     raw = jck.load_checkpoint(str(tmp_path / "port.ckpt"))
     js = jck.restore_into(blank, raw, weights=True, optimizer=True)
     got = dict(flat({"params": jax.device_get(js.params),
@@ -594,9 +597,10 @@ def test_training_state_checkpoints_cross_packages(name, tmp_path):
     tck.restore_into(st, raw, weights=True, optimizer=True)
     bufs = {n: st.optimizer.state[p]["momentum_buffer"]
             for n, p in fresh.model.named_parameters()}
-    got = dict(flat(convert.state_dict_to_flax(fresh.model.state_dict())))
+    got = dict(flat(convert.state_dict_to_flax(fresh.model.state_dict(),
+                                               IMAGE)))
     got.update(("trace/" + k, v) for k, v in flat(
-        convert.state_dict_to_flax(bufs)["params"]))
+        convert.state_dict_to_flax(bufs, IMAGE)["params"]))
     assert raw["global_step"] == 1
     for k in want:
         np.testing.assert_array_equal(got[k], want[k], err_msg=k)
@@ -733,7 +737,7 @@ def test_pretrained_converter_matches_reference(arch, tmp_path, monkeypatch):
     head = {k: v.clone() for k, v in model.state_dict().items()
             if k.startswith(("fc.", "head."))}
     ttw.apply_pretrained(model, arch, model.pretrained_submodule)
-    tree = convert.state_dict_to_flax(model.state_dict())
+    tree = convert.state_dict_to_flax(model.state_dict(), IMAGE)
     sub = "model" if arch == "test_grouped" else None
     for coll, src in zip(("params", "batch_stats"), ref):
         dst = tree[coll][sub] if sub else tree.get(coll, {})

@@ -502,7 +502,8 @@ def test_resnet_weights_and_checkpoints_cross_packages(tmp_path):
                       planes=(8, 8, 8, 8), init_dim=8)
     tree = convert.init_flax_variables(model, 7)
     convert.load_flax_variables(model, tree)
-    back = convert.state_dict_to_flax(model.state_dict())
+    back = convert.state_dict_to_flax(model.state_dict(),
+                                      convert.flax_layout(model))
     assert dict(flat(back)).keys() == dict(flat(tree)).keys()
     for k, v in flat(tree):
         np.testing.assert_array_equal(dict(flat(back))[k], v)

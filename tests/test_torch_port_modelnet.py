@@ -66,6 +66,8 @@ from nerf_downstream_tpu_torch.models import get_model  # noqa: E402
 from nerf_downstream_tpu_torch.train import checkpoints as tck  # noqa: E402
 from nerf_downstream_tpu_torch.train import modules as tmod  # noqa: E402
 
+FCNN = convert.FlaxLayout("fcnn")  # the FCNNs' trees
+
 CFG = "co3d_3d/configs/modelnet40_cls.gin"
 SMALL = dict(channels=(8, 8, 8, 8, 8), embedding_channel=64)
 CLOUDS, POINTS = 4, 512
@@ -295,10 +297,10 @@ def test_fcnn_step_with_reference_dropout_matches(tree, tmp_path):
     back = jck.restore_into(jax.tree_util.tree_map(jnp.zeros_like, bare),
                             jck.load_checkpoint(path), weights=True,
                             optimizer=True)
-    want = convert.state_dict_to_flax(model.state_dict())
+    want = convert.state_dict_to_flax(model.state_dict(), FCNN)
     trace = convert.state_dict_to_flax(
         {n: state.optimizer.state[p]["momentum_buffer"]
-         for n, p in model.named_parameters()})["params"]
+         for n, p in model.named_parameters()}, FCNN)["params"]
     for a, b in zip(jax.tree_util.tree_leaves((want["params"],
                                                want["batch_stats"], trace)),
                     jax.tree_util.tree_leaves((back.params,
@@ -314,10 +316,10 @@ def test_fcnn_step_with_reference_dropout_matches(tree, tmp_path):
                                          lr=0.1).create_state()
     tck.restore_into(ostate, tck.load_checkpoint(jpath), weights=True,
                      optimizer=True)
-    got = convert.state_dict_to_flax(other.state_dict())
+    got = convert.state_dict_to_flax(other.state_dict(), FCNN)
     bufs = convert.state_dict_to_flax(
         {n: ostate.optimizer.state[p]["momentum_buffer"]
-         for n, p in other.named_parameters()})["params"]
+         for n, p in other.named_parameters()}, FCNN)["params"]
     for a, b in zip(jax.tree_util.tree_leaves((got["params"],
                                                got["batch_stats"], bufs)),
                     jax.tree_util.tree_leaves((rs.params, rs.batch_stats,
@@ -417,10 +419,10 @@ def test_training_and_eval_clis_match_reference(tree, tmp_path):
         out = restore(state, raw, **kw)
         if kw.get("optimizer"):
             restored["params"] = convert.state_dict_to_flax(
-                state.model.state_dict())["params"]
+                state.model.state_dict(), FCNN)["params"]
             restored["trace"] = convert.state_dict_to_flax(
                 {n: state.optimizer.state[p]["momentum_buffer"]
-                 for n, p in state.model.named_parameters()})["params"]
+                 for n, p in state.model.named_parameters()}, FCNN)["params"]
         return out
 
     tck.restore_into = recording_restore

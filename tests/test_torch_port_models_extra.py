@@ -12,17 +12,20 @@ with numpy.
   a fixed linear loss of the output and the updated BatchNorm statistics
   within 1e-5 of each leaf's largest entry; every conv on the row path.
 - EncodedRes16UNet and EncodedRes16UNet2 (planes 8, one block per
-  stage): the same on the row route and on the windowed route (the
-  reference's XLA fallback, ``NDT_WINDOW_PALLAS=0``); and the trunk's
+  stage): the same on the row route and (slow) on the windowed route
+  (the reference's XLA fallback, ``NDT_WINDOW_PALLAS=0``), in tier 1
+  each model's windowed route against its row route in the port; and
+  the trunk's
   gradient into ``enc_mlp`` per route, the reference's defect copied on
   purpose: exactly zero on the windowed route (``conv0a``'s
   ``input_grad=False``), nonzero on the row route.
 - Res16UNet50 (planes 8, Bottleneck blocks, row path): eval logits and
   (slow) a train-mode step; Res16UNet101: eval logits.
 
-The tests marked ``slow`` (the reference's windowed graph compiles for
-about a minute on one core; Res16UNet50's step, three of the four ResUNet2
-cases) run outside the tier-1 command:
+The tests marked ``slow`` (the reference's windowed training step, whose
+graph compiles for about a minute on one core with a cold cache;
+Res16UNet50's step, two of the four ResUNet2 cases) run outside the
+tier-1 command:
 ``pytest -m slow tests/test_torch_port_models_extra.py``.
 - Training states of ResUNet2 and EncodedRes16UNet both ways bit for
   bit: the port's through the reference's ``restore_into``, the
@@ -123,7 +126,7 @@ def test_every_reference_name_builds(name):
     with torch.device("meta"):
         model = get_model(name, in_channel=3, out_channel=20)
     keys = list(model.state_dict())
-    path_of = convert._paths(keys, convert.norm_name(model))
+    path_of = convert._paths(convert.flax_layout(model))
     paths = [path_of(k) for k in keys]
     assert len(set(paths)) == len(paths) > 0
     assert {p[0] for p in paths} <= {"params", "batch_stats"}
@@ -280,8 +283,8 @@ def routes(model):
 
 @pytest.mark.parametrize("name,normalize", [
     ("ResUNetIN2", True),
+    ("ResUNetBN2C", False),
     pytest.param("ResUNetIN2", False, marks=pytest.mark.slow),
-    pytest.param("ResUNetBN2C", False, marks=pytest.mark.slow),
     pytest.param("ResUNetBN2C", True, marks=pytest.mark.slow),
 ])
 def test_resunet_matches_reference(name, normalize):
@@ -341,11 +344,12 @@ def port_step(model, variables, batch, seed=3):
 @pytest.mark.parametrize("name", ["EncodedRes16UNet", "EncodedRes16UNet2"])
 def test_encoded_res16unet_matches_reference(name):
     """The row route against the reference's; the trunk's gradient into
-    ``enc_mlp`` nonzero there. For EncodedRes16UNet, the windowed route
-    against the row route in the port, from the same weights: the same
-    logits and the same gradients but ``enc_mlp``'s, which the windowed
-    route takes through the skip alone (the reference's defect, copied:
-    the trunk's gradient into ``enc_mlp`` is exactly zero there).
+    ``enc_mlp`` nonzero there. Then the windowed route against the row
+    route in the port, from the same weights: the same logits and the
+    same gradients but ``enc_mlp``'s, which the windowed route takes
+    through the skip alone (EncodedRes16UNet2's, whose skip is the raw
+    encoding, not at all): the reference's defect, copied: the trunk's
+    gradient into ``enc_mlp`` is exactly zero there.
     ``test_encoded_windowed_route_matches_reference`` (slow) holds both
     models' windowed routes to the reference's own."""
     jmodel, model, variables = encoded_models(name, {})
@@ -353,8 +357,6 @@ def test_encoded_res16unet_matches_reference(name):
     check_model(jmodel, model, variables, batch)
     assert routes(model) == {"row"}
     assert trunk_grad(model, batch) > 0.0
-    if name == "EncodedRes16UNet2":
-        return  # its windowed route: the slow test below
     row_logits, row_grads = port_step(model, variables, batch)
     # a context takes the gin bindings of each forward: the row model runs
     # no more once the windowed knobs are bound
@@ -431,7 +433,7 @@ def test_training_states_both_ways(name, tmp_path):
     state = TrainState(step=3, model=model, optimizer=opt)
     path = str(tmp_path / "port.ckpt")
     tck.save_training_state(path, state)
-    norm = convert.norm_name(model)
+    layout = convert.flax_layout(model)
     tx = jopt("SGD", 0.1, 1e-4)
     bare = JTrainState.create(
         None, jax.tree_util.tree_map(jnp.asarray, variables["params"]),
@@ -439,10 +441,10 @@ def test_training_states_both_ways(name, tmp_path):
     back = jck.restore_into(jax.tree_util.tree_map(jnp.zeros_like, bare),
                             jck.load_checkpoint(path), weights=True,
                             optimizer=True)
-    want = convert.state_dict_to_flax(model.state_dict(), norm)
+    want = convert.state_dict_to_flax(model.state_dict(), layout)
     trace = convert.state_dict_to_flax(
         {n: opt.state[p]["momentum_buffer"]
-         for n, p in model.named_parameters()}, norm)["params"]
+         for n, p in model.named_parameters()}, layout)["params"]
     for a, b in zip(jax.tree_util.tree_leaves((want["params"],
                                                want["batch_stats"], trace)),
                     jax.tree_util.tree_leaves((back.params, back.batch_stats,
@@ -463,10 +465,10 @@ def test_training_states_both_ways(name, tmp_path):
     raw = tck.load_checkpoint(jpath)
     tck.restore_into(ostate, raw, weights=True, optimizer=True)
     assert raw["global_step"] == 9
-    got = convert.state_dict_to_flax(other.state_dict(), norm)
+    got = convert.state_dict_to_flax(other.state_dict(), layout)
     bufs = convert.state_dict_to_flax(
         {n: oopt.state[p]["momentum_buffer"]
-         for n, p in other.named_parameters()}, norm)["params"]
+         for n, p in other.named_parameters()}, layout)["params"]
     for a, b in zip(jax.tree_util.tree_leaves((got["params"],
                                                got["batch_stats"], bufs)),
                     jax.tree_util.tree_leaves((jstate.params,

@@ -37,7 +37,12 @@ made from a seed with numpy.
   (the max over each cloud's points has values within rounding of each
   other), so trained weights, and the validation after them, agree only
   as far as that spread (measured 7e-5 relative on the val loss at lr
-  1e-4); the steps themselves are held by the step test above.
+  1e-4); the steps themselves are held by the step test above. The
+  optimizers the two CLIs built take two steps on the same gradients,
+  their momentum traces within 1e-6 (momentum and weight decay); and
+  the port's CLI at ``--lr 0.1`` with ``--max_steps`` one past its epoch
+  applies, step by step, the reference's cosine over the CLI's epochs
+  (from each step's update and momentum buffer, within 1e-4).
 """
 
 import contextlib
@@ -438,7 +443,7 @@ def trace_of(model, optimizer):
     return convert.state_dict_to_flax(
         {n: optimizer.state[p]["momentum_buffer"]
          for n, p in model.named_parameters()},
-        convert.norm_name(model))["params"]
+        convert.flax_layout(model))["params"]
 
 
 def check_states_both_ways(tmp_path, jmodel, model, variables, jtx, task,
@@ -455,7 +460,7 @@ def check_states_both_ways(tmp_path, jmodel, model, variables, jtx, task,
                             jck.load_checkpoint(path), weights=True,
                             optimizer=True)
     want = convert.state_dict_to_flax(model.state_dict(),
-                                      convert.norm_name(model))
+                                      convert.flax_layout(model))
     for a, b in zip(jax.tree_util.tree_leaves(
             (want["params"], want["batch_stats"],
              trace_of(model, state.optimizer))),
@@ -477,7 +482,7 @@ def check_states_both_ways(tmp_path, jmodel, model, variables, jtx, task,
     tck.restore_into(ostate, raw, weights=True, optimizer=True)
     assert raw["global_step"] == 7
     got = convert.state_dict_to_flax(model.state_dict(),
-                                     convert.norm_name(model))
+                                     convert.flax_layout(model))
     for a, b in zip(jax.tree_util.tree_leaves(
             (got["params"], got["batch_stats"],
              trace_of(model, ostate.optimizer))),
@@ -512,7 +517,94 @@ def test_paconv_pointnet_binding_takes_effect():
 
 # -- the CLI -------------------------------------------------------------------
 
+def applied_lr(before, after, trace) -> float:
+    """The learning rate a momentum-SGD step applied: the least-squares
+    ``lr`` of ``before - after = lr * trace`` over every leaf."""
+    num = den = 0.0
+    for p0, p1, t in zip(before, after, trace):
+        t = np.asarray(t, np.float64)
+        num += float(((np.asarray(p0, np.float64)
+                       - np.asarray(p1, np.float64)) * t).sum())
+        den += float((t * t).sum())
+    return num / den
+
+
+@contextlib.contextmanager
+def recording(seen, lrs, opts):
+    """Each CLI step's batch, in both packages, the port's applied
+    learning rate (``applied_lr``), and the optimizers of the first step:
+    the reference's ``tx`` and the port's (task, optimizer)."""
+    keys = ("coordinates", "labels")
+    make = jmod.BaseTask.make_train_step
+
+    def recording_make(self, donate=True):
+        fn = make(self, donate)
+
+        def step(state, batch):
+            seen["jax"].append({k: np.asarray(batch[k]) for k in keys})
+            opts.setdefault("jax", state.tx)
+            return fn(state, batch)
+        return step
+
+    step = tmod.BaseTask.train_step
+
+    def recording_step(self, state, batch):
+        seen["port"].append({k: batch[k].cpu().numpy() for k in keys})
+        opts.setdefault("port", (self, state.optimizer))
+        params = list(state.model.parameters())
+        before = [p.detach().clone() for p in params]
+        out = step(self, state, batch)
+        lrs.append(applied_lr(
+            before, [p.detach() for p in params],
+            [state.optimizer.state[p]["momentum_buffer"] for p in params]))
+        return out
+
+    jmod.BaseTask.make_train_step = recording_make
+    tmod.BaseTask.train_step = recording_step
+    try:
+        yield
+    finally:
+        jmod.BaseTask.make_train_step = make
+        tmod.BaseTask.train_step = step
+
+
+def check_same_momentum(opts, model, tree):
+    """Two steps of the two CLIs' optimizers from ``tree``'s weights on the
+    same gradients (0.5 everywhere, then 0.25): the reference's ``tx`` from
+    its ``init``, and a fresh optimizer of the port's class and settings
+    with each step's learning rate from the port's task. The momentum
+    traces after them (0.9 x the first step's gradient and weight decay,
+    plus the second's) agree within 1e-6 of each leaf's largest: the
+    momentum and the weight decay as each CLI wired them."""
+    tx = opts["jax"]
+    task, optimizer = opts["port"]
+    def two_steps(params):
+        state = tx.init(params)
+        for g in (0.5, 0.25):
+            grads = jax.tree_util.tree_map(lambda p: jnp.full(p.shape, g),
+                                           params)
+            updates, state = tx.update(grads, state, params)
+            params = optax.apply_updates(params, updates)
+        return state
+
+    state = jax.jit(two_steps)(jax.tree_util.tree_map(jnp.asarray,
+                                                      tree["params"]))
+    convert.load_flax_variables(model, tree)
+    fresh = type(optimizer)(model.parameters(), **optimizer.defaults)
+    for step, g in enumerate((0.5, 0.25)):
+        for group in fresh.param_groups:
+            group["lr"] = task.current_lr(step)
+        for p in model.parameters():
+            p.grad = torch.full_like(p, g)
+        fresh.step()
+    got = trace_of(model, fresh)
+    for (path, a), b in zip(jax.tree_util.tree_leaves_with_path(got),
+                            jax.tree_util.tree_leaves(state[1][0].trace)):
+        close_to_largest(a, b, 1e-6, jax.tree_util.keystr(path))
+
+
 def test_cli_matches_reference(tmp_path):
+    from nerf_downstream_tpu.train.optim import get_scheduler
     from nerf_downstream_tpu_torch.data.synthetic import write_modelnet40_tree
 
     root = write_modelnet40_tree(str(tmp_path / "mn"),
@@ -531,40 +623,23 @@ def test_cli_matches_reference(tmp_path):
              f'ClassificationTraining.checkpoint_path = "{start}"']
     args = ["--model", "PAConvDGCNN", "--data_root", root,
             "--batch_size", "4", "--val_batch_size", "2", "--epochs", "1",
-            "--lr", "0",
             "--num_points", str(N), "--seed", "3"]
     for b in binds:
         args += ["--ginb", b]
-    keys = ("coordinates", "labels")
     seen = {"jax": [], "port": []}
-    make = jmod.BaseTask.make_train_step
-
-    def recording_make(self, donate=True):
-        fn = make(self, donate)
-
-        def step(state, batch):
-            seen["jax"].append({k: np.asarray(batch[k]) for k in keys})
-            return fn(state, batch)
-        return step
-
-    step = tmod.BaseTask.train_step
-
-    def recording_step(self, state, batch):
-        seen["port"].append({k: batch[k].cpu().numpy() for k in keys})
-        return step(self, state, batch)
-
-    jmod.BaseTask.make_train_step = recording_make
-    tmod.BaseTask.train_step = recording_step
-    try:
-        want = jcli.main(args + ["--save_path", str(tmp_path / "jax")])
-        got = tcli.main(args + ["--save_path", str(tmp_path / "port"),
+    lrs, opts = [], {}
+    with recording(seen, lrs, opts):
+        want = jcli.main(args + ["--lr", "0",
+                                 "--save_path", str(tmp_path / "jax")])
+        # the reference's cosine over its CLI's steps (its CLI binds
+        # train.max_steps to the epochs' steps), at lr 0.1
+        schedule = get_scheduler("CosineAnnealingLR", 0.1)
+        got = tcli.main(args + ["--lr", "0",
+                                "--save_path", str(tmp_path / "port"),
                                 "--device", "cpu"])
-    finally:
-        jmod.BaseTask.make_train_step = make
-        tmod.BaseTask.train_step = step
     assert len(seen["port"]) == len(seen["jax"]) == 2
     for a, b in zip(seen["port"], seen["jax"]):
-        for k in keys:
+        for k in ("coordinates", "labels"):
             np.testing.assert_array_equal(a[k], b[k], err_msg=k)
     for k in ("val/acc1", "val/acc5", "val/loss"):
         assert np.isfinite(got[k]), k
@@ -572,6 +647,21 @@ def test_cli_matches_reference(tmp_path):
     with open(tmp_path / "port" / "paconv" / "metrics.csv") as f:
         logged = [r for r in csv.DictReader(f) if r.get("val/acc1")]
     assert len(logged) == 1  # the best (here the last) checkpoint's pass
+    check_same_momentum(opts, model, tree)
+
+    # the learning rate the port's CLI applies at --lr 0.1: the reference's
+    # cosine over the epochs' 2 steps, also on the third step that
+    # --max_steps adds (lr 0 there: --max_steps ends the run and does not
+    # stretch the cosine)
+    lrs.clear()
+    tcfg.clear_config()
+    with recording({"jax": [], "port": []}, lrs, {}):
+        tcli.main(args + ["--lr", "0.1", "--max_steps", "3",
+                          "--save_path", str(tmp_path / "port_lr"),
+                          "--device", "cpu"])
+    np.testing.assert_allclose(
+        lrs, [float(schedule(s)) for s in range(3)], rtol=1e-4, atol=1e-7)
+    assert lrs[0] > lrs[1] > 0
 
     # a resume restores the weights and momentum buffers bit for bit
     last = str(tmp_path / "port" / "last.ckpt")
@@ -583,14 +673,15 @@ def test_cli_matches_reference(tmp_path):
         out = restore(state, raw, **kw)
         if kw.get("optimizer"):
             restored["params"] = convert.state_dict_to_flax(
-                state.model.state_dict())["params"]
+                state.model.state_dict(),
+                convert.flax_layout(state.model))["params"]
             restored["trace"] = trace_of(state.model, state.optimizer)
         return out
 
     tck.restore_into = recording_restore
     try:
         tcfg.clear_config()
-        tcli.main(args + ["--save_path", str(tmp_path / "port"),
+        tcli.main(args + ["--lr", "0", "--save_path", str(tmp_path / "port"),
                           "--device", "cpu", "--max_steps", "3",
                           "--resume"])
     finally:
