@@ -113,6 +113,33 @@ paths give it. Phases:
    then for one more step its synchronising calls, device time and ops
    (profile), and each K1-K4 call held against its plain version and
    timed, with its bound (f32, CUDA cores);
+9b'. cli_methods: the same CLI from cli_train's best checkpoint on its
+   tree and seed, 3 steps on the default route ("auto", fully windowed)
+   and 3 under each of "window" (plans from row kernel maps: K2/K3 for
+   the stride-preserving convs, K6 for the strided ones and the
+   transposes), "block" (each k3/s1 conv through dense 4^3 blocks, cuDNN
+   without TF32; K6 elsewhere) and "block_resident" (every level in dense
+   blocks; no custom kernel), with ``METHOD_BINDINGS`` (the window size
+   and per-level block caps CLI_TREE needs), launch counts reset before
+   each run
+   and read after: each method's step-1 loss within 1e-4 (relative) of
+   "auto"'s, the start weights' eval logits within 1e-4 x max|logit| of
+   "auto"'s, two runs of a step bit-identical, its route taken; per
+   method wall ms per step, device ms, busy share and device ops of one
+   profiled step, launches; under "window" every K2/K3 call of a step,
+   and under "window" and "block" every K6 call, against its plain
+   version;
+9b''. cli_kitti: the same CLI on ``scannet_plenoxel.gin`` turned to
+   SemanticKITTI (``KITTI_BINDINGS``: the KITTI reader, xyzi in, 19
+   classes, batch 2, "hybrid" without a grid extent) over scans the port
+   writes in the benchmark's layout (HDL-64E size: 64 beams x 2,048
+   azimuths, ground, building fronts and boxes to 80 m, raw labels with
+   moving classes): 3 steps and a validation on sequence 08, launch
+   counts reset before and read after; finite losses, two runs of a step
+   bit-identical, every K1-K4 call of a step against its plain version,
+   one 08 scan's eval logits on the card within 1e-4 x max|logit| of the
+   CPU's on the row path, and its ``save_prediction`` file (uint32 raw
+   ids, one per point);
 9c. cli_cls: the README's classification command (``co3d_cls.gin`` +
    ``co3d_aug3.gin`` + ``feature_sh.gin`` + ``resnet14.gin``: ResNet14
    at full width, 51 classes, batch 16, val batch 8, f32) over a
@@ -1833,13 +1860,19 @@ def _finite_nonzero(where: str, name: str, ts) -> None:
         raise PhaseError(f"{where}: all-zero {name} inputs")
 
 
-def cli_kernels_f32(rec, where: str = "cli_train") -> dict:
+def cli_kernels_f32(rec, where: str = "cli_train",
+                    scaled_dw: bool = False) -> dict:
     """Every K1, pass, K2, K3 and K4 call of one recorded f32 step of the
     CLI path against its plain version (K1 and the pass equal; K2 and
     K3's d_feats within 1e-5 x max + 1e-5 relative, d_w within 1e-5 of
     each (g, m)'s largest), and its device ms, plain ms and bound summed
     over the step, with its core. A kernel the step does not call gets a
-    row of zero calls."""
+    row of zero calls. ``scaled_dw`` holds K3's and K4's d_w to the f32
+    sum bound instead, ``K2_F32_TOL`` x (1 + the sum of the absolute
+    products) of each entry, as ``k3_dw_step`` does at ``cli_semseg``'s
+    2 M rows: over hundreds of thousands of rows two summation orders
+    part by more than 1e-5 of a slice's largest entry where terms
+    cancel (``worst_err`` still reports that share)."""
     import torch
 
     from nerf_downstream_tpu_torch.ops.kernels import (
@@ -1919,12 +1952,25 @@ def cli_kernels_f32(rec, where: str = "cli_train") -> dict:
         return [c3[k] for k in ("g_out", "feats", "inv_starts", "inv_idx",
                                 "w_t")]
 
+    def dw_bad(plain, args, got, want):
+        rel, _ = dw_err(got, want)
+        if not scaled_dw:
+            return rel > DW_TOL, rel
+        scale = plain(*[a.abs() if a.is_floating_point() else a
+                        for a in args])
+        scale = scale[1] if isinstance(scale, tuple) else scale
+        return bool(((got - want).abs() > K2_F32_TOL * (1 + scale)).any()), rel
+
     def k3_check(c3):
-        (got_f, got_w), (want_f, want_w) = (window_bwd(*k3_args(c3)),
-                                            window_bwd_plain(*k3_args(c3)))
-        rel, _ = dw_err(got_w, want_w)
-        if dfeats_bad(got_f, want_f, f32) or rel > DW_TOL:
-            raise PhaseError(f"{where}: K3 (f32) off its plain version")
+        args = k3_args(c3)
+        (got_f, got_w), (want_f, want_w) = (window_bwd(*args),
+                                            window_bwd_plain(*args))
+        bad_w, rel = dw_bad(window_bwd_plain, args, got_w, want_w)
+        bad_f = dfeats_bad(got_f, want_f, f32)
+        if bad_f or bad_w:
+            raise PhaseError(f"{where}: K3 (f32) off its plain version: "
+                             f"{bad_f} d_feats entries; d_w {rel} of a "
+                             "slice's largest")
         return rel
 
     tally("window_bwd", rec.k3, lambda c3: window_bwd(*k3_args(c3)),
@@ -1932,9 +1978,11 @@ def cli_kernels_f32(rec, where: str = "cli_train") -> dict:
           lambda c3: bound(*k3_work(c3), f32), k3_check)
 
     def k4_check(a):
-        rel, _ = dw_err(window_dw(*a), window_dw_plain(*a))
-        if rel > DW_TOL:
-            raise PhaseError(f"{where}: K4 (f32) off its plain version")
+        bad, rel = dw_bad(window_dw_plain, a, window_dw(*a),
+                          window_dw_plain(*a))
+        if bad:
+            raise PhaseError(f"{where}: K4 (f32) off its plain version: "
+                             f"{rel} of a slice's largest")
         return rel
 
     tally("window_dw", rec.k4, lambda a: window_dw(*a),
@@ -2154,6 +2202,383 @@ def phase_cli_train(card: str, device: str = "cuda", bindings=(),
         gin.clear_config()
         if keep is None or "tmp" not in keep:
             shutil.rmtree(tmp, ignore_errors=True)
+
+
+# phase cli_methods: the flagship CLI under the other conv methods, from
+# cli_train's best checkpoint on cli_train's batches (its tree, seed 0)
+METHODS = ("window", "block", "block_resident")
+METHOD_STEPS = 3
+METHOD_TOL = 1e-4  # step-1 loss (relative) and eval logits (of max|logit|)
+# What CLI_TREE needs beyond the flagship configs, measured on its first
+# three batches on the CPU: a plan from a kernel map ("window") has no
+# escape list, and at the config's window_size 128 (two blocks) 235,024-
+# 270,927 entries of a stride-1 map fall outside their windows (1,654-
+# 2,358 at 256, none at 512). The batches fill 3,351-3,424 / 842-873 /
+# 243-246 / 69-83 / 27-36 blocks at strides 1-16. The config's divisor 3
+# caps them at capacity / (3 stride^2): 43,690 blocks at stride 1, 13x
+# what they fill (every cell held densely), and 85 at stride 8, barely
+# above them; divisor 1 ran the card out of its 80 GB at stride 1.
+# block_caps bind about twice the filled blocks at each level.
+BLOCK_CAPS = "CoordinateContext.block_caps = (8192, 2048, 512, 256, 128)"
+METHOD_BINDINGS = {
+    "auto": (),
+    "window": ('CoordinateContext.method = "window"',
+               "CoordinateContext.window_size = 512"),
+    "block": ('CoordinateContext.method = "block"', BLOCK_CAPS),
+    "block_resident": ('CoordinateContext.method = "block_resident"',
+                       BLOCK_CAPS),
+}
+METHOD_ROUTE = {"auto": "windowed", "window": "window", "block": "block",
+                "block_resident": "block_resident"}
+
+
+def profiled_step(where: str, task, state, batch) -> tuple:
+    """One training step under the profiler: (state, wall ms, device ms,
+    device ops). Fails on a profile without device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as p:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, _ = task.train_step(state, batch)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    rows = device_rows(p, 1)
+    device = sum(r[0] for r in rows)
+    if device <= 0:
+        raise PhaseError(f"{where}: the profiler saw no device time")
+    return state, wall, device, sum(r[1] for r in rows)
+
+
+def phase_cli_methods(card: str, kept: dict, device: str = "cuda",
+                      bindings=()) -> tuple[dict, dict]:
+    """The flagship training CLI (phase cli_train's configs, tree and
+    seed) from cli_train's best checkpoint for ``METHOD_STEPS`` steps,
+    once on the default route ("auto": fully windowed) and once under each
+    of ``METHODS`` with ``METHOD_BINDINGS``; launch counts reset before
+    each run and read after (the phase's launches are their sum). Per
+    method: the losses, wall ms per step, the routes its convs took, its
+    launches; the eval logits of the start weights on the "auto" run's
+    last batch; two runs of one more step from one state (bit-identical:
+    loss, gradients, weights, statistics, momentum); a profile of one more
+    step (device ms, busy share against the run's median step, device
+    ops); and, where the method runs them, every K1-K4 and K6 call of one
+    recorded step against its plain version (``cli_kernels_f32``,
+    ``k6_calls``). Fails unless every method's step-1 loss is within
+    METHOD_TOL (relative) of "auto"'s, its eval logits within METHOD_TOL x
+    max|logit| of "auto"'s, its repeats bit-identical, its convs took its
+    route, and under "window" K2 and K3 launched."""
+    import contextlib
+    import io
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from nerf_downstream_tpu_torch import config as gin
+    from nerf_downstream_tpu_torch import convert
+    from nerf_downstream_tpu_torch.co3d_3d import train as cli
+    from nerf_downstream_tpu_torch.models.mink.layers import (
+        SparseConv,
+        SparseConvTranspose,
+    )
+    from nerf_downstream_tpu_torch.ops import kernels
+    from nerf_downstream_tpu_torch.train import checkpoints
+
+    start = os.path.join(kept["save"], "best.ckpt")
+    weights = checkpoints.load_checkpoint(start)
+    tmp = tempfile.mkdtemp(prefix="cli_methods_")
+    line = {"phase": "cli_methods", "card": card,
+            "entry": "python -m nerf_downstream_tpu_torch.co3d_3d.train",
+            "start": "cli_train's best.ckpt", "steps": METHOD_STEPS,
+            "bindings": {m: list(b) for m, b in METHOD_BINDINGS.items()},
+            "tolerance": METHOD_TOL, "dtype": "float32"}
+    total = dict.fromkeys(kernels.launch_counts(), 0)
+    ref = None
+    try:
+        for method in ("auto",) + METHODS:
+            args = list(kept["args"])
+            for b in (*METHOD_BINDINGS[method],
+                      f"train.max_steps = {METHOD_STEPS}",
+                      f'train.checkpoint_path = "{start}"',
+                      "train.load_weights = True",
+                      "train.val_every_n_steps = 1000",
+                      "train.evaluate = False", *bindings):
+                args += ["--ginb", b]
+            args += ["--save_path", os.path.join(tmp, method), "--seed", "0",
+                     "--device", device]
+            torch.cuda.synchronize()
+            kernels.reset_launch_counts()
+            with CliProbe() as probe, \
+                    contextlib.redirect_stdout(io.StringIO()):
+                gin.clear_config()
+                t0 = time.perf_counter()
+                cli.main(args)
+                run_s = time.perf_counter() - t0
+            torch.cuda.synchronize()
+            counts = kernels.launch_counts()
+            for k, v in counts.items():
+                total[k] += v
+            task, state, batch = probe.last
+            model = task.model
+            routes = sorted({m.route for m in model.modules()
+                             if isinstance(m, (SparseConv,
+                                               SparseConvTranspose))
+                             and m.route})
+            ms = [m for _, m in probe.steps]
+            rec_line = {"losses": probe.losses, "ms": ms,
+                        "ms_median_after_first": float(np.median(ms[1:])),
+                        "run_seconds": run_s, "routes": routes,
+                        "launches": counts}
+            # the start weights' eval logits on one batch for every method
+            eval_batch = batch if ref is None else ref["batch"]
+            trained = {k: v.clone() for k, v in model.state_dict().items()}
+            model.load_state_dict(convert.flax_to_state_dict(model, {
+                "params": weights["params"],
+                "batch_stats": weights["batch_stats"]}))
+            model.eval()
+            with torch.no_grad():
+                logits = model(task.model_input(eval_batch)).float()
+            model.train()
+            model.load_state_dict(trained)
+            logits = logits[eval_batch["mask"]]
+            if not bool(torch.isfinite(logits).all()):
+                raise PhaseError(f"cli_methods: {method}: non-finite eval "
+                                 "logits")
+            if ref is None:
+                ref = {"batch": batch, "logits": logits,
+                       "loss": probe.losses[0]}
+            rec_line["step1_loss_rel_gap"] = (
+                abs(probe.losses[0] - ref["loss"]) / abs(ref["loss"]))
+            rec_line["eval_gap_of_max"] = float(
+                (logits - ref["logits"]).abs().max()
+                / ref["logits"].abs().max())
+            rec_line["repeat_identical"] = repeat_identical(task, state,
+                                                            batch)
+            state, wall, dev_ms, ops = profiled_step(
+                f"cli_methods/{method}", task, state, batch)
+            rec_line["profile"] = {
+                "wall_ms_per_step_profiled": wall,
+                "device_ms_per_step": dev_ms,
+                "device_busy_share": dev_ms / rec_line[
+                    "ms_median_after_first"],
+                "device_ops_per_step": ops}
+            if method in ("window", "block"):
+                with ClsStepRecorder() as rec:
+                    task.train_step(state, batch)
+                where = f"cli_methods/{method}"
+                if method == "window":
+                    rec_line["kernels_per_step"] = cli_kernels_f32(rec,
+                                                                   where)
+                rec_line["row_gather_matmul"] = k6_summary(
+                    k6_calls(where, rec.k6), len(rec.k6))
+                del rec
+            line[method] = rec_line
+            ok = (np.isfinite(probe.losses).all()
+                  and len(probe.losses) == METHOD_STEPS
+                  and rec_line["step1_loss_rel_gap"] <= METHOD_TOL
+                  and rec_line["eval_gap_of_max"] <= METHOD_TOL
+                  and all(rec_line["repeat_identical"].values())
+                  and METHOD_ROUTE[method] in routes
+                  and (method != "window"
+                       or (counts["window_gather_matmul"] > 0
+                           and counts["window_bwd"] > 0)))
+            if not ok:
+                raise PhaseError(f"cli_methods: {method}: {rec_line}")
+            del task, state, batch, model, probe
+        line["launches"] = total
+        return line, total
+    finally:
+        gin.clear_config()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+# phase cli_kitti: the flagship CLI on SemanticKITTI scans of HDL-64E size
+KITTI_SCANS = {"00": 6, "08": 1}  # frames per sequence (00 trains, 08 validates)
+KITTI_STEPS = 3
+KITTI_TOL = 1e-4  # of max|logit|: one scan's eval logits, card against CPU
+KITTI_KERNELS = ("window_starts", "window_match", "window_gather_matmul",
+                 "window_bwd", "window_dw")
+# The flagship config turned to SemanticKITTI: its reader and classes,
+# "hybrid" without a grid extent (the fully-windowed path on packed keys
+# alone, the reference's outdoor setting), and what these scans need, as
+# measured on the CPU: no level caps (at 0.05 m a scan's rows thin about
+# 2x per stride doubling, 183,225 / 97,040 / 41,819 / 15,448 / 5,402 for
+# two scans, not the 4x the config's level_cap_decay 0.5 assumes of
+# shells; on small scans the caps poison in both packages), and
+# window_size 512 (at the config's 128 the stride-1 plan of two scans
+# needs 11,983 escape entries in 80 tiles, past its 8,192 and 64; at 512,
+# 1,934 in 9).
+KITTI_BINDINGS = (
+    'get_dataset.dataset_name = "SemanticKITTIDataset"',
+    "SemanticKITTIDataset.ignore_label = -255",
+    "get_model.in_channel = 4", "get_model.out_channel = 19",
+    'CoordinateContext.method = "hybrid"',
+    "CoordinateContext.grid_extent = None",
+    "CoordinateContext.level_cap_decay = None",
+    "CoordinateContext.window_size = 512",
+    "train.device_transforms = []",
+    "train.batch_size = 2", "train.val_batch_size = 1",
+    f"train.max_steps = {KITTI_STEPS}",
+    # the Trainer validates after step indices that the cadence divides:
+    # one validation, after the last step
+    f"train.val_every_n_steps = {KITTI_STEPS - 1}",
+    "train.log_every_n_steps = 1", 'train.loggers = ["jsonl"]',
+)
+
+
+def phase_cli_kitti(card: str, device: str = "cuda",
+                    bindings=()) -> tuple[dict, dict]:
+    """``co3d_3d.train`` on ``scannet_plenoxel.gin`` with
+    ``KITTI_BINDINGS`` (Res16UNet at full width, in_channel 4 (xyzi), 19
+    classes, batch 2, voxel 0.05 m, f32) over SemanticKITTI scans the port
+    writes in the benchmark's layout (``data.synthetic.write_kitti_tree``:
+    64 beams x 2,048 azimuths = 131,072 points each; ground, building
+    fronts and boxes out to 80 m; raw labels with moving classes):
+    ``KITTI_STEPS`` steps and one validation on sequence 08, launch counts
+    reset before and read after. Then two runs of one more step
+    (bit-identical), a profile of one step, every K1-K4 call of a recorded
+    step against its plain version (``cli_kernels_f32``; K6 is not on
+    this route: every conv of Res16UNet rides window plans), one eval
+    forward of the 08 scan on the card against the CPU's on the row path
+    ("search", the same function summed in another order) within
+    KITTI_TOL x max|logit|, and ``save_prediction`` of its argmax: a
+    uint32 label file of the scan's length in the reference's layout,
+    holding raw ids only. Fails on a non-finite loss (the Trainer
+    raises), a validation without mIoU, a kernel of KITTI_KERNELS never
+    launched, or any of those checks."""
+    import contextlib
+    import copy
+    import io
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from nerf_downstream_tpu_torch import config as gin
+    from nerf_downstream_tpu_torch.co3d_3d import train as cli
+    from nerf_downstream_tpu_torch.data.semantic_kitti import (
+        LABEL_NAME_MAPPING,
+        SemanticKITTIDataset,
+    )
+    from nerf_downstream_tpu_torch.data.synthetic import write_kitti_tree
+    from nerf_downstream_tpu_torch.data.utils import collate_mink
+    from nerf_downstream_tpu_torch.models.mink.layers import (
+        SparseConv,
+        SparseConvTranspose,
+    )
+    from nerf_downstream_tpu_torch.ops import kernels
+
+    tmp = tempfile.mkdtemp(prefix="cli_kitti_")
+    try:
+        t0 = time.perf_counter()
+        root = write_kitti_tree(os.path.join(tmp, "kitti"),
+                                np.random.default_rng(0), KITTI_SCANS)
+        tree_s = time.perf_counter() - t0
+        save = os.path.join(tmp, "exp")
+        config = os.path.join(REPO, "co3d_3d", "configs",
+                              "scannet_plenoxel.gin")
+        args = ["--ginc", config]
+        for b in (*KITTI_BINDINGS,
+                  f'SemanticKITTIDataset.data_root = "{root}"', *bindings):
+            args += ["--ginb", b]
+        args += ["--save_path", save, "--seed", "0", "--device", device]
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        with CliProbe() as probe, contextlib.redirect_stdout(io.StringIO()):
+            gin.clear_config()
+            t0 = time.perf_counter()
+            cli.main(args)
+            run_s = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        counts = kernels.launch_counts()
+        task, state, batch = probe.last
+        model = task.model
+        run = os.path.join(save, f"b2x1-{type(model).__name__}")
+        with open(os.path.join(run, "metrics.jsonl")) as f:
+            logged = [json.loads(ln) for ln in f]
+        val = [{k: r[k] for k in ("step", "val/loss", "val/mIoU")}
+               for r in logged if "val/mIoU" in r]
+        routes = sorted({m.route for m in model.modules()
+                         if isinstance(m, (SparseConv, SparseConvTranspose))
+                         and m.route})
+        ms = [m for _, m in probe.steps]
+        line = {"phase": "cli_kitti", "card": card,
+                "entry": "python -m nerf_downstream_tpu_torch.co3d_3d.train",
+                "config": "co3d_3d/configs/scannet_plenoxel.gin",
+                "bindings": list(KITTI_BINDINGS),
+                "scans": dict(KITTI_SCANS, points_each=64 * 2048,
+                              seconds=tree_s),
+                "dtype": "float32", "capacity": int(batch["mask"].shape[0]),
+                "valid_points": probe.rows, "losses": probe.losses,
+                "ms": ms, "ms_median_after_first": float(np.median(ms[1:])),
+                "run_seconds": run_s, "val": val,
+                "val_pass_ms": probe.val_ms, "routes": routes,
+                "launches": counts}
+        ok = (np.isfinite(probe.losses).all()
+              and len(probe.losses) == KITTI_STEPS and len(val) == 1
+              and np.isfinite(val[0]["val/loss"])
+              and routes == ["windowed"]
+              and all(counts[k] > 0 for k in KITTI_KERNELS))
+        if not ok:
+            raise PhaseError(f"cli_kitti: {line}")
+        line["repeat_identical"] = repeat_identical(task, state, batch)
+        state, wall, dev_ms, ops = profiled_step("cli_kitti", task, state,
+                                                 batch)
+        line["profile"] = {"wall_ms_per_step_profiled": wall,
+                           "device_ms_per_step": dev_ms,
+                           "device_busy_share":
+                               dev_ms / line["ms_median_after_first"],
+                           "device_ops_per_step": ops}
+        with CliStepRecorder() as rec:
+            task.train_step(state, batch)
+        line["kernels_per_step"] = cli_kernels_f32(rec, "cli_kitti",
+                                                   scaled_dw=True)
+        del rec
+
+        # one scan of sequence 08: card (windowed) against CPU (row path)
+        ds = SemanticKITTIDataset("val", data_root=root)
+        item = ds[0]
+        one = collate_mink([item], grid_extent=None)
+        one_t = {k: torch.as_tensor(v) for k, v in one.items()
+                 if isinstance(v, np.ndarray)}
+        model.eval()
+        with torch.no_grad():
+            card_logits = model(task.model_input(
+                {k: v.to(device) for k, v in one_t.items()})).float().cpu()
+            cpu_model = copy.deepcopy(model).to("cpu")
+            cpu_model.ctx_kwargs = dict(cpu_model.ctx_kwargs,
+                                        method="search")
+            t0 = time.perf_counter()
+            cpu_logits = cpu_model(task.model_input(one_t)).float()
+            cpu_s = time.perf_counter() - t0
+        model.train()
+        m = one_t["mask"]
+        gap = float((card_logits[m] - cpu_logits[m]).abs().max()
+                    / cpu_logits[m].abs().max())
+        pred = card_logits[m].argmax(1).numpy()
+        pred_file = ds.save_prediction(pred, os.path.join(tmp, "pred"),
+                                       item["metadata"])
+        written = np.fromfile(pred_file, dtype=np.uint32)
+        line["eval_one_scan"] = {
+            "points": int(m.sum()), "gap_of_max": gap, "cpu_seconds": cpu_s,
+            "cpu_route": "search", "prediction_file":
+                os.path.relpath(pred_file, tmp),
+            "prediction_labels": len(written),
+            "raw_ids_only": bool(np.isin(written, list(LABEL_NAME_MAPPING))
+                                 .all())}
+        if not (gap <= KITTI_TOL and len(written) == int(m.sum())
+                and line["eval_one_scan"]["raw_ids_only"]
+                and all(line["repeat_identical"].values())):
+            raise PhaseError(f"cli_kitti: {line}")
+        return line, counts
+    finally:
+        gin.clear_config()
+        shutil.rmtree(tmp, ignore_errors=True)
 
 
 CLS_TREE = dict(n_train=32, n_val=8, n_voxels=10_000, reso=(128, 128, 128),
@@ -3187,26 +3612,6 @@ EXTRA_MODELS = {"ResUNetBN2C": ("row", 32), "EncodedRes16UNet": ("windowed",
                                                                 20)}
 
 
-@contextlib.contextmanager
-def cpu_reference():
-    """Compute a CPU reference under ``torch.use_deterministic_algorithms``.
-    At more than one thread PyTorch's CPU ``index_put_`` with
-    ``accumulate=True`` adds float values with parallel atomics, in
-    whatever order they land, so a reference that accumulates (a windowed
-    conv's escape entries, the norms' segment sums) moves from run to run;
-    in this mode it adds them in index order. (On the card the port's
-    accumulating ``index_put`` sorts, and repeats bit for bit.)"""
-    import torch
-
-    was = (torch.are_deterministic_algorithms_enabled(),
-           torch.is_deterministic_algorithms_warn_only_enabled())
-    torch.use_deterministic_algorithms(True, warn_only=True)
-    try:
-        yield
-    finally:
-        torch.use_deterministic_algorithms(was[0], warn_only=was[1])
-
-
 def output_rows(out):
     """A model's output rows: a SparseVoxels' features or the tensor."""
     return out.feats if hasattr(out, "feats") else out
@@ -3300,17 +3705,15 @@ def train_divergence(build, failing, device: str = "cuda") -> dict:
     valid rows are more than 1e-5 and more than EXTRA_TOL of their
     largest apart, the largest gap, whether the fresh card forward gives
     the card's train-mode output of the gate (``failing``) again bit for
-    bit and its gap to the fresh CPU reference (``cpu_reference``), and
+    bit and its gap to the fresh CPU reference, and
     the worst conditioned train-mode BatchNorms."""
     import torch
 
     recs = {}
     for dev in ("cpu", device):
         model, field = build(dev)
-        with (cpu_reference() if dev == "cpu"
-              else contextlib.nullcontext()):
-            recs["cpu" if dev == "cpu" else "card"] = module_outputs(model,
-                                                                     field)
+        recs["cpu" if dev == "cpu" else "card"] = module_outputs(model,
+                                                                 field)
         del model
     cpu, card = recs["cpu"], recs["card"]
     first = {}
@@ -3378,7 +3781,8 @@ def phase_models_extra(card: str, device: str = "cuda") -> tuple[dict, dict]:
     (``cli_kernels_f32``), each timed beside its bound. Then the gates:
     the card's eval-mode output and its train-mode output (batch
     statistics), each from the weights before the step, within EXTRA_TOL
-    x max of the CPU's on the same weights and batch (``cpu_reference``);
+    x max of the CPU's on the same weights and batch (the port's CPU sums
+    repeat at any thread count: ``ops/scatter.py``);
     and whether two
     train-mode forwards on the card are bit-identical (reported). Where
     an output gate fails, ``train_divergence`` names the first module at
@@ -3407,8 +3811,7 @@ def phase_models_extra(card: str, device: str = "cuda") -> tuple[dict, dict]:
         for dev in ("cpu", device):
             model, field, tree = extra_model(name, seed, dev, batch, tree)
             side = "cpu" if dev == "cpu" else "card"
-            with (cpu_reference() if dev == "cpu"
-                  else contextlib.nullcontext()), torch.no_grad():
+            with torch.no_grad():
                 model.eval()
                 outs[side, "eval"] = output_rows(model(field)).cpu()
                 model.train()
@@ -5489,6 +5892,17 @@ def main() -> int:
         phase = "cli_train"
         line, cli_launches = phase_cli_train(card, keep=kept["cli_train"])
         emit(line)
+        phase = "cli_methods"
+        t0 = time.perf_counter()
+        line, methods_launches = phase_cli_methods(card, kept["cli_train"])
+        line["seconds"] = time.perf_counter() - t0
+        emit(line)
+        phase = "cli_kitti"
+        t0 = time.perf_counter()
+        line, kitti_launches = phase_cli_kitti(card)
+        line["seconds"] = time.perf_counter() - t0
+        emit(line)
+        del line
         phase = "cli_cls"
         line, cls_launches = phase_cli_cls(card, keep=kept["cli_cls"])
         emit(line)
@@ -5562,6 +5976,8 @@ def main() -> int:
                    "models_extra": extra_launches[name],
                    "cli_eval": eval_launches[name],
                    "cli_semseg": semseg_launches[name],
+                   "cli_methods": methods_launches[name],
+                   "cli_kitti": kitti_launches[name],
                    "sparse_eval": sparse_launches[name]}
         return {"launches": sum(by_path.values()),
                 "launches_by_path": by_path}

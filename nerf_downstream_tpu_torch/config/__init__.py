@@ -22,7 +22,6 @@ from nerf_downstream_tpu_torch.config.engine import (
     config_str,
     configurable,
     constant,
-    declare_unported,
     external_configurable,
     get_configurable,
     operative_config_str,
@@ -40,7 +39,6 @@ __all__ = [
     "config_str",
     "configurable",
     "constant",
-    "declare_unported",
     "external_configurable",
     "get_configurable",
     "operative_config_str",

@@ -42,9 +42,6 @@ class _Registry:
         self.macros: dict[str, Any] = {}
         self.operative: dict[str, dict[str, Any]] = {}
         self.imports: list[str] = []
-        # names the reference configures that the port does not have:
-        # name -> where the port says it is left
-        self.unported: dict[str, str] = {}
         self.lock = threading.RLock()
 
 
@@ -100,22 +97,10 @@ def register(name: str, fn: Callable):
             _REG.registered.setdefault(name, []).append(fn)
 
 
-def declare_unported(name: str, where: str):
-    """Record ``name`` as a configurable of the reference that the port
-    does not have (``where`` names its place in the roadmap). Bindings of
-    its parameters pass ``check_bindings``, as the reference's engine
-    accepts bindings that no call reads; resolving the name raises."""
-    with _REG.lock:
-        _REG.unported[name] = where
-
-
 def get_configurable(name: str) -> Callable:
     try:
         return _REG.configurables[name]
     except KeyError:
-        if name in _REG.unported:
-            raise NotImplementedError(
-                f"{name} is not ported ({_REG.unported[name]})") from None
         raise ConfigError(f"No configurable registered under name {name!r}")
 
 
@@ -269,15 +254,12 @@ def configurable(fn_or_name=None, *, name: str | None = None, denylist=()):
 def check_bindings():
     """Raise ``ConfigError`` unless every binding names a registered
     configurable and one of its parameters (a call would raise later;
-    this says so before a run starts), or a configurable of the reference
-    declared unported (``declare_unported``): such a binding configures
-    nothing a run calls, and a run that calls it raises."""
+    this says so before a run starts)."""
     bad = []
     for name, params in sorted(_REG.bindings.items()):
         fn = _REG.configurables.get(name)
         if fn is None:
-            if name not in _REG.unported:
-                bad.append(f"{name} (no configurable of that name)")
+            bad.append(f"{name} (no configurable of that name)")
             continue
         takes = [getattr(f, "__gin_params__", None)
                  for f in _REG.registered.get(name, [fn])]

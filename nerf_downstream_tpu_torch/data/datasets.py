@@ -1,21 +1,24 @@
 """Dataset registry (counterpart of ``nerf_downstream_tpu/data/datasets.py``).
 
-The reference's table names nine datasets; the port has
-``ScannetDataset``, ``PlenoxelScannetDataset``, the three CO3D
-classification readers and ModelNet40 (``ModelNet40H5Dataset`` and its
-alias ``ModelNet40H5``), and raises ``NotImplementedError`` for the others
-(ROADMAP.md Queue 1 item 3d).
+The reference's nine datasets: ``ScannetDataset``,
+``PlenoxelScannetDataset``, the three CO3D classification readers,
+ModelNet40 (``ModelNet40H5Dataset`` and its alias ``ModelNet40H5``),
+``SemanticKITTIDataset`` and ``StanfordDataset``.
 """
 
 from __future__ import annotations
 
 from nerf_downstream_tpu_torch import config as cfg
 
-NOT_PORTED = ("SemanticKITTIDataset", "StanfordDataset")
-
 
 def _table():
-    from nerf_downstream_tpu_torch.data import co3d, modelnet40, scannet
+    from nerf_downstream_tpu_torch.data import (
+        co3d,
+        modelnet40,
+        scannet,
+        semantic_kitti,
+        stanford,
+    )
 
     return {
         "ModelNet40H5": modelnet40.ModelNet40H5,
@@ -25,15 +28,13 @@ def _table():
         "Co3DDatasetBase": co3d.Co3DDatasetBase,
         "ScannetDataset": scannet.ScannetDataset,
         "PlenoxelScannetDataset": scannet.PlenoxelScannetDataset,
+        "SemanticKITTIDataset": semantic_kitti.SemanticKITTIDataset,
+        "StanfordDataset": stanford.StanfordDataset,
     }
 
 
 @cfg.configurable("get_dataset")
 def get_dataset(dataset_name: str = "Co3DDataset"):
-    if dataset_name in NOT_PORTED:
-        raise NotImplementedError(
-            f"dataset {dataset_name!r} is not ported (ROADMAP.md Queue 1 "
-            "item 3d)")
     table = _table()
     if dataset_name not in table:
         raise ValueError(

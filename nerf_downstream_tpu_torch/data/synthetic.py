@@ -5,8 +5,9 @@ collate_mink``, one scene as the serving benchmark builds it, the trees
 the 3D training configs read (``write_scannet_tree``,
 ``write_co3d_tree``, ``write_scannet_ply_tree`` for the raw-mesh
 ``scannet_semseg.gin`` and ``write_modelnet40_tree`` for
-``modelnet40_cls.gin``, over ``modelnet40_arrays``), and the frame trees the 2D configs read
-(``write_perfception_2d_tree``)."""
+``modelnet40_cls.gin``, over ``modelnet40_arrays``), SemanticKITTI's
+LiDAR scans (``write_kitti_tree``), and the frame trees the 2D configs
+read (``write_perfception_2d_tree``)."""
 
 from __future__ import annotations
 
@@ -17,8 +18,8 @@ from nerf_downstream_tpu_torch.data.utils import collate_mink
 
 __all__ = ["collate_mink", "make_synthetic_scene", "modelnet40_arrays",
            "scene_sample", "write_co3d_tree", "write_modelnet40_tree",
-           "write_perfception_2d_tree", "write_scannet_ply_tree",
-           "write_scannet_tree"]
+           "write_kitti_tree", "write_perfception_2d_tree",
+           "write_scannet_ply_tree", "write_scannet_tree"]
 
 
 def scene_sample(rng, n_voxels: int, num_classes: int) -> dict:
@@ -296,4 +297,98 @@ def write_modelnet40_tree(root: str, rng, n_train: int = 8, n_test: int = 4,
         with h5py.File(os.path.join(root, f"ply_data_{phase}0.h5"), "w") as f:
             f.create_dataset("data", data=data)
             f.create_dataset("label", data=label)
+    return root
+
+
+# raw SemanticKITTI ids of the synthetic street (moving classes included)
+_KITTI_ROAD, _KITTI_SIDEWALK, _KITTI_BUILDING = 40, 48, 50
+_KITTI_OBJECTS = (10, 252, 30, 254, 18, 258, 81)  # car, person, truck, ...
+
+
+def kitti_scan(rng, beams: int = 64, azimuths: int = 2048,
+               max_range: float = 80.0, boxes: int = 12):
+    """One LiDAR sweep of a synthetic street, as a spinning 64-beam
+    sensor (HDL-64E: elevations -24.9 to +2 degrees) 1.73 m above the
+    ground sees it: every (beam, azimuth) ray returns the nearest of a
+    ground plane (road within the street, sidewalk beyond), two building
+    fronts along the street and one across it, and ``boxes`` boxes
+    (cars, people, trucks; moving and parked), its range capped at
+    ``max_range`` (an unlabeled far return). Returns (xyzi float32[beams
+    * azimuths, 4], raw labels uint32 with an instance id in the upper 16
+    bits)."""
+    elev = np.deg2rad(np.linspace(-24.9, 2.0, beams))
+    azim = np.linspace(-np.pi, np.pi, azimuths, endpoint=False)
+    azim = azim + rng.uniform(0, 2 * np.pi / azimuths)
+    el, az = np.meshgrid(elev, azim, indexing="ij")
+    d = np.stack([np.cos(el) * np.cos(az), np.cos(el) * np.sin(az),
+                  np.sin(el)], -1).reshape(-1, 3)
+    origin = np.array([0.0, 0.0, 1.73])
+    n = d.shape[0]
+    t = np.full(n, max_range)
+    label = np.zeros(n, np.int64)
+    inst = np.zeros(n, np.int64)
+
+    def hit(t_new, lab, ins=0):
+        closer = (t_new > 0.5) & (t_new < t)
+        t[closer] = t_new[closer]
+        label[closer] = lab[closer] if np.ndim(lab) else lab
+        inst[closer] = ins
+
+    with np.errstate(divide="ignore", invalid="ignore"):
+        tg = -origin[2] / d[:, 2]
+        y_ground = origin[1] + tg * d[:, 1]
+        street = rng.uniform(6.0, 9.0)
+        hit(np.where(d[:, 2] < 0, tg, np.inf),
+            np.where(np.abs(y_ground) < street / 2, _KITTI_ROAD,
+                     _KITTI_SIDEWALK))
+        for wall_y in (street / 2 + rng.uniform(3, 6),
+                       -(street / 2 + rng.uniform(3, 6))):
+            tw = (wall_y - origin[1]) / d[:, 1]
+            hit(np.where(origin[2] + tw * d[:, 2] < rng.uniform(8, 20), tw,
+                         np.inf), _KITTI_BUILDING)
+        tx = (rng.uniform(40, 70) - origin[0]) / d[:, 0]
+        hit(tx, _KITTI_BUILDING)
+        for k in range(boxes):
+            lab = int(rng.choice(_KITTI_OBJECTS))
+            size = {10: (4.2, 1.8, 1.5), 252: (4.2, 1.8, 1.5),
+                    30: (0.6, 0.6, 1.8), 254: (0.6, 0.6, 1.8),
+                    18: (8.0, 2.5, 3.2), 258: (8.0, 2.5, 3.2),
+                    81: (0.4, 0.4, 2.5)}[lab]
+            c = np.array([rng.uniform(-35, 35),
+                          rng.uniform(-street / 2, street / 2) * 1.4, 0.0])
+            if np.abs(c[:2]).max() < 3:
+                c[0] += 5.0
+            lo = c - np.array([size[0] / 2, size[1] / 2, 0.0])
+            hi = lo + np.array(size)
+            t0 = (lo - origin) / d
+            t1 = (hi - origin) / d
+            near = np.nanmax(np.minimum(t0, t1), 1)
+            far = np.nanmin(np.maximum(t0, t1), 1)
+            hit(np.where(near <= far, near, np.inf), lab, k + 1)
+    xyz = origin + t[:, None] * d
+    xyz = xyz + rng.normal(scale=0.01, size=xyz.shape)
+    xyzi = np.concatenate([xyz, rng.uniform(0, 1, (n, 1))], 1)
+    raw = (label | (inst << 16)).astype(np.uint32)
+    return xyzi.astype(np.float32), raw
+
+
+def write_kitti_tree(root: str, rng, scans: dict | None = None,
+                     beams: int = 64, azimuths: int = 2048) -> str:
+    """Write SemanticKITTI's layout under ``root`` and return it:
+    ``dataset/sequences/<seq>/velodyne/<frame>.bin`` and
+    ``labels/<frame>.label`` for ``scans`` {sequence: frames} (default
+    two training frames in 00 and one validation frame in 08), each from
+    ``kitti_scan``; the other sequences of 00-10 are made empty, as the
+    reader lists every sequence of its phase."""
+    import os
+
+    scans = scans or {"00": 2, "08": 1}
+    for seq in (f"{i:02d}" for i in range(11)):
+        base = os.path.join(root, "dataset", "sequences", seq)
+        os.makedirs(os.path.join(base, "velodyne"), exist_ok=True)
+        os.makedirs(os.path.join(base, "labels"), exist_ok=True)
+        for f in range(scans.get(seq, 0)):
+            xyzi, raw = kitti_scan(rng, beams, azimuths)
+            xyzi.tofile(os.path.join(base, "velodyne", f"{f:06d}.bin"))
+            raw.tofile(os.path.join(base, "labels", f"{f:06d}.label"))
     return root

@@ -6,11 +6,9 @@ draw from the module's ``_rng`` stream: the same ``seed`` gives the same
 arrays), with the colour transforms of ``scannet_semseg.gin``
 (``ChromaticTranslation``, ``ChromaticAutoContrast``, ``ChromaticJitter``,
 ``NormalizeColor``, ``HueSaturationTranslation``; colours in [0, 255]).
-The reference's other transforms (``NOT_PORTED``: PerlinNoise, FPS, ...)
-are not ported yet (ROADMAP.md Queue 1 item 3d): bindings of their
-parameters are accepted, as the reference's engine accepts them
-(``config.declare_unported``), and ``build`` raises on their names.
-Rotations use the closed-form Rodrigues formula (the reference's
+Every transform of the reference is here, the sampling ones
+(``FarthestPointSample``, ``RandomSample``, ``LabelBasedSample``) and
+``PerlinNoise`` included. Rotations use the closed-form Rodrigues formula (the reference's
 ``scipy.expm`` matrix).
 """
 
@@ -272,6 +270,33 @@ class CoordinateUniformTranslation:
         return coords, feats, labels
 
 
+@cfg.configurable
+class RegionDropout:
+    """Drop a random axis-aligned region (at most half of the points)."""
+
+    def __init__(self, box_center_range=(100, 100, 10),
+                 max_region_size=(300, 300, 300),
+                 min_region_size=(100, 100, 100), application_ratio=0.3):
+        self.max_region_size = np.array(max_region_size)
+        self.min_region_size = np.array(min_region_size)
+        self.box_range = self.max_region_size - self.min_region_size
+        self.box_center_range = np.array([box_center_range])
+        self.application_ratio = application_ratio
+
+    def __call__(self, coords, feats, labels):
+        if _rand() < self.application_ratio:
+            for _ in range(100):
+                center = self.box_center_range * (
+                    _gen().random((1, 3)) - 0.5
+                ) * 2 + coords.mean(0, keepdims=True)
+                size = self.box_range * _gen().random((1, 3))
+                lo, hi = center - size / 2, center + size / 2
+                sel = ~np.all((coords < hi) & (coords > lo), axis=1)
+                if sel.sum() > len(coords) * 0.5:
+                    return _sel(coords, feats, labels, sel)
+        return coords, feats, labels
+
+
 def rotation_matrix(axis: np.ndarray, theta: float) -> np.ndarray:
     """Rodrigues rotation about ``axis`` by ``theta`` (== expm(cross(I,
     axis/|axis| * theta)), reference transforms.py:333-336)."""
@@ -367,6 +392,15 @@ class RandomHorizontalFlip:
 
 
 @cfg.configurable
+class DimensionlessCoordinates:
+    def __init__(self, voxel_size=0.02):
+        self.voxel_size = voxel_size
+
+    def __call__(self, coords, feats, labels):
+        return coords / self.voxel_size, feats, labels
+
+
+@cfg.configurable
 class VoxelDownsampleSimple:
     """Stride-divisibility mask downsample (the reference defines it
     itself: ``co3d_aug*.gin`` names it, the original source does not)."""
@@ -434,6 +468,35 @@ def _box_smooth3(noise: np.ndarray, iterations: int = 2) -> np.ndarray:
 
 
 @cfg.configurable
+class PerlinNoise:
+    """Smoothed grid noise interpolated at the points and added to their
+    coordinates, once per (quantization, std) pair of ``noise_params``
+    (the reference builds it with ME convs and interpolation; numpy
+    here, as in the JAX package). ``device`` is accepted and unused."""
+
+    def __init__(self, noise_params=((4, 4), (16, 16)), application_ratio=0.9,
+                 device=None):
+        self.noise_params = noise_params
+        self.application_ratio = application_ratio
+
+    def _noise(self, coords, quant, std):
+        g = coords / quant
+        gmin = np.floor(g.min(0)) - 1
+        gmax = np.floor(g.max(0)) + 2
+        dims = (gmax - gmin + 1).astype(int)
+        noise = _gen().standard_normal((*dims, 3), dtype=np.float32)
+        noise = _box_smooth3(noise, iterations=1)
+        # a unit-spaced grid at origin gmin: direct trilinear
+        return coords + std * _trilinear_uniform(noise, gmin, 1.0, g)
+
+    def __call__(self, coords, feats, labels):
+        if self.noise_params is not None and _rand() < self.application_ratio:
+            for quant, std in self.noise_params:
+                coords = self._noise(coords, quant, std)
+        return coords, feats, labels
+
+
+@cfg.configurable
 class ElasticDistortion:
     """Blurred noise-grid displacement field (transforms.py:535-594).
 
@@ -470,6 +533,44 @@ class ElasticDistortion:
 
 
 @cfg.configurable
+class FarthestPointSample:
+    """Farthest point sampling of ``num_points`` points from a random
+    first point. Labels pass through unsampled, as in the reference
+    (a whole-cloud classification transform)."""
+
+    def __init__(self, num_points=2048):
+        self.num_points = num_points
+
+    def __call__(self, coords, feats, labels):
+        xyz = np.asarray(coords[:, :3], np.float64)
+        n = len(xyz)
+        k = min(self.num_points, n)
+        centroids = np.zeros(k, np.int64)
+        distance = np.full(n, 1e10)
+        farthest = int(_gen().integers(0, n))
+        for i in range(k):
+            centroids[i] = farthest
+            d = np.sum((xyz - xyz[farthest]) ** 2, -1)
+            distance = np.minimum(distance, d)
+            farthest = int(np.argmax(distance))
+        return coords[centroids], feats[centroids], labels
+
+
+@cfg.configurable
+class RandomSample:
+    """``num_points`` points drawn at random (with replacement only when
+    the cloud is smaller); labels pass through unsampled."""
+
+    def __init__(self, num_points=2048):
+        self.num_points = num_points
+
+    def __call__(self, coords, feats, labels):
+        n = len(coords)
+        ind = _gen().choice(n, self.num_points, replace=n < self.num_points)
+        return coords[ind], feats[ind], labels
+
+
+@cfg.configurable
 class DensityBasedSample:
     """Keep the points above a density percentile. ``percentile`` <= 1 is
     a fraction (the reference's reading of its configs' 0.95)."""
@@ -486,6 +587,19 @@ class DensityBasedSample:
         sel = feats[:, self.density_dim] > ths
         if sel.sum() == 0:
             return coords, feats, labels
+        return _sel(coords, feats, labels, sel)
+
+
+@cfg.configurable
+class LabelBasedSample:
+    """Keep the points whose label is ``filter_label``."""
+
+    def __init__(self, filter_label=0):
+        self.filter_label = filter_label
+
+    def __call__(self, coords, feats, labels):
+        assert coords.shape[0] == labels.shape[0]
+        sel = labels == self.filter_label
         return _sel(coords, feats, labels, sel)
 
 
@@ -508,13 +622,6 @@ TRANSFORMS = {
     if isinstance(obj, type) and hasattr(obj, "__call__") and name[0].isupper()
     and name not in ("Compose",)
 }
-
-# the reference's transforms that the port does not have
-NOT_PORTED = ("DimensionlessCoordinates", "FarthestPointSample",
-              "LabelBasedSample", "PerlinNoise", "RandomSample",
-              "RegionDropout")
-for _name in NOT_PORTED:
-    cfg.declare_unported(_name, "ROADMAP.md Queue 1 item 3d")
 
 # transforms that read or write coordinates (vs feature-only): moving one
 # of these to the device reorders it after every host transform, which is
@@ -543,10 +650,6 @@ def build(
     always run everything on host."""
     if not names:
         return None
-    unported = [n for n in names if n in NOT_PORTED]
-    if unported:
-        raise NotImplementedError(f"transforms {unported} are not ported "
-                                  "(ROADMAP.md Queue 1 item 3d)")
     missing = [n for n in names if n not in TRANSFORMS]
     if missing:
         raise ValueError(f"unknown transforms: {missing}")

@@ -5,7 +5,9 @@ A block with a stride of 2 or a change of width takes its shortcut
 through a 1x1 conv of the same stride and a norm (``downsample``): on the
 fully-windowed path a k1/s2 conv is a cross-set window plan, and the
 strided k3 conv of the main branch takes the row path; both land on the
-same coarser level (the context caches it)."""
+same coarser level (the context caches it). Under "block_resident" the
+k1/s2 shortcut steps down in-block while the k3/s2 main branch takes the
+row path; the add then reads both back to rows (``_aligned``)."""
 
 from __future__ import annotations
 
@@ -16,9 +18,19 @@ from torch import nn
 
 from nerf_downstream_tpu_torch.models.mink.layers import (
     SparseConv,
+    as_rows,
     get_nonlinearity,
     make_norm,
 )
+from nerf_downstream_tpu_torch.ops.block_resident import BlockVoxels
+
+
+def _aligned(out, residual):
+    """Both branches of a residual add in one representation: rows when
+    one of them left the blocks."""
+    if isinstance(out, BlockVoxels) != isinstance(residual, BlockVoxels):
+        return as_rows(out), as_rows(residual)
+    return out, residual
 
 
 def _downsample(inplanes, outplanes, stride, norm, compute_dtype):
@@ -65,6 +77,7 @@ class BasicBlock(nn.Module):
         residual = sv
         if self.downsample is not None:
             residual = self.downsample["norm"](self.downsample["conv"](sv, ctx))
+        out, residual = _aligned(out, residual)
         return self.non(out.replace(feats=out.feats + residual.feats))
 
 
@@ -109,6 +122,7 @@ class Bottleneck(nn.Module):
         residual = sv
         if self.downsample is not None:
             residual = self.downsample["norm"](self.downsample["conv"](sv, ctx))
+        out, residual = _aligned(out, residual)
         return self.non(out.replace(feats=out.feats + residual.feats))
 
 

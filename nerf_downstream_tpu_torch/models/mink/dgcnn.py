@@ -13,8 +13,8 @@ computes it in plain PyTorch:
   ``torch.topk`` makes no such promise);
 - the neighbour rows are gathered by index from the flattened cloud (the
   reference's ``x[:, None].repeat(N, 1)`` would materialise [B, N, N, C]
-  in eager PyTorch); the gathers' backward is an accumulating
-  ``index_put`` (fixed order on the card);
+  in eager PyTorch) with ``ops/scatter.gather_rows``, whose backward adds
+  in a fixed order on the card and on the CPU;
 - the max over the neighbours and over the points is ``amax``, whose
   gradient is shared among ties, as the reference's is.
 
@@ -34,6 +34,7 @@ from torch.nn import functional as F
 from nerf_downstream_tpu_torch.models.image import layers as image_layers
 from nerf_downstream_tpu_torch.models.mink.fcnn import Dropout, Linear
 from nerf_downstream_tpu_torch.models.mink.resnet import Dense
+from nerf_downstream_tpu_torch.ops.scatter import gather_rows
 
 
 class BatchNorm(image_layers.BatchNorm):
@@ -88,7 +89,7 @@ def gather_neighbours(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     [B, M, k, C], by index into the flattened cloud."""
     b, n, c = x.shape
     base = torch.arange(b, device=x.device)[:, None, None] * n
-    return x.reshape(b * n, c)[idx + base]
+    return gather_rows(x.reshape(b * n, c), idx + base)
 
 
 def get_graph_feature(x: torch.Tensor, k: int, idx=None) -> torch.Tensor:

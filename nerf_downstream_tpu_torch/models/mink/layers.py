@@ -1,8 +1,8 @@
-"""Layers over SparseVoxels: conv, conv-transpose, norms (BN, IN, LN;
-PowerNorm in ``powernorm.py``), activations (counterpart of
-``nerf_downstream_tpu/models/mink/layers.py``: the fully-windowed path and
-the row path, forward and backward, with the weight-sparse inference
-modes).
+"""Layers over SparseVoxels and block-resident levels (``BlockVoxels``):
+conv, conv-transpose, pooling, norms (BN, IN, LN; PowerNorm in
+``powernorm.py``), activations (counterpart of
+``nerf_downstream_tpu/models/mink/layers.py``: every conv route, forward
+and backward, with the weight-sparse inference modes).
 
 Each conv asks the context for its route (``CoordinateContext.
 conv_route``). On the fully-windowed path every k3/s1 conv and k2/s2 or
@@ -13,9 +13,19 @@ conv; a dilated conv; a strided conv over an offset subset), and every
 conv when the context resolves to the row path ("row", "search", or
 "auto" without a grid extent), takes the row path, as in the reference:
 a row kernel map onto the output level, K6 forward, d_feats through the
-inverted map. 1x1 stride-1 convs are plain matrix products, as the
-reference leaves them to XLA. ``SparsePool`` pools over a row kernel map
-(``ops/pool.py``) and ``GlobalPool`` pools each batch element's rows.
+inverted map. The other methods, in the reference's order of decisions:
+under "block_resident" a level enters dense 4^3 blocks at its first
+blockable conv (k3/s1 dense or ZAXIS, k2/s2, k1/s2) and stays there
+through norms, activations, adds and k2 poolings and transposes
+(``ops/block_resident.py``); under "block" each dense k3/s1 conv runs
+through blocks made for it (``ops/block_conv.block_conv3``); under
+"window" a stride-preserving conv with uniform (dx, dy) offset groups
+runs K2/K3 on plans from its row kernel map (``ctx.window_plan``), and
+strided convs and transposes keep the row path. A consumer of rows
+(``as_rows``, ``cat`` of mixed levels) reads a resident level back.
+1x1 stride-1 convs are plain matrix products, as the reference leaves
+them to XLA. ``SparsePool`` pools over a row kernel map (``ops/pool.py``)
+or in-block, and ``GlobalPool`` pools each batch element's rows.
 Conv kernels are stored [K, Cin, Cout] with x-fastest offsets, the
 reference's layout. Parameters start at zero (no hidden random state):
 weights come from ``convert.load_flax_variables``, or from
@@ -40,6 +50,9 @@ import torch
 from torch import nn
 from torch.nn import functional as F
 
+from nerf_downstream_tpu_torch.ops import block_resident as br
+from nerf_downstream_tpu_torch.ops.block_conv import block_conv3
+from nerf_downstream_tpu_torch.ops.block_resident import BlockVoxels, remask
 from nerf_downstream_tpu_torch.ops.consts import const
 from nerf_downstream_tpu_torch.ops.norm import (
     batch_norm_apply,
@@ -68,10 +81,25 @@ from nerf_downstream_tpu_torch.sparse.types import SparseVoxels
 BLOCK_SPARSE_MIN_DEAD = 0.25
 
 
-def as_rows(sv: SparseVoxels) -> SparseVoxels:
-    """Row features of a level. The port keeps every level in rows (no
-    block-resident layout), so this is the identity."""
+def as_rows(sv):
+    """Row features of a level: a resident level read back from its
+    cells, rows unchanged (the boundary for row consumers: field slicing,
+    interpolation, heads)."""
+    if isinstance(sv, BlockVoxels):
+        return br.to_rows(sv)
     return sv
+
+
+def _zaxis_subset(full_offs, subset):
+    """A subset of the k3 offsets that is exactly the z column (dx = dy
+    = 0, dz = -1, 0, 1 in the level's units) as offset indices in dz
+    order, else None: such a subset stays on the block-resident path."""
+    if subset is None or len(subset) != 3:
+        return None
+    sub = full_offs[list(subset)]
+    if (sub[:, :2] == 0).all() and sorted(sub[:, 2].tolist()) == [-1, 0, 1]:
+        return tuple(int(subset[i]) for i in np.argsort(sub[:, 2]))
+    return None
 
 
 def _window_groups_ok(offs) -> bool:
@@ -131,14 +159,16 @@ class SparseConv(nn.Module):
                 subset = tuple(int(i) for i in sub)
         return subset
 
-    def forward(self, sv: SparseVoxels, ctx: CoordinateContext):
+    def forward(self, sv, ctx: CoordinateContext):
         cd = self.compute_dtype
         if self.kernel_size == 1 and self.stride == 1:
             # bf16 operands, f32 products and sums (preferred type f32)
-            out_f = (sv.masked_feats().to(cd).to(torch.float32)
+            feats = (sv.feats if isinstance(sv, BlockVoxels)
+                     else sv.masked_feats())
+            out_f = (feats.to(cd).to(torch.float32)
                      @ self.kernel[0].to(cd).to(torch.float32))
             if self.bias is not None:
-                out_f = out_f + self.bias
+                out_f = remask(sv, out_f + self.bias)
             return sv.replace(feats=out_f)
         full_offs = kernel_offsets(self.kernel_size, sv.stride,
                                    self.dilation)
@@ -148,7 +178,17 @@ class SparseConv(nn.Module):
         down = (self.kernel_size in (1, 2) and self.stride == 2
                 and subset is None)
         if ctx.conv_route(self.dilation == 1 and (s1 or down)) == "row":
+            zaxis = _zaxis_subset(full_offs, subset) if s1 else None
+            if (ctx.use_block_resident() and self.dilation == 1
+                    and (down or s1 and (subset is None
+                                         or zaxis is not None))):
+                return self._resident_conv(sv, ctx, zaxis)
+            sv = as_rows(sv)
+            if (s1 and self.dilation == 1 and subset is None
+                    and ctx.use_block_conv()):
+                return self._block_conv(sv, ctx)
             return self._row_conv(sv, ctx, offs, subset)
+        sv = as_rows(sv)
         # a subset with non-uniform (dx, dy) groups is padded with
         # zero-weight repeats of each group's first offset
         w_rows = None
@@ -246,20 +286,78 @@ class SparseConv(nn.Module):
                     block_live_tensor(bl, plan.perm, g_count, m, k.device))
         return self._bs_cache[1:]
 
+    def _resident_conv(self, sv, ctx, zaxis):
+        """A blockable conv under "block_resident": the level enters its
+        cells (if it is not there yet); a k3/s1 conv stays on them, a
+        k2/s2 or k1/s2 conv steps down in-block to the coarser level's
+        cells."""
+        self.route = "block_resident"
+        cd = self.compute_dtype
+        if sv.feats.dtype != cd:
+            # cast before densifying: the scatter moves fewer bytes
+            sv = sv.replace(feats=sv.feats.to(cd))
+        if not isinstance(sv, BlockVoxels):
+            sv = ctx.to_block(sv)
+        w = self.kernel.to(cd)
+        if self.kernel_size == 3:
+            if zaxis is not None:
+                out = sv.replace(feats=br.conv3_zaxis_cells(
+                    sv, w[const(zaxis, torch.int64, w.device)]))
+            else:
+                out = sv.replace(feats=br.conv3_cells(sv, w))
+        else:
+            coarse_sv, layout, cmask, trans = ctx.level_transition(sv)
+            if self.kernel_size == 2:
+                out_f = br.down_conv2(sv, w, layout, trans)
+            else:
+                out_f = br.down_sample_conv1(sv, w[0], layout, trans)
+            if ctx.overflow_guard:
+                out_f = br.overflow_poison(out_f, layout)
+            out = BlockVoxels(coords=coarse_sv.coords,
+                              row_mask=coarse_sv.mask, feats=out_f,
+                              mask=cmask, layout=layout,
+                              stride=coarse_sv.stride)
+        if self.bias is not None:
+            out = out.replace(feats=remask(out, out.feats + self.bias))
+        return out.replace(feats=out.feats.to(cd))
+
+    def _block_conv(self, sv, ctx):
+        """A dense k3/s1 conv under "block": through 4^3 blocks made for
+        this level."""
+        self.route = "block"
+        cd = self.compute_dtype
+        layout = ctx.block_layout(sv.coords, sv.mask, sv.stride)
+        out_f = block_conv3(layout, sv.feats.to(cd), self.kernel.to(cd))
+        if self.bias is not None:
+            out_f = out_f + self.bias
+        return sv.replace(feats=out_f.to(cd))
+
     def _row_conv(self, sv, ctx, offs, subset):
         """The row path (a kernel map, then K6) for any kernel size,
-        stride, dilation and offset subset. The inverse map is built only
-        when autograd may need it."""
+        stride, dilation and offset subset; under "window" a
+        stride-preserving conv with uniform offset groups runs K2/K3 on
+        plans from the map instead. The inverse map is built only when
+        autograd may need it (or the windowed guard reads it)."""
         self.route = "row"
         out_sv = ctx.strided(sv, self.stride) if self.stride > 1 else sv
+        window = (ctx.use_window() and out_sv.stride == sv.stride
+                  and _window_groups_ok(offs))
         km = ctx.kernel_map(sv.coords, sv.mask, out_sv.coords, out_sv.mask,
                             offs, in_stride=sv.stride)
         inv = None
-        if torch.is_grad_enabled():
+        if torch.is_grad_enabled() or window:
             inv = ctx.kernel_map(out_sv.coords, out_sv.mask, sv.coords,
                                  sv.mask, offs, transpose=True,
                                  in_stride=out_sv.stride)
         w = self._kernel_rows(subset, None)
+        if window:
+            self.route = "window"
+            plan = ctx.window_plan(km, sv.capacity, offs)
+            inv_plan = ctx.window_plan(inv, out_sv.capacity, offs)
+            out_f = window_conv_apply(
+                sv.feats, plan, inv_plan, w, self.bias,
+                compute_dtype=self.compute_dtype).to(self.compute_dtype)
+            return sv.replace(feats=out_f)
         out_f = sparse_conv_apply(sv.feats, km, w, self.bias,
                                   compute_dtype=self.compute_dtype,
                                   inv_map=inv).to(self.compute_dtype)
@@ -292,12 +390,15 @@ class SparseConvTranspose(nn.Module):
         self.bias = (nn.Parameter(torch.zeros(out_channels)) if use_bias
                      else None)
 
-    def forward(self, sv: SparseVoxels, ctx: CoordinateContext,
-                target: SparseVoxels):
+    def forward(self, sv, ctx: CoordinateContext, target):
         # offsets in units of the finer (output) level's stride: the
         # adjoint of the down conv that made ``sv`` from ``target``
         offs = kernel_offsets(self.kernel_size, target.stride)
         self.route = ctx.conv_route(self.kernel_size == 2)
+        if (self.route == "row" and self.kernel_size == 2
+                and ctx.use_block_resident()):
+            return self._resident(sv, ctx, target)
+        sv, target = as_rows(sv), as_rows(target)
         if self.route == "windowed":
             plan = ctx.window_plan_cross(sv, target, offs, transpose=True)
             inv_plan = ctx.window_plan_cross(target, sv, offs,
@@ -322,6 +423,31 @@ class SparseConvTranspose(nn.Module):
         return SparseVoxels(coords=target.coords, feats=out_f,
                             mask=target.mask, stride=target.stride)
 
+    def _resident(self, sv, ctx, target):
+        """The k2 transpose under "block_resident": each fine block
+        expands its chunk of the coarse cells, through the transition the
+        encoder's down conv built (the context returns it)."""
+        self.route = "block_resident"
+        cd = self.compute_dtype
+        if not isinstance(sv, BlockVoxels):
+            sv = ctx.to_block(sv)
+        if sv.feats.dtype != cd:
+            sv = sv.replace(feats=sv.feats.to(cd))
+        t_mask = (target.row_mask if isinstance(target, BlockVoxels)
+                  else target.mask)
+        _, _, _, trans = ctx.level_transition_for(
+            target.coords, t_mask, target.stride, sv.feats.dtype)
+        layout = ctx.block_layout(target.coords, t_mask, target.stride)
+        cmask = ctx.cell_mask(layout)
+        out_f = br.up_conv2(sv, self.kernel.to(cd), cmask, trans)
+        if ctx.overflow_guard:
+            out_f = br.overflow_poison(out_f, layout)
+        if self.bias is not None:
+            out_f = torch.where(cmask[..., None], out_f + self.bias, 0)
+        return BlockVoxels(coords=target.coords, row_mask=t_mask,
+                           feats=out_f.to(cd), mask=cmask, layout=layout,
+                           stride=target.stride)
+
 
 class SparsePool(nn.Module):
     """Strided window pooling (sum, avg or max) over a row kernel map onto
@@ -334,7 +460,18 @@ class SparsePool(nn.Module):
         self.stride = stride
         self.mode = mode
 
-    def forward(self, sv: SparseVoxels, ctx: CoordinateContext):
+    def forward(self, sv, ctx: CoordinateContext):
+        if (isinstance(sv, BlockVoxels) and self.kernel_size == 2
+                and self.stride == 2):
+            coarse_sv, layout, cmask, trans = ctx.level_transition(sv)
+            out_f = br.pool2_cells(sv, self.mode, layout, trans)
+            if ctx.overflow_guard:
+                out_f = br.overflow_poison(out_f, layout)
+            return BlockVoxels(coords=coarse_sv.coords,
+                               row_mask=coarse_sv.mask, feats=out_f,
+                               mask=cmask, layout=layout,
+                               stride=coarse_sv.stride)
+        sv = as_rows(sv)
         offs = kernel_offsets(self.kernel_size, sv.stride)
         out_sv = ctx.strided(sv, self.stride) if self.stride > 1 else sv
         km = ctx.kernel_map(sv.coords, sv.mask, out_sv.coords, out_sv.mask,
@@ -393,9 +530,9 @@ class MaskedBatchNorm(nn.Module):
                                        + m * unbiased)
         else:
             mean, var = self.running_mean, self.running_var
-        return sv.replace(feats=batch_norm_apply(
+        return sv.replace(feats=remask(sv, batch_norm_apply(
             sv.feats, mean, var, self.weight, self.bias, self.eps,
-        ))
+        )))
 
 
 NONLINEARITIES = {
@@ -420,8 +557,10 @@ def get_nonlinearity(name: str):
         raise ValueError(f"unknown nonlinearity {name!r}")
     fn = NONLINEARITIES[name]
 
-    def apply(sv: SparseVoxels) -> SparseVoxels:
-        return sv.replace(feats=fn(sv.feats))
+    def apply(sv):
+        # on cells, a function that does not map 0 to 0 would fill the
+        # unoccupied ones
+        return sv.replace(feats=remask(sv, fn(sv.feats)))
 
     return apply
 
@@ -439,8 +578,8 @@ class MinkLayerNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(num_channels))
 
     def forward(self, sv: SparseVoxels) -> SparseVoxels:
-        return sv.replace(feats=layer_norm(sv.feats, self.weight, self.bias,
-                                           self.eps))
+        return sv.replace(feats=remask(sv, layer_norm(
+            sv.feats, self.weight, self.bias, self.eps)))
 
 
 class MinkInstanceNorm(nn.Module):
@@ -459,11 +598,13 @@ class MinkInstanceNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(num_channels))
 
     def forward(self, sv: SparseVoxels) -> SparseVoxels:
+        # rows, or a resident level's cells flattened
+        flat = sv.feats.reshape(-1, sv.num_channels)
         mean, var = instance_norm_stats(
-            sv.feats, sv.batch_ids(self.num_batches), self.num_batches)
-        f = (sv.feats.to(torch.float32) - mean) * torch.rsqrt(var + self.eps)
-        return sv.replace(
-            feats=(f * self.weight + self.bias).to(sv.feats.dtype))
+            flat, sv.batch_ids(self.num_batches), self.num_batches)
+        f = (flat.to(torch.float32) - mean) * torch.rsqrt(var + self.eps)
+        out = (f * self.weight + self.bias).to(sv.feats.dtype)
+        return sv.replace(feats=remask(sv, out.reshape(sv.feats.shape)))
 
 
 def make_norm(norm_type: str, num_channels: int, *,
@@ -486,8 +627,12 @@ def make_norm(norm_type: str, num_channels: int, *,
     raise ValueError(f"unknown norm type {norm_type!r}")
 
 
-def cat(a: SparseVoxels, b: SparseVoxels) -> SparseVoxels:
+def cat(a, b):
     """Feature concat of two levels on the same coordinate set (UNet skip),
-    promoting to the wider type as the reference does."""
+    promoting to the wider type as the reference does. A resident level
+    meeting rows (one side left the blocks, e.g. at a ZAXIS conv) is read
+    back to rows first."""
+    if isinstance(a, BlockVoxels) != isinstance(b, BlockVoxels):
+        a, b = as_rows(a), as_rows(b)
     dt = torch.promote_types(a.feats.dtype, b.feats.dtype)
     return a.replace(feats=torch.cat([a.feats.to(dt), b.feats.to(dt)], -1))

@@ -28,6 +28,7 @@ import torch
 from torch import nn
 
 from nerf_downstream_tpu_torch import config as cfg
+from nerf_downstream_tpu_torch.ops.block_resident import remask
 from nerf_downstream_tpu_torch.sparse.types import SparseVoxels
 
 _ABKW = 0.9  # alpha_bkw; the reference never overrides the default
@@ -98,13 +99,14 @@ class MinkPowerNorm(nn.Module):
         self.register_buffer("ema_gz", torch.zeros(num_channels))
 
     def forward(self, sv: SparseVoxels) -> SparseVoxels:
-        x = group_scaling(sv.feats.to(torch.float32), self.group_num,
-                          self.eps)
+        c = sv.num_channels
+        # rows, or a resident level's cells flattened
+        x = group_scaling(sv.feats.reshape(-1, c).to(torch.float32),
+                          self.group_num, self.eps)
         if not self.training:
             z = x / torch.sqrt(self.running_phi + self.eps)
-            out = self.weight * z + self.bias
-            return sv.replace(feats=out.to(sv.feats.dtype))
-        mask_f = sv.mask.to(torch.float32)
+            return self._out(sv, self.weight * z + self.bias)
+        mask_f = sv.mask.reshape(-1).to(torch.float32)
         cnt = torch.clamp(mask_f.sum(), min=1.0)
         x2 = ((x * x).detach() * mask_f[:, None]).sum(0) / cnt
         it = self.iters + 1
@@ -118,7 +120,14 @@ class MinkPowerNorm(nn.Module):
             self.running_phi.copy_(self.alpha_fwd * new_phi
                                    + (1 - self.alpha_fwd) * x2)
             self.iters.copy_(it)
-        return sv.replace(feats=out.to(sv.feats.dtype))
+        return self._out(sv, out)
+
+    @staticmethod
+    def _out(sv, out):
+        """``out`` [rows, C] back in ``sv``'s shape and type, unoccupied
+        cells of a resident level zero."""
+        out = out.to(sv.feats.dtype).reshape(sv.feats.shape)
+        return sv.replace(feats=remask(sv, out))
 
 
 def convert_powernorm_state(bn_params: dict, bn_stats: dict):

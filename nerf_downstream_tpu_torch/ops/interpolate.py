@@ -7,9 +7,9 @@ it at the set's stride, ``floor(coords / stride)`` plus 0 or 1 per axis
 (floor division, so negative coordinates take the cell below), with the
 trilinear weights of its fractional position. ``interpolate`` gathers
 voxel features onto the points; ``splat`` scatter-adds point features
-onto the voxels with an accumulating ``index_put`` (which sorts its
-indices and adds each row's terms in a fixed order on the card, so a step
-repeats bit for bit). A corner that is not in the voxel set takes weight
+onto the voxels with ``ops/scatter.add_rows`` (each row's terms in a
+fixed order, on the card and on the CPU, so a step repeats bit for bit).
+A corner that is not in the voxel set takes weight
 0. The reference computes both with XLA ops (no Pallas kernel), so the
 port computes them in plain PyTorch.
 """
@@ -22,6 +22,7 @@ import numpy as np
 import torch
 
 from nerf_downstream_tpu_torch.ops.consts import const
+from nerf_downstream_tpu_torch.ops.scatter import add_rows, gather_rows
 from nerf_downstream_tpu_torch.sparse.kernels import lookup_rows, sorted_rows
 from nerf_downstream_tpu_torch.sparse.types import PointField
 
@@ -70,7 +71,8 @@ def interpolate(sv_coords: torch.Tensor, sv_mask: torch.Tensor,
                                  sv_stride)
     feats_ext = torch.cat([sv_feats,
                            sv_feats.new_zeros((1, sv_feats.shape[1]))])
-    out = (weights[..., None] * feats_ext[rows].to(torch.float32)).sum(0)
+    out = (weights[..., None]
+           * gather_rows(feats_ext, rows).to(torch.float32)).sum(0)
     return out.to(sv_feats.dtype)
 
 
@@ -86,5 +88,5 @@ def splat(field: PointField, out_coords: torch.Tensor,
     contrib = weights.reshape(-1, 1) * masked.to(torch.float32).repeat(8, 1)
     out = torch.zeros((n_out + 1, field.feats.shape[1]), dtype=torch.float32,
                       device=field.feats.device)
-    out = out.index_put((rows.reshape(-1),), contrib, accumulate=True)
+    out = add_rows(out, rows.reshape(-1), contrib)
     return out[:n_out].to(field.feats.dtype)

@@ -5,6 +5,8 @@ from __future__ import annotations
 
 import torch
 
+from nerf_downstream_tpu_torch.ops.scatter import add_rows, gather_rows
+
 
 def masked_mean_var(feats: torch.Tensor, mask: torch.Tensor,
                     return_count: bool = False):
@@ -45,17 +47,15 @@ def instance_norm_stats(feats: torch.Tensor, batch_ids: torch.Tensor,
     """Per-(scene, channel) mean and (biased, clamped at 0) variance of
     ``feats`` [N, C] in f32, broadcast back to the rows. ``batch_ids``
     puts padding rows in the spare segment ``num_batches``, so they count
-    in no scene's statistics. The segment sums accumulate with a sorting
-    ``index_put`` (a fixed order on the card, as ``ops/pool.py``'s)."""
+    in no scene's statistics. The segment sums accumulate with
+    ``add_rows`` (a fixed order, as ``ops/pool.py``'s)."""
     f = feats.to(torch.float32)
     ids = batch_ids.long()
     ns = num_batches + 1
-    cnt = f.new_zeros(ns).index_put((ids,), f.new_ones(f.shape[0]),
-                                    accumulate=True)
-    s1 = f.new_zeros(ns, f.shape[1]).index_put((ids,), f, accumulate=True)
-    s2 = f.new_zeros(ns, f.shape[1]).index_put((ids,), f * f,
-                                               accumulate=True)
+    cnt = add_rows(f.new_zeros(ns), ids, f.new_ones(f.shape[0]))
+    s1 = add_rows(f.new_zeros(ns, f.shape[1]), ids, f)
+    s2 = add_rows(f.new_zeros(ns, f.shape[1]), ids, f * f)
     cnt = torch.clamp(cnt, min=1.0)[:, None]
     mean = s1 / cnt
     var = torch.clamp(s2 / cnt - mean * mean, min=0.0)
-    return mean[ids], var[ids]
+    return gather_rows(mean, ids), gather_rows(var, ids)

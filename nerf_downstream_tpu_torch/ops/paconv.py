@@ -9,10 +9,9 @@ not with a Pallas kernel, so the port computes it in plain PyTorch, in the
 same shape: the forward loops over k (gather, product, accumulate) so that
 only one [B, N, M, O] slab is live, and the backward
 (``_AssignScore.backward``) recomputes the gathers for d_scores, adds
-d_points over the kNN rows with an accumulating ``index_put_`` (it sorts
-its indices and adds each row's terms in a fixed order on the card, so a
-training step repeats bit for bit; ``index_add_`` and ``scatter_add_``
-add with float atomics there) and takes d_centers as
+d_points over the kNN rows with ``ops/scatter.add_rows_`` (each row's
+terms in a fixed order on the card and on the CPU, so a training step
+repeats bit for bit) and takes d_centers as
 ``-sum_k scores (x) g``. ``assign_score_withk_reference`` is the naive
 version (it materialises [B, N, K, M, O]) that the tests hold the others
 to.
@@ -21,6 +20,8 @@ to.
 from __future__ import annotations
 
 import torch
+
+from nerf_downstream_tpu_torch.ops.scatter import add_rows_, gather_rows
 
 
 def _rows(knn_k: torch.Tensor, n_points: int) -> torch.Tensor:
@@ -33,7 +34,8 @@ def _rows(knn_k: torch.Tensor, n_points: int) -> torch.Tensor:
 
 def _gather(flat_points: torch.Tensor, rows: torch.Tensor, b: int, n: int):
     """[B, N, M, O] rows of ``flat_points`` [B * Np, M, O]."""
-    return flat_points[rows].reshape(b, n, *flat_points.shape[1:])
+    return gather_rows(flat_points, rows).reshape(b, n,
+                                                  *flat_points.shape[1:])
 
 
 class _AssignScore(torch.autograd.Function):
@@ -74,7 +76,7 @@ class _AssignScore(torch.autograd.Function):
                 diff.reshape(b * n, m, o), gf).reshape(b, n, m)
             contrib = (scores[:, :, kk, :].float().reshape(b * n, m, 1)
                        * gf.reshape(b * n, 1, o))
-            d_points.index_put_((rows,), contrib, accumulate=True)
+            add_rows_(d_points, rows, contrib)
         d_centers = None
         if centers is not None:
             s_sum = scores.float().sum(2).reshape(b * n, m, 1)

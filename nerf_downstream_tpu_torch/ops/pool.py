@@ -3,18 +3,21 @@ pooling over the batch (counterpart of ``nerf_downstream_tpu/ops/pool.py``).
 
 The reference computes both with XLA ops (a scan over the map's offsets,
 ``segment_sum`` / ``segment_max``), not with a Pallas kernel, so the port
-computes them in plain PyTorch: gathers, an accumulating ``index_put``
-(which sorts its indices and adds each row's terms in a fixed order on
-the card, so a training step stays reproducible) and ``scatter_reduce``.
+computes them in plain PyTorch: gathers and accumulating scatters
+through ``ops/scatter.py`` (each adds a row's terms in a fixed order, on
+the card and on the CPU, so a training step repeats) and
+``scatter_reduce``.
 The global max's backward is written out (``_SegmentMax``): each row
 equal to its element's maximum takes the gradient divided by the count
-of such rows, the reference's rule for ties, with the count added by an
-accumulating ``index_put``.
+of such rows, the reference's rule for ties, with the count added by
+``add_rows``.
 """
 
 from __future__ import annotations
 
 import torch
+
+from nerf_downstream_tpu_torch.ops.scatter import add_rows, gather_rows
 
 
 def window_pool(feats: torch.Tensor, kernel_map: torch.Tensor,
@@ -34,7 +37,8 @@ def window_pool(feats: torch.Tensor, kernel_map: torch.Tensor,
     spread = torch.arange(n_out, device=feats.device) % n_in
 
     def gather(k):
-        return feats[torch.where(found[k], kernel_map[k].long(), spread)]
+        return gather_rows(feats, torch.where(found[k], kernel_map[k].long(),
+                                              spread))
 
     if mode == "max":
         neg = torch.finfo(feats.dtype).min
@@ -72,7 +76,7 @@ class _SegmentMax(torch.autograd.Function):
     def backward(ctx, g):
         feats, ids, out = ctx.saved_tensors
         hit = (feats == out[ids]).to(g.dtype)
-        ties = torch.zeros_like(g).index_put((ids,), hit, accumulate=True)
+        ties = add_rows(torch.zeros_like(g), ids, hit)
         return hit * (g / torch.clamp(ties, min=1))[ids], None, None
 
 
@@ -86,13 +90,12 @@ def global_pool(feats: torch.Tensor, batch_ids: torch.Tensor,
     if mode == "max":
         out = _SegmentMax.apply(feats, ids, num_batches + 1)[:num_batches]
         return torch.where(torch.isfinite(out), out, 0)
-    sums = feats.new_zeros((num_batches + 1, c)).index_put(
-        (ids,), feats, accumulate=True)[:num_batches]
+    sums = add_rows(feats.new_zeros((num_batches + 1, c)), ids,
+                    feats)[:num_batches]
     if mode == "sum":
         return sums
     if mode == "avg":
-        cnt = feats.new_zeros((num_batches + 1,)).index_put(
-            (ids,), torch.ones_like(ids, dtype=feats.dtype),
-            accumulate=True)[:num_batches]
+        cnt = add_rows(feats.new_zeros((num_batches + 1,)), ids,
+                       torch.ones_like(ids, dtype=feats.dtype))[:num_batches]
         return sums / torch.clamp(cnt, min=1)[:, None]
     raise ValueError(f"unknown pool mode {mode!r}")

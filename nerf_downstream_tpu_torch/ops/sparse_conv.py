@@ -22,6 +22,7 @@ from __future__ import annotations
 import torch
 
 from nerf_downstream_tpu_torch.ops.kernels import row_gather_matmul
+from nerf_downstream_tpu_torch.ops.scatter import add_rows_, gather_rows
 
 
 def _d_w(feats_ext, kernel_map, gc):
@@ -33,9 +34,8 @@ def _d_w(feats_ext, kernel_map, gc):
 
 
 class _SparseConvCore(torch.autograd.Function):
-    """K6 forward; backward by scatter-adds (the reference's ``_core_bwd``),
-    accumulating ``index_put_`` calls that add each row's terms in a fixed
-    order on the card."""
+    """K6 forward; backward by scatter-adds (the reference's ``_core_bwd``)
+    through ``add_rows_``, which adds each row's terms in a fixed order."""
 
     @staticmethod
     def forward(ctx, feats_ext, kernel_map, w):
@@ -52,8 +52,7 @@ class _SparseConvCore(torch.autograd.Function):
                                   device=g.device)
             for k in range(kernel_map.shape[0]):
                 contrib = gc.float() @ w[k].float().t()
-                d_feats.index_put_((kernel_map[k].long(),), contrib,
-                                   accumulate=True)
+                add_rows_(d_feats, kernel_map[k], contrib)
             d_feats[-1] = 0.0  # the sentinel row has no gradient
             d_feats = d_feats.to(feats_ext.dtype)
         return d_feats, None, _d_w(feats_ext, kernel_map, gc).to(w.dtype)
@@ -107,8 +106,7 @@ def sparse_conv_apply(feats: torch.Tensor, kernel_map: torch.Tensor,
     w = weights.to(compute_dtype).contiguous()
     if kernel_map.shape[0] == 1:
         # kernel volume 1: a plain gather and matmul
-        out = (feats_ext[kernel_map[0].long()].float()
-               @ w[0].float())
+        out = gather_rows(feats_ext, kernel_map[0]).float() @ w[0].float()
     elif inv_map is not None:
         out = _SparseConvCoreInv.apply(feats_ext, kernel_map.contiguous(),
                                        inv_map, w)

@@ -10,7 +10,9 @@ window)``, shared by the offsets of a group (offsets with the same
 starts and each entry's rank inside its window; the conv gathers and
 multiplies by those ranks.
 
-Plan side: ``build_plan_direct`` finds window starts from tile-boundary
+Plan side: ``build_plan`` tiles a monotone row kernel map into window
+starts and in-window ranks (the "window" conv method; plain PyTorch, as
+the reference's XLA ops). ``build_plan_direct`` finds window starts from tile-boundary
 lower bounds (the window-starts pass, ``window_starts``) and the
 in-window ranks with K1 (``window_match``): two launches on the card, no
 host round trip. The offset order and key deltas of a plan are static
@@ -22,9 +24,9 @@ list instead of poisoning the output. ``transpose_plan`` relabels a
 same-set plan into its transpose.
 
 Apply side: ``window_conv_apply`` runs K2 (``window_gather_matmul``) and
-adds the escape entries with an accumulating ``index_put_``, which sorts
-its indices and adds each row's entries in a fixed order on the card (an
-``index_add_`` adds them with atomics, in whatever order they land). For inference over a pruned
+adds the escape entries with ``ops/scatter.add_rows_``, which adds each
+row's entries in a fixed order on the card and on the CPU. For
+inference over a pruned
 checkpoint, ``window_conv_apply_blocksparse`` runs K5
 (``window_gather_matmul_bs``) instead, which skips dead weight blocks.
 The gradient of ``window_conv_apply`` is a
@@ -56,6 +58,7 @@ from nerf_downstream_tpu_torch.ops.kernels import (
     window_starts,
 )
 from nerf_downstream_tpu_torch.ops.kernels.gather_matmul_bs import live_mask
+from nerf_downstream_tpu_torch.ops.scatter import add_rows_, gather_rows
 from nerf_downstream_tpu_torch.sparse import packing
 
 _U32 = 0xFFFFFFFF
@@ -153,6 +156,52 @@ def window_tile(n: int, tile: int) -> int:
     if n % tile:
         raise ValueError(f"capacity {n} not divisible by window tile {tile}")
     return tile
+
+
+def build_plan(
+    kernel_map: torch.Tensor,
+    n_in: int,
+    offsets: np.ndarray,
+    tile: int = 256,
+    window: int = 512,
+    expansion: int = 1,
+    blocks: int = 2,
+) -> WindowPlan:
+    """Window plan of a monotone kernel map int32[K, N_out] (``n_in`` =
+    no neighbour). ``expansion``: input ranks advanced per output row (a
+    map into a coarser set), which shrinks the tile by that factor.
+
+    Each (group, tile) window starts at the smallest neighbour rank of
+    the tile (an empty tile inherits the previous start: the maps are
+    monotone), quantized down to a multiple of ``window``; entries past
+    ``blocks * window`` count in ``n_escaped``. Ranks past the table read
+    as zero rows in K2, so the features need no padding."""
+    n_out = kernel_map.shape[1]
+    tile = window_tile(n_out, max(32, tile // max(int(expansion), 1)))
+    nt = n_out // tile
+    groups = group_offsets(offsets)
+    perm = tuple(i for g in groups for i in g)
+    g_count, m = len(groups), len(groups[0])
+    km = kernel_map[const(perm, torch.int64, kernel_map.device)].reshape(
+        g_count, m, n_out)
+    valid = km < n_in
+    big = 1 << 30
+    gmin = torch.where(valid, km, big).amin(1)  # [G, N_out]
+    tmin = gmin.reshape(g_count, nt, tile).amin(2)
+    tmin = torch.where(tmin == big, -1, tmin)
+    starts = torch.cummax(tmin, 1).values.clamp(min=0)
+    starts = (torch.div(starts, window, rounding_mode="floor")
+              * window).to(torch.int32)
+    rel = km - starts.repeat_interleave(tile, 1)[:, None, :]
+    in_win = valid & (rel >= 0) & (rel < blocks * window)
+    n_escaped = (valid & ~in_win).sum(dtype=torch.int32)
+    idx = torch.where(in_win, rel, -1).to(torch.int32)
+    return WindowPlan(
+        starts=starts,
+        idx=idx.reshape(g_count, m, nt, tile).permute(0, 2, 1, 3).contiguous(),
+        n_escaped=n_escaped, perm=perm, tile=tile, window=window,
+        blocks=blocks,
+    )
 
 
 def build_plan_direct(
@@ -371,7 +420,8 @@ def _esc_scatter(out, feats, esc_k, esc_i, esc_j, w_gm):
     autodiff). ``out`` is updated in place; the conv's autograd Functions
     save no output, so autograd can rebase it."""
     valid = esc_j >= 0
-    gf = torch.where(valid[:, None], feats[esc_j.clamp(min=0).long()], 0)
+    gf = torch.where(valid[:, None], gather_rows(feats, esc_j.clamp(min=0)),
+                     0)
     k_count, c, cout = w_gm.shape
     onehot = (esc_k[:, None] == torch.arange(k_count, device=esc_k.device))
     sel = onehot[:, :, None].to(torch.float32) * gf[:, None, :].to(
@@ -379,13 +429,13 @@ def _esc_scatter(out, feats, esc_k, esc_i, esc_j, w_gm):
     contrib = sel.reshape(-1, k_count * c) @ w_gm.reshape(
         k_count * c, cout).to(torch.float32)
     upd = torch.where(valid[:, None], contrib, 0.0).to(out.dtype)
-    # sorted, fixed-order accumulation: reproducible on the card. The
-    # padding entries add zeros to rows of their own; all on one row, the
-    # sorted accumulation would add them one after another
+    # fixed-order accumulation. The padding entries add zeros to rows of
+    # their own; all on one row, the sorted accumulation on the card would
+    # add them one after another
     rows = torch.where(valid, esc_i.long(),
                        torch.arange(esc_i.shape[0], device=esc_i.device)
                        % out.shape[0])
-    return out.index_put_((rows,), upd, accumulate=True)
+    return add_rows_(out, rows, upd)
 
 
 class _WindowConvCore(torch.autograd.Function):

@@ -1,6 +1,6 @@
-"""Per-forward coordinate context: window-plan, kernel-map and stride
-caches (counterpart of ``nerf_downstream_tpu/sparse/context.py``: its
-windowed branch and its row kernel maps).
+"""Per-forward coordinate context: window-plan, kernel-map, stride and
+block-layout caches (counterpart of
+``nerf_downstream_tpu/sparse/context.py``).
 
 Every conv of a level reuses one window plan; plans, kernel maps, strided
 levels and their overflow counters are cached by the identity of the
@@ -12,16 +12,29 @@ pass.
 The constructor takes the reference's arguments and is gin-configurable
 under the same name (``CoordinateContext.window_size = 128``); the meaning
 of each knob is documented on the reference class. ``method`` resolves as
-the reference's does (``conv_route``): "auto" with a ``grid_extent``, or
-"hybrid", is the fully-windowed path for the convs it takes (k3/s1, k2/s2
-and k1/s2 without dilation, the k2 transpose conv); every other conv, and
-every conv under "row", "search" or "auto" without an extent, takes the
-row path (a kernel map, then K6). "block", "block_resident" and "window"
-raise ``NotImplementedError`` when a conv asks for its route (ROADMAP.md
-Queue 1 item 3d); nothing falls back quietly. ``block_cap_divisor`` and
-``block_caps`` configure only those unported paths and are accepted for
-the configs' sake; ``overflow_guard = False`` turns off the level caps'
-NaN poisoning, as in the reference.
+the reference's does:
+
+- "auto" with a ``grid_extent``, or "hybrid" (with or without one), is
+  the fully-windowed path (``use_window_full``) for the convs it takes
+  (k3/s1, k2/s2 and k1/s2 without dilation, the k2 transpose conv);
+- "block_resident" with a ``grid_extent`` keeps each level in dense 4^3
+  blocks (``use_block_resident``, ``to_block``, ``level_transition``;
+  ``ops/block_resident.py``) for its k3/s1 convs (or their ZAXIS
+  subset), k2/s2 and k1/s2 convs, k2 transposes and k2 poolings;
+- "block" with a ``grid_extent`` runs each dense k3/s1 conv through
+  blocks made for it (``use_block_conv``, ``block_layout``;
+  ``ops/block_conv.py``);
+- "window" runs every stride-preserving conv whose offsets form
+  uniform (dx, dy) groups through a window plan made from its row kernel
+  map (``use_window``, ``window_plan``; ``ops/window_conv.build_plan``);
+- every other conv, and every conv under "row", "search", or "auto" and
+  the block methods without an extent, takes the row path (a kernel map,
+  then K6).
+
+Block capacities: ``block_caps`` (per level, log2 of the stride) or
+``capacity / (block_cap_divisor * stride^2)`` blocks, at least 64; a
+level whose blocks overflow its cap NaN-poisons. ``overflow_guard =
+False`` turns off the caps' NaN poisoning, as in the reference.
 The pruned-eval knobs (``eval3d --sparsify``): ``valid_offsets_map``
 {conv module path -> live offset tuple} is read by mode-1 convs;
 ``block_live_map`` {conv module path -> bool[K, nbi, nbo]} by every
@@ -38,11 +51,6 @@ import torch
 from nerf_downstream_tpu_torch import config as cfg
 from nerf_downstream_tpu_torch.sparse import kernels
 from nerf_downstream_tpu_torch.sparse.types import SparseVoxels
-
-
-# methods whose conv paths (block layouts, plans from kernel maps) the
-# port does not have
-UNPORTED_METHODS = ("block", "block_resident", "window")
 
 
 def _level(stride: int) -> int:
@@ -96,6 +104,10 @@ class CoordinateContext:
         self._grids: dict = {}
         self._strided: dict = {}
         self._level_overflow: dict = {}
+        self._block_layouts: dict = {}
+        self._block_grids: dict = {}
+        self._cell_masks: dict = {}
+        self._transitions: dict = {}
 
     def use_window_full(self) -> bool:
         """The reference's resolution of the fully-windowed path: "hybrid",
@@ -104,15 +116,22 @@ class CoordinateContext:
             self.method == "auto" and self.grid_extent is not None)
 
     def conv_route(self, windowable: bool) -> str:
-        """The path of a conv: "windowed" when the fully-windowed path is
-        on and the conv is one it takes (``windowable``), else "row".
-        Raises for the methods whose paths are not ported."""
-        if self.method in UNPORTED_METHODS:
-            raise NotImplementedError(
-                f"CoordinateContext.method {self.method!r} is not ported "
-                "(ROADMAP.md Queue 1 item 3d); the ported methods are "
-                "'auto', 'hybrid', 'row' and 'search'")
+        """The path of a conv that the fully-windowed path may take:
+        "windowed" when that path is on and the conv is one it takes
+        (``windowable``), else "row" (the block methods and "window" pick
+        their convs in the layers, ahead of the row path)."""
         return "windowed" if windowable and self.use_window_full() else "row"
+
+    def use_window(self) -> bool:
+        """Window plans from row kernel maps for stride-preserving convs."""
+        return self.method == "window"
+
+    def use_block_conv(self) -> bool:
+        return self.method == "block" and self.grid_extent is not None
+
+    def use_block_resident(self) -> bool:
+        return (self.method == "block_resident"
+                and self.grid_extent is not None)
 
     @staticmethod
     def _get(cache: dict, key):
@@ -199,6 +218,104 @@ class CoordinateContext:
         )
         return self._put(self._window_plans, key,
                          (table_sv.coords, query_sv.coords), plan)
+
+    def window_plan(self, kernel_map, n_in: int, offsets,
+                    expansion: int = 1):
+        """Window plan of a monotone row kernel map (cached per map).
+        ``expansion``: input ranks advanced per output row ((out_stride /
+        in_stride)^3 for a map into a coarser set, 1 otherwise)."""
+        from nerf_downstream_tpu_torch.ops.window_conv import build_plan
+
+        key = (id(kernel_map), "map")
+        plan = self._get(self._window_plans, key)
+        if plan is None:
+            plan = self._put(self._window_plans, key, (kernel_map,),
+                             build_plan(kernel_map, n_in, offsets,
+                                        tile=self.window_tile,
+                                        window=self.window_size,
+                                        expansion=expansion))
+        return plan
+
+    def block_layout(self, coords, mask, stride: int):
+        """The 4^3 block layout of the level at ``coords`` (cached)."""
+        from nerf_downstream_tpu_torch.ops.block_conv import (
+            build_block_layout,
+        )
+
+        key = (id(coords), stride)
+        layout = self._get(self._block_layouts, key)
+        if layout is None:
+            n = coords.shape[0]
+            if self.block_caps is not None:
+                cap = self._per_level(self.block_caps, stride)
+            else:
+                # a shell's occupied blocks thin about stride^2 as the
+                # grid coarsens
+                cap = max(int(n / (self.block_cap_divisor * stride * stride)),
+                          64)
+            # never more blocks than rows (the sentinel convention)
+            cap = min(cap, n)
+            layout = self._put(self._block_layouts, key, (coords,),
+                               build_block_layout(
+                                   coords, mask, stride, cap,
+                                   self.num_batches,
+                                   self.grid_extent or 512))
+        return layout
+
+    def cell_mask(self, layout):
+        from nerf_downstream_tpu_torch.ops.block_resident import cell_mask_of
+
+        key = id(layout)
+        m = self._get(self._cell_masks, key)
+        if m is None:
+            m = self._put(self._cell_masks, key, (layout,),
+                          cell_mask_of(layout))
+        return m
+
+    def to_block(self, sv: SparseVoxels):
+        """Enter the block-resident layout of ``sv``'s level."""
+        from nerf_downstream_tpu_torch.ops import block_resident as br
+
+        layout = self.block_layout(sv.coords, sv.mask, sv.stride)
+        return br.to_block(sv, layout, self.cell_mask(layout),
+                           guard=self.overflow_guard)
+
+    def level_transition(self, bv):
+        """(coarse SparseVoxels, coarse layout, coarse cell mask,
+        transition) of the stride-2 step down from resident level
+        ``bv``."""
+        return self.level_transition_for(bv.coords, bv.row_mask, bv.stride,
+                                          bv.feats.dtype)
+
+    def level_transition_for(self, coords, row_mask, stride: int, dtype):
+        from nerf_downstream_tpu_torch.ops import block_resident as br
+        from nerf_downstream_tpu_torch.ops.block_conv import block_grid
+
+        key = (id(coords), stride)
+        hit = self._get(self._transitions, key)
+        if hit is not None:
+            return hit
+        fine_sv = SparseVoxels(
+            coords=coords, feats=torch.zeros((coords.shape[0], 0), dtype=dtype,
+                                             device=coords.device),
+            mask=row_mask, stride=stride)
+        coarse_sv = self.strided(fine_sv, 2)
+        coarse_layout = self.block_layout(coarse_sv.coords, coarse_sv.mask,
+                                          coarse_sv.stride)
+        gkey = (id(coarse_sv.coords), coarse_sv.stride)
+        grid = self._get(self._block_grids, gkey)
+        if grid is None:
+            grid = self._put(self._block_grids, gkey, (coarse_sv.coords,),
+                             block_grid(coarse_layout.block_coords,
+                                        coarse_layout.block_mask,
+                                        self.num_batches,
+                                        self.grid_extent or 512))
+        trans = br.build_level_transition(
+            self.block_layout(coords, row_mask, stride), coarse_layout,
+            grid[0], grid[1], self.num_batches, grid[2])
+        return self._put(self._transitions, key, (coords,),
+                         (coarse_sv, coarse_layout,
+                          self.cell_mask(coarse_layout), trans))
 
     def strided(self, sv: SparseVoxels, stride: int) -> SparseVoxels:
         """The level ``stride`` times coarser than ``sv`` (cached), capped

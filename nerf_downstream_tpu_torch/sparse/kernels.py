@@ -16,6 +16,7 @@ import torch
 
 from nerf_downstream_tpu_torch import config as cfg
 from nerf_downstream_tpu_torch.ops.consts import const
+from nerf_downstream_tpu_torch.ops.scatter import gather_rows
 from nerf_downstream_tpu_torch.sparse import packing
 from nerf_downstream_tpu_torch.sparse.types import PointField, SparseVoxels
 
@@ -298,7 +299,7 @@ def slice_field(sv: SparseVoxels, field: PointField) -> PointField:
     q = torch.cat([field.coords[:, :1].to(torch.int32), vox], 1)
     rows = lookup_rows(sorted_rows(sv.coords, sv.mask), q, field.mask)
     feats_ext = torch.cat([sv.feats, sv.feats.new_zeros((1, sv.num_channels))])
-    return PointField(coords=field.coords, feats=feats_ext[rows.long()],
+    return PointField(coords=field.coords, feats=gather_rows(feats_ext, rows),
                       mask=field.mask)
 
 
@@ -310,5 +311,5 @@ def sparse_to_field(sv: SparseVoxels, field: PointField, point_to_voxel):
         return PointField(coords=field.coords, feats=feats, mask=field.mask)
     feats_ext = torch.cat([sv.feats, sv.feats.new_zeros((1, sv.num_channels))])
     idx = torch.where(field.mask, point_to_voxel, sv.capacity).long()
-    return PointField(coords=field.coords, feats=feats_ext[idx],
+    return PointField(coords=field.coords, feats=gather_rows(feats_ext, idx),
                       mask=field.mask)

@@ -2,11 +2,11 @@
 validation hooks (counterpart of ``nerf_downstream_tpu/train/modules.py``:
 ``BaseTask``, ``SegmentationTraining`` and ``ClassificationTraining``).
 
-A training step is reproducible on the card: every accumulating scatter
-of the step adds in a fixed order (the escape path and the row path
-accumulate with a sorting ``index_put_``, as PyTorch differentiates the
-gathers; the kernels add their f32 partial sums in a fixed order), so two
-steps from the same state are bit-identical.
+A training step is reproducible on the card and on the CPU: every
+accumulating scatter of the step adds in a fixed order (the escape path,
+the row path and the gathers' backward go through ``ops/scatter.py``;
+the kernels add their f32 partial sums in a fixed order), so two steps
+from the same state are bit-identical.
 """
 
 from __future__ import annotations

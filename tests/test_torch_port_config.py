@@ -68,10 +68,10 @@ def test_check_bindings_takes_every_class_of_a_name():
 
 def test_every_repo_config_applies_in_the_port():
     """Every binding of every config names a configurable of the port and
-    one of its parameters, or a transform of the reference that the port
-    declares unported (``modelnet40_cls.gin`` binds ``PerlinNoise``'s,
-    which its pipeline does not list), and its dataset resolves;
-    ``modelnet40_cls.gin`` now among them, with its ModelNet40 reader."""
+    one of its parameters (``modelnet40_cls.gin`` binds ``PerlinNoise``'s,
+    which its pipeline does not list: the port has that transform now),
+    and its dataset resolves; ``modelnet40_cls.gin`` among them, with its
+    ModelNet40 reader."""
     import importlib
 
     from nerf_downstream_tpu_torch.data.datasets import get_dataset
@@ -89,8 +89,9 @@ def test_every_repo_config_applies_in_the_port():
         assert get_dataset() is not None, path
         if path.endswith("modelnet40_cls.gin"):
             assert get_dataset() is ModelNet40H5Dataset
-    with pytest.raises(NotImplementedError, match="Queue 1 item 3d"):
-        tcfg.get_configurable("PerlinNoise")
+    from nerf_downstream_tpu_torch.data.transforms import PerlinNoise
+
+    assert tcfg.get_configurable("PerlinNoise") is PerlinNoise
 
 
 def test_later_wins_includes_macros_and_refs(tmp_path):

@@ -2,8 +2,9 @@
 CPU, on clouds centred on the origin (negative coordinates on half of
 every axis).
 
-- The route each conv takes: windowed or row by the context's method,
-  and the refusal of the unported methods.
+- The route each conv takes: windowed or row by the context's method;
+  a k3/s1 conv under "block", "block_resident" and "window" against the
+  row path.
 - Exact equality: the strided levels (2, 4, 8) and ``slice_field`` at
   each; the kernel maps of k3/s1, k3/s2, dilation-2 k3/s1 and the
   transpose map (fresh, and inverted from the forward map in the cache),
@@ -160,13 +161,32 @@ def test_each_conv_takes_the_reference_route(knobs, routes):
 
 @pytest.mark.parametrize("method", ["block", "block_resident", "window"])
 def test_unported_methods_raise(method):
+    """The methods that used to raise run now: a k3/s1 conv under each
+    gives the row path's rows within 1e-5 of the largest (the method's
+    own tests are test_torch_port_methods*.py and
+    test_torch_port_block.py)."""
     coords, mask = cloud_batch()
     _, tf = fields(coords, mask, 4)
     sv, _ = tk.field_to_sparse(tf)
-    ctx = tctx.CoordinateContext(num_batches=SCENES, method=method,
-                                 grid_extent=64)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 3d"):
-        SparseConv(4, 4, 3, 1)(sv, ctx)
+    conv = SparseConv(4, 4, 3, 1)
+    with torch.no_grad():
+        conv.kernel.copy_(torch.as_tensor(np.random.default_rng(3).normal(
+            size=(27, 4, 4)).astype(np.float32)))
+        row = conv(sv, tctx.CoordinateContext(num_batches=SCENES,
+                                              method="row"))
+        out = conv(sv, tctx.CoordinateContext(
+            num_batches=SCENES, method=method, grid_extent=64,
+            block_cap_divisor=1))
+    assert conv.route == method
+    m = sv.mask.numpy()
+    close_to_largest(layers_rows(out)[m], row.feats.numpy()[m], 1e-5,
+                     method)
+
+
+def layers_rows(out):
+    from nerf_downstream_tpu_torch.models.mink.layers import as_rows
+
+    return as_rows(out).feats.numpy()
 
 
 # -- levels, slicing, kernel maps --------------------------------------------

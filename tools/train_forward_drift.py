@@ -3,7 +3,7 @@
 models moves between runs, module by module, on the card and on the CPU.
 
     python3 tools/train_forward_drift.py [--model EncodedRes16UNet]
-        [--card-procs 3] [--cpu-threads 8,1] [--cpu-deterministic]
+        [--card-procs 3] [--cpu-threads 8,1]
         [--smoke-procs 0] [--out drift.json]
 
 The model, weights and batch are those of phase ``models_extra``: the
@@ -16,8 +16,7 @@ input conditions the one-pass variance that it computes:
 
 - ``cpu<T>`` (``cpu<T>_<i>`` for the i-th entry of ``--cpu-threads``
   after the first): on the CPU at T torch threads, twice in the process
-  (the second forward from a fresh copy of the model), with
-  ``--cpu-deterministic`` under ``chip_smoke.cpu_reference``;
+  (the second forward from a fresh copy of the model);
 - ``card<i>``: on the card, in process i: the first forward of the
   process (``clean``), a second from a fresh copy (``repeat``), and one
   after the caching allocator was filled with NaN (``nan``) and one
@@ -42,7 +41,6 @@ and power limit lead the output. Needs one GPU.
 from __future__ import annotations
 
 import argparse
-import contextlib
 import copy
 import json
 import os
@@ -120,9 +118,7 @@ def child(args) -> int:
         torch.set_num_threads(args.threads)
         model, field = build_model(args.model, "cpu")
         for tag in ("clean", "repeat"):
-            with (cs.cpu_reference() if args.cpu_deterministic
-                  else contextlib.nullcontext()):
-                records[tag] = cs.module_outputs(copy.deepcopy(model), field)
+            records[tag] = cs.module_outputs(copy.deepcopy(model), field)
     else:
         from nerf_downstream_tpu_torch.ops.kernels import build
 
@@ -232,9 +228,6 @@ def main(argv=None) -> int:
                     help="card processes that first run the phases "
                          "chip_smoke.py runs ahead of models_extra, then "
                          "that phase, then record as the others")
-    ap.add_argument("--cpu-deterministic", action="store_true",
-                    help="the CPU records under chip_smoke.cpu_reference "
-                         "(deterministic algorithms)")
     ap.add_argument("--out", default=None)
     ap.add_argument("--child", action="store_true", help=argparse.SUPPRESS)
     ap.add_argument("--device", default="cuda", help=argparse.SUPPRESS)
@@ -258,9 +251,8 @@ def main(argv=None) -> int:
     card = card_info()
     print(card, flush=True)
     build.build_all()
-    det = ["--cpu-deterministic"] if args.cpu_deterministic else []
     jobs = [(f"cpu{t}" + (f"_{i}" if i else ""),
-             ["--device", "cpu", "--threads", t, *det])
+             ["--device", "cpu", "--threads", t])
             for i, t in enumerate(args.cpu_threads.split(","))]
     jobs += [(f"card{i}", ["--device", "cuda"])
              for i in range(args.card_procs)]
