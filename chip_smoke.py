@@ -10,8 +10,10 @@ training step of ResUNetBN2C and EncodedRes16UNet,
 its training step (``nerf_downstream_tpu_torch.train3d``), the training
 CLI on the flagship segmentation configs, on the README's
 classification command (``nerf_downstream_tpu_torch.co3d_3d.train``,
-ResNet14 with auto-calibration) and on ModelNet40 (MinkowskiFCNN, every
-conv on the row path), the 2D classification CLI
+ResNet14 with auto-calibration, then AdamW, tensorboard, process workers
+and a self-supervised transfer) and on ModelNet40 (MinkowskiFCNN, every
+conv on the row path), the fused 2D+3D ensemble through the task API
+with each of the nine optimizers, the 2D classification CLI
 (``nerf_downstream_tpu_torch.co3d_2d.train``, ResNet50 and ViT-B/16; no
 TPU kernel lies on that path: cuDNN and cuBLAS stand where XLA's ops
 stood) and the evaluation of pruned checkpoints
@@ -155,6 +157,34 @@ paths give it. Phases:
    k3/s2 convs on the row path) and every K2 and K3 call at 512 channels
    against their plain versions in f32 and, at the same shapes, in bf16
    (rtol 1e-5 and 2^-8 of the f32 sum), each timed beside its bound;
+9c*. ensemble: the fused 2D+3D classifier through the task API
+   (``Ensemble2D3D(out_channel=51, "resnet18", "ResNet14")``,
+   ``EnsembleClassificationTraining``) at full width, batch 16 of 224 x
+   224 frames (one synthetic frame per cli_cls scene) and cli_cls's
+   scenes, knobs and capacity, f32 (TF32 off, deterministic cuDNN), SGD
+   with ``co3d_cls.gin``'s momentum, lr and weight decay: 5 steps with
+   "logit" fusion and 2 with "feature", launch counts reset before and
+   read after; finite losses, both branches moved, two runs of a step
+   bit-identical, a saved and restored state's next step bit-equal, the
+   eval logits on the card within 1e-4 x max|logit| of the CPU's, every
+   K1, pass, K2, K3 and K6 call of a step against its plain version;
+   median ms, a profiled step (device ms, busy share, ops, the port's
+   kernels' device ms) and the 2D branch's forward and backward device
+   ms;
+9c**. optimizers: each of the nine optimizers of ``train/optim.py`` for 3
+   steps from the ensemble's state: finite losses, the card's last
+   update within 1e-5 x max|update| of the CPU's step on the same state
+   and gradients, a training state saved in the optax layout and
+   restored giving a bit-equal next step; ms per optimizer step;
+9c***. cli_surface: the training CLI on cli_cls's configs, tree, knobs
+   and capacity with AdamW, the csv and tensorboard loggers, process
+   workers and cli_cls's best checkpoint through
+   ``transfer_self_supervised``: 3 steps, then ``--resume`` to 4; finite
+   losses, the first step's weights the checkpoint's but the ``final``
+   leaves, the resume starting from the checkpoint's weights and AdamW
+   state bit for bit, the first two batches those of thread workers, no
+   worker process left; which logger path ran and the host ms per batch
+   of process and thread workers;
 9c'. cli_modelnet: ``modelnet40_cls.gin`` through the training CLI at
    full width (MinkowskiFCNN, channels 32-128, embedding 1024, batch 32
    of 2,048-point clouds, val batch 16, f32) on 64 train and 16 test
@@ -1771,7 +1801,9 @@ class CliProbe:
     either side), its batch's valid finest-level rows after the device
     augmentation, its loss, the last (task, state, batch), each validation
     pass's wall time, and the momentum buffers the first step of a resumed
-    run starts from against ``resume_trace`` (the checkpoint's)."""
+    run starts from against ``resume_trace`` (the checkpoint's).
+    ``on_step``, where set, sees each (task, state, batch) before its
+    step."""
 
     def __init__(self, task_name: str = "SegmentationTraining"):
         self.task_name = task_name
@@ -1783,6 +1815,7 @@ class CliProbe:
         self.last = None
         self.resume_trace = None
         self.resume_check = None
+        self.on_step = None  # f(task, state, batch) before each step
 
     def __enter__(self):
         import torch
@@ -1805,6 +1838,8 @@ class CliProbe:
                         torch.equal(state.optimizer.state[p][
                             "momentum_buffer"].cpu(), probe.resume_trace[n])
                         for n, p in state.model.named_parameters())}
+            if probe.on_step is not None:
+                probe.on_step(task, state, batch)
             aug = task.augment(batch, state.step)
             vox = torch.floor(aug["coordinates"][aug["mask"]])
             probe.rows.append(int(torch.unique(vox, dim=0).shape[0]))
@@ -2232,9 +2267,9 @@ METHOD_ROUTE = {"auto": "windowed", "window": "window", "block": "block",
                 "block_resident": "block_resident"}
 
 
-def profiled_step(where: str, task, state, batch) -> tuple:
-    """One training step under the profiler: (state, wall ms, device ms,
-    device ops). Fails on a profile without device time."""
+def profiled_rows(where: str, task, state, batch) -> tuple:
+    """One training step under the profiler: (state, wall ms, its
+    ``device_rows``). Fails on a profile without device time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -2246,10 +2281,16 @@ def profiled_step(where: str, task, state, batch) -> tuple:
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
     rows = device_rows(p, 1)
-    device = sum(r[0] for r in rows)
-    if device <= 0:
+    if sum(r[0] for r in rows) <= 0:
         raise PhaseError(f"{where}: the profiler saw no device time")
-    return state, wall, device, sum(r[1] for r in rows)
+    return state, wall, rows
+
+
+def profiled_step(where: str, task, state, batch) -> tuple:
+    """One training step under the profiler: (state, wall ms, device ms,
+    device ops)."""
+    state, wall, rows = profiled_rows(where, task, state, batch)
+    return state, wall, sum(r[0] for r in rows), sum(r[1] for r in rows)
 
 
 def phase_cli_methods(card: str, kept: dict, device: str = "cuda",
@@ -2971,13 +3012,644 @@ def phase_cli_cls(card: str, device: str = "cuda", bindings=(),
             rec, max(task.model.planes))
         if keep is not None:
             keep.update(tmp=tmp, args=base + pinned, save=save, val=val,
-                        val_batch_size=8)
+                        val_batch_size=8, data_root=data_root,
+                        fdir=os.path.join(data_root, "filelist"),
+                        knobs=calibrations[-1]["knobs"], capacity=capacity)
         return line, counts
     finally:
         calib.calibrate, calib.maybe_auto_calibrate = measure, scan
         gin.clear_config()
         if keep is None or "tmp" not in keep:
             shutil.rmtree(tmp, ignore_errors=True)
+
+
+# -- the fused 2D+3D ensemble, the optimizers, the training surface ----------
+
+# phase ensemble: Ensemble2D3D at full width on cli_cls's tree (one frame
+# per scene) with cli_cls's knobs and capacity: "logit" then "feature"
+ENS_STEPS = {"logit": 5, "feature": 2}
+ENS_IMAGE = 224
+ENS_FRAME = (256, 256)  # the frames' size on disk (w, h), resized to ENS_IMAGE
+ENS_CPU_SCENES = 4  # scenes of the card-against-CPU eval batch
+ENS_CPU_CAPACITY = 65_536
+ENS_KERNELS = ("window_starts", "window_match", "window_gather_matmul",
+               "window_bwd", "row_gather_matmul")
+# the port's own kernels (ops/kernels/*.cu), by function name
+CUSTOM_KERNELS = ("window_starts_kernel", "window_match_kernel",
+                  "gather_matmul_kernel", "gather_mma_kernel",
+                  "split_reduce_kernel", "window_dw_kernel",
+                  "dw_mma_kernel", "dw_reduce_kernel")
+OPT_STEPS = 3
+OPT_LR = 1e-3  # every optimizer's (Rprop's initial step size)
+OPT_TOL = 1e-5  # of max|update|: the card's optimizer step against the CPU's
+OPT_ULPS = 2.0 ** -22  # x |p|: two f32 roundings of the final add p + u
+SURFACE_STEPS, SURFACE_RESUME_STEPS = 3, 4
+SURFACE_HOST_BATCHES = 4  # timed batches per worker kind, after a first
+SURFACE_BINDINGS = ('train.optimizer_name = "AdamW"', "train.lr = 0.001",
+                    'train.loggers = ["csv", "tensorboard"]',
+                    'DataModule.worker_mode = "process"',
+                    "train.load_weights = True",
+                    "train.transfer_self_supervised = True",
+                    "train.val_every_n_steps = 2",
+                    "train.log_every_n_steps = 1")
+
+
+def cls_bindings(kept_cls: dict) -> list[str]:
+    """The bindings that put cli_cls's tree and pinned knobs
+    (``kept["cli_cls"]``) on top of its configs."""
+    return [f'Co3DDatasetBase.data_root = "{kept_cls["data_root"]}"',
+            *(f"CoordinateContext.{k} = {v!r}"
+              for k, v in kept_cls["knobs"].items())]
+
+
+def parse_cls_config(kept_cls: dict, extra=()) -> None:
+    """cli_cls's configs, tree and knobs, and ``extra`` bindings, as the
+    only gin configuration."""
+    from nerf_downstream_tpu_torch import config as gin
+
+    gin.clear_config()
+    gin.parse_config_files_and_bindings(
+        [os.path.join(REPO, "co3d_3d", "configs", c) for c in CLS_CONFIGS],
+        cls_bindings(kept_cls) + list(extra))
+
+
+def joint_batches(ds, capacity: int, size: int, n: int) -> list[dict]:
+    """``n`` collated joint batches of ``size`` scenes each, in order
+    through ``ds`` (numpy)."""
+    from nerf_downstream_tpu_torch.data.joint import collate_joint
+
+    out = []
+    for b in range(n):
+        idx = [(b * size + i) % len(ds) for i in range(size)]
+        batch = collate_joint([ds[i] for i in idx], capacity=capacity)
+        batch.pop("metadata", None)
+        out.append(batch)
+    return out
+
+
+def ensemble_model(fusion: str, in_channels: int, seed: int, device):
+    import torch
+
+    from nerf_downstream_tpu_torch.models.ensemble import Ensemble2D3D
+    from nerf_downstream_tpu_torch.train.modules import init_variables
+
+    model = Ensemble2D3D(in_channels=in_channels, out_channel=51,
+                         image_model="resnet18", voxel_model="ResNet14",
+                         num_batches=CLS_BATCH, fusion=fusion,
+                         compute_dtype=torch.float32)
+    return init_variables(model, seed).to(device)
+
+
+def timed_steps(task, state, batches, n: int):
+    """``n`` training steps over ``batches`` in turn, each between two
+    synchronises: (state, losses, ms)."""
+    import torch
+
+    losses, ms = [], []
+    for i in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, mets = task.train_step(state, batches[i % len(batches)])
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(mets["loss"]))
+    return state, losses, ms
+
+
+def fresh_state_from(path: str, task_cls, model, **task_kw):
+    """A new task and state over ``model`` with the training state of the
+    checkpoint at ``path`` restored (weights, optimizer, step)."""
+    from nerf_downstream_tpu_torch.train import checkpoints
+
+    task = task_cls(model, **task_kw)
+    state = task.create_state()
+    raw = checkpoints.load_checkpoint(path)
+    checkpoints.restore_into(state, raw, weights=True, optimizer=True)
+    state.step = int(raw["global_step"])
+    return task, state
+
+
+def bit_equal_after(task_a, state_a, task_b, state_b, batch) -> dict:
+    """One step of each (task, state) on ``batch``: whether the losses and
+    every weight and statistic after are bit-equal."""
+    import torch
+
+    _, ma = task_a.train_step(state_a, batch)
+    _, mb = task_b.train_step(state_b, batch)
+    sa, sb = state_a.model.state_dict(), state_b.model.state_dict()
+    return {"loss": bool(torch.equal(ma["loss"], mb["loss"])),
+            "state": all(torch.equal(sa[k], sb[k]) for k in sa)}
+
+
+def phase_ensemble(card: str, kept_cls: dict,
+                   device: str = "cuda") -> tuple[dict, dict, tuple]:
+    """The fused 2D+3D classifier through the task API at full width:
+    ``Ensemble2D3D(out_channel=51, "resnet18", "ResNet14")``, batch
+    ``CLS_BATCH`` (16) of ``ENS_IMAGE`` (224) frames and cli_cls's scenes
+    (its tree, configs, pinned knobs and capacity, ``kept["cli_cls"]``;
+    one synthetic frame per scene written beside it), f32, SGD with
+    ``co3d_cls.gin``'s momentum, lr and weight decay, no schedule:
+    ``ENS_STEPS`` steps with "logit" fusion, then with "feature". Launch
+    counts are reset just before the steps and read just after. Fails
+    unless every loss is finite, two runs of one step are bit-identical,
+    both branches' leaves (and the fusion weight) moved, a training state
+    saved and restored gives a bit-equal next step, K1, the pass, K2, K3
+    and K6 each launched, the eval logits on the card are within
+    ``EXTRA_TOL`` x max|logit| of the CPU's on ``ENS_CPU_SCENES`` scenes,
+    and every K1, pass, K2, K3 call (``cli_kernels_f32``) and K6 call
+    (``k6_calls``) of one recorded step agrees with its plain version.
+    Also: the steps' median ms, one profiled step (device ms, busy share,
+    device ops, the port's kernels' device ms) and the 2D branch's
+    forward and backward device ms. Returns (line, launch counts, (task,
+    state, batches)) for phase optimizers."""
+    import copy
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from nerf_downstream_tpu_torch import config as gin
+    from nerf_downstream_tpu_torch.data.joint import (
+        JointCo3DDataset,
+        collate_joint,
+    )
+    from nerf_downstream_tpu_torch.data.synthetic import write_co3d_frames
+    from nerf_downstream_tpu_torch.ops import kernels
+    from nerf_downstream_tpu_torch.train import checkpoints
+    from nerf_downstream_tpu_torch.train.loop import to_device
+    from nerf_downstream_tpu_torch.train.modules import (
+        EnsembleClassificationTraining,
+    )
+
+    where = "ensemble"
+    tmp = tempfile.mkdtemp(prefix="ensemble_")
+    try:
+        parse_cls_config(kept_cls)
+        t0 = time.perf_counter()
+        frames = write_co3d_frames(os.path.join(tmp, "frames"),
+                                   np.random.default_rng(1),
+                                   kept_cls["fdir"], ENS_FRAME)
+        ds = JointCo3DDataset("train", data_root=kept_cls["data_root"],
+                              frames_root=frames, image_size=ENS_IMAGE)
+        cap = kept_cls["capacity"]
+        host = joint_batches(ds, cap, CLS_BATCH, 2)
+        data_s = time.perf_counter() - t0
+        batches = [to_device(b, device) for b in host]
+        c_in = host[0]["features"].shape[1]
+        hyper = dict(optimizer_name="SGD", scheduler_name="none",
+                     lr=gin.query_parameter("train.lr"),
+                     weight_decay=gin.query_parameter("train.weight_decay"))
+        line = {"phase": where, "card": card,
+                "entry": "nerf_downstream_tpu_torch.train.modules."
+                         "EnsembleClassificationTraining (task API)",
+                "model": "Ensemble2D3D(out_channel=51, resnet18, ResNet14)",
+                "batch": CLS_BATCH, "image": ENS_IMAGE, "capacity": cap,
+                "valid_rows": [int(b["mask"].sum()) for b in host],
+                "dtype": "float32 (TF32 off, deterministic cuDNN)",
+                "optimizer": dict(hyper, momentum=gin.query_parameter(
+                    "SGD.momentum")), "data_seconds": data_s}
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        runs = {}
+        for fusion, n in ENS_STEPS.items():
+            model = ensemble_model(fusion, c_in, 5, device)
+            task = EnsembleClassificationTraining(model, **hyper)
+            state = task.create_state()
+            before = {k: v.clone() for k, v in model.state_dict().items()}
+            state, losses, ms = timed_steps(task, state, batches, n)
+            after = model.state_dict()
+            moved = {k: not torch.equal(before[k], after[k]) for k in (
+                "image.conv1.kernel", "voxel.conv1.kernel",
+                "voxel.final.kernel",
+                "image_head.kernel" if fusion == "logit" else "head.kernel")}
+            if fusion == "logit":
+                moved["fusion_alpha"] = not torch.equal(
+                    before["fusion_alpha"], after["fusion_alpha"])
+            runs[fusion] = (task, state)
+            line[fusion] = {"losses": losses, "ms": ms,
+                            "ms_median_after_first": float(np.median(ms[1:])),
+                            "moved": moved}
+        torch.cuda.synchronize()
+        counts = kernels.launch_counts()
+        line["launches"] = counts
+        bad = [f for f in ENS_STEPS if not (
+            np.isfinite(line[f]["losses"]).all()
+            and all(line[f]["moved"].values()))]
+        if bad or not all(counts[k] > 0 for k in ENS_KERNELS):
+            raise PhaseError(f"{where}: {line}")
+
+        task, state = runs["logit"]
+        batch = batches[0]
+        line["repeat_step_bit_identical"] = repeat_identical(task, state,
+                                                             batch)
+        if not all(line["repeat_step_bit_identical"].values()):
+            raise PhaseError(f"{where}: two runs of one step differ: "
+                             f"{line['repeat_step_bit_identical']}")
+        path = os.path.join(tmp, "ensemble.ckpt")
+        checkpoints.save_training_state(path, state)
+        twin = ensemble_model("logit", c_in, 6, device)
+        task_b, state_b = fresh_state_from(
+            path, EnsembleClassificationTraining, twin, **hyper)
+        line["restore_next_step_bit_equal"] = bit_equal_after(
+            task, state, task_b, state_b, batches[1])
+        if not all(line["restore_next_step_bit_equal"].values()):
+            raise PhaseError(f"{where}: the restored state's next step "
+                             f"differs: {line['restore_next_step_bit_equal']}")
+
+        # eval logits, card against the CPU, on fewer scenes (the image
+        # batch padded with black frames to the model's scene slots)
+        small = collate_joint([ds[i] for i in range(ENS_CPU_SCENES)],
+                              capacity=ENS_CPU_CAPACITY)
+        im = small["images"]
+        small["images"] = np.concatenate([im, np.zeros(
+            (CLS_BATCH - len(im),) + im.shape[1:], im.dtype)])
+        cpu_model = copy.deepcopy(state.model).to("cpu")
+        cpu_task = EnsembleClassificationTraining(cpu_model, **hyper)
+        got, _ = task.eval_step(state, to_device(dict(
+            small, labels=np.zeros(ENS_CPU_SCENES, np.int64)), device))
+        t0 = time.perf_counter()
+        want, _ = cpu_task.eval_step(cpu_task.create_state(), to_device(dict(
+            small, labels=np.zeros(ENS_CPU_SCENES, np.int64)), "cpu"))
+        cpu_s = time.perf_counter() - t0
+        got = got[:ENS_CPU_SCENES].float().cpu()
+        want = want[:ENS_CPU_SCENES].float()
+        gap = float((got - want).abs().max() / want.abs().max())
+        line["eval_card_vs_cpu"] = {"scenes": ENS_CPU_SCENES,
+                                    "capacity": ENS_CPU_CAPACITY,
+                                    "max_err_of_max": gap,
+                                    "cpu_seconds": cpu_s}
+        if not gap <= EXTRA_TOL:
+            raise PhaseError(f"{where}: eval logits {gap} of max from the "
+                             "CPU's")
+
+        # one profiled step, the 2D branch alone, one recorded step
+        state, wall, rows = profiled_rows(where, task, state, batch)
+        rows = [r for r in rows if not annotation(r[2])]
+        dev = sum(r[0] for r in rows)
+        line["profile"] = {
+            "wall_ms_per_step_profiled": wall, "device_ms_per_step": dev,
+            "device_busy_share": dev / line["logit"]["ms_median_after_first"],
+            "device_ops_per_step": sum(r[1] for r in rows),
+            "custom_kernels_device_ms_per_step": sum(
+                r[0] for r in rows if any(k in r[2] for k in CUSTOM_KERNELS))}
+        image = copy.deepcopy(state.model.image).train()
+        x = batch["images"].permute(0, 3, 1, 2)
+
+        def image_step():
+            image.zero_grad(set_to_none=True)
+            image(x).sum().backward()
+
+        from nerf_downstream_tpu_torch.train.modules import f32_deterministic
+
+        with f32_deterministic():
+            line["profile"]["image_branch_fwd_bwd_device_ms"] = device_ms(
+                image_step, reps=3)
+        with ClsStepRecorder() as rec:
+            state, _ = task.train_step(state, batch)
+        line["kernels_per_step"] = cli_kernels_f32(rec, where)
+        line["k6_per_step"] = len(rec.k6)
+        line["row_gather_matmul"] = k6_calls(where, rec.k6)
+        line["tolerance"] = {"logits_card_vs_cpu": f"{EXTRA_TOL} x max|logit|",
+                             "k6_f32": f"{K2_F32_TOL} x (1 + sum |x| |w|)"}
+        return line, counts, (task, state, batches)
+    finally:
+        gin.clear_config()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def cpu_optimizer_step(name: str, opt, params: list, wd: float) -> dict:
+    """The CPU's update of ``opt``'s next step: the optimizer of ``name``
+    over CPU copies of ``params`` with ``opt``'s state and lr and the
+    parameters' gradients copied over; {index: updated parameter}."""
+    import copy
+
+    import torch
+
+    from nerf_downstream_tpu_torch.train.optim import get_optimizer
+
+    cpu = [torch.nn.Parameter(p.detach().cpu().clone()) for p in params]
+    for c, p in zip(cpu, params):
+        c.grad = None if p.grad is None else p.grad.detach().cpu().clone()
+    cpu_opt = get_optimizer(name, cpu, OPT_LR, wd)
+    sd = copy.deepcopy(opt.state_dict())
+    sd["state"] = {i: {k: v.cpu() if torch.is_tensor(v) else v
+                       for k, v in st.items()}
+                   for i, st in sd["state"].items()}
+    cpu_opt.load_state_dict(sd)
+    cpu_opt.step()
+    return {i: c.detach() for i, c in enumerate(cpu)}
+
+
+def phase_optimizers(card: str, ens: tuple, kept_cls: dict,
+                     device: str = "cuda") -> tuple[dict, dict]:
+    """Each of the nine optimizers of ``train/optim.py`` (the reference's
+    optax formulas; gin defaults, ``OPT_LR`` and a constant lr) from the
+    ensemble's trained state, ``OPT_STEPS`` steps on its batches, under
+    cli_cls's configuration and knobs (``kept["cli_cls"]``) as in phase
+    ensemble. Fails unless every loss is finite, every entry of the last
+    step's updated parameters on the card is within ``OPT_TOL`` x the
+    leaf's largest update, plus ``OPT_ULPS`` x the entry (the rounding of
+    its final add), of the same optimizer stepped on the CPU from the
+    same state and gradients, and a training
+    state saved in the optax layout and restored into a fresh model and
+    optimizer gives a bit-equal next step. Prints the ms of each
+    optimizer step (between two synchronises) and of each whole step.
+    Launch counts are reset just before the first optimizer's steps and
+    read just after the last's."""
+    import copy
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from nerf_downstream_tpu_torch import config as gin
+    from nerf_downstream_tpu_torch.ops import kernels
+    from nerf_downstream_tpu_torch.train import checkpoints
+    from nerf_downstream_tpu_torch.train.modules import (
+        EnsembleClassificationTraining,
+    )
+    from nerf_downstream_tpu_torch.train.optim import OPTIMIZERS
+
+    where = "optimizers"
+    task0, state0, batches = ens
+    start = copy.deepcopy(state0.model.state_dict())
+    line = {"phase": where, "card": card, "model": "phase ensemble's "
+            "(logit fusion) from its trained state", "lr": OPT_LR,
+            "steps": OPT_STEPS, "schedule": "none (Rprop refuses one)",
+            "tolerance": f"{OPT_TOL} x max|update| per leaf + {OPT_ULPS} x "
+                         "|p| per entry, card against the CPU's step on the "
+                         "same state and gradients"}
+    tmp = tempfile.mkdtemp(prefix="optimizers_")
+    try:
+        parse_cls_config(kept_cls)
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        for name in OPTIMIZERS:
+            model = state0.model
+            model.load_state_dict(start)
+            wd = 1e-2 if name == "AdamW" else 1e-4
+            kw = dict(optimizer_name=name, scheduler_name="none", lr=OPT_LR,
+                      weight_decay=wd)
+            task = EnsembleClassificationTraining(model, **kw)
+            state = task.create_state()
+            opt = state.optimizer
+            real_step = opt.step
+            opt_ms, check = [], {}
+            params = list(model.parameters())
+
+            def timed_step(closure=None):
+                last = len(opt_ms) == OPT_STEPS - 1
+                if last:
+                    before = [p.detach().clone() for p in params]
+                    want = cpu_optimizer_step(name, opt, params, wd)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                real_step()
+                torch.cuda.synchronize()
+                opt_ms.append((time.perf_counter() - t0) * 1e3)
+                if last:
+                    worst, outside = 0.0, 0
+                    for i, p in enumerate(params):
+                        upd = float((want[i] - before[i].cpu()).abs().max())
+                        err = (p.detach().cpu() - want[i]).abs()
+                        outside += int((err > OPT_TOL * upd + OPT_ULPS
+                                        * want[i].abs()).sum())
+                        worst = max(worst, float(err.max()) / max(upd, 1e-30))
+                    check.update(worst_err_of_max_update=worst,
+                                 entries_outside=outside)
+
+            opt.step = timed_step
+            state, losses, ms = timed_steps(task, state, batches, OPT_STEPS)
+            opt.step = real_step
+            path = os.path.join(tmp, f"{name}.ckpt")
+            checkpoints.save_training_state(path, state)
+            twin = copy.deepcopy(model)
+            task_b, state_b = fresh_state_from(
+                path, EnsembleClassificationTraining, twin, **kw)
+            equal = bit_equal_after(task, state, task_b, state_b,
+                                    batches[0])
+            row = {"losses": losses, "step_ms": ms,
+                   "optimizer_step_ms": opt_ms,
+                   "optimizer_step_ms_median": float(np.median(opt_ms)),
+                   "restore_next_step_bit_equal": equal, **check}
+            line[name] = row
+            del twin, task_b, state_b
+            if not (np.isfinite(losses).all() and all(equal.values())
+                    and check["entries_outside"] == 0):
+                raise PhaseError(f"{where}: {name}: {row}")
+        torch.cuda.synchronize()
+        counts = kernels.launch_counts()
+        line["launches"] = counts
+        state0.model.load_state_dict(start)
+        return line, counts
+    finally:
+        gin.clear_config()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def weights_tree(model) -> dict:
+    """{path: leaf} of ``model``'s params and batch_stats trees."""
+    from nerf_downstream_tpu_torch import convert
+    from nerf_downstream_tpu_torch.utils.prune import flatten
+
+    tree = convert.state_dict_to_flax(model.state_dict(),
+                                      convert.flax_layout(model))
+    return flatten({"params": tree.get("params", {}),
+                    "batch_stats": tree.get("batch_stats", {})})
+
+
+def host_ms_per_batch(dm, n: int) -> tuple[list, float]:
+    """The first two batches of ``dm``'s train stream, and the host ms per
+    batch of the ``n`` after them."""
+    it = dm.train_batches()
+    first = [next(it), next(it)]
+    t0 = time.perf_counter()
+    for _ in range(n):
+        next(it)
+    ms = (time.perf_counter() - t0) * 1e3 / n
+    it.close()
+    return first, ms
+
+
+def phase_cli_surface(card: str, kept_cls: dict, device: str = "cuda",
+                      bindings=()) -> tuple[dict, dict]:
+    """The training CLI (``co3d_3d.train``) on cli_cls's configs, tree and
+    pinned knobs and capacity with the rest of the single-card training
+    surface bound (``SURFACE_BINDINGS``): AdamW, the csv and tensorboard
+    loggers, process workers (the config's 8), and cli_cls's best
+    checkpoint loaded with ``transfer_self_supervised``;
+    ``SURFACE_STEPS`` steps, then ``--resume`` to
+    ``SURFACE_RESUME_STEPS``. Launch counts reset just before the first
+    run and read just after the second. Fails unless every loss is
+    finite, the first step's weights are the checkpoint's except the
+    ``final`` leaves (the model's own), the resumed run's first step
+    starts from the checkpoint's weights and AdamW state bit for bit, the
+    first two batches equal those of thread workers, no worker process
+    outlives the runs, and K1, the pass, K2, K3 and K6 launched. Prints
+    which logger path ran (tensorboard's events file, or its warning
+    where it cannot be imported) and the host ms per batch of process and
+    of thread workers. ``device`` and ``bindings`` (more ``--ginb``, and
+    the batch size and workers of the worker comparison) serve a
+    rehearsal on the CPU."""
+    import contextlib
+    import gc
+    import io
+    import multiprocessing
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from nerf_downstream_tpu_torch import config as gin
+    from nerf_downstream_tpu_torch.co3d_3d import train as cli
+    from nerf_downstream_tpu_torch.data.data_module import DataModule
+    from nerf_downstream_tpu_torch.ops import kernels
+    from nerf_downstream_tpu_torch.train import checkpoints
+    from nerf_downstream_tpu_torch.utils.prune import flatten
+
+    where = "cli_surface"
+    tmp = tempfile.mkdtemp(prefix="cli_surface_")
+    best = os.path.join(kept_cls["save"], "best.ckpt")
+    made = []  # the loggers the CLI made
+    get_logger = cli.get_logger
+
+    def recording_logger(*a, **kw):
+        made.append(get_logger(*a, **kw))
+        return made[-1]
+
+    try:
+        save = os.path.join(tmp, "exp")
+        args = [a for c in CLS_CONFIGS for a in (
+            "--ginc", os.path.join(REPO, "co3d_3d", "configs", c))]
+        for b in (*cls_bindings(kept_cls), *SURFACE_BINDINGS,
+                  f'train.checkpoint_path = "{best}"',
+                  f"train.capacity = {kept_cls['capacity']}", *bindings):
+            args += ["--ginb", b]
+        args += ["--save_path", save, "--seed", "777", "--device", device]
+        ckpt = checkpoints.load_checkpoint(best)
+        ckpt_leaves = flatten({"params": ckpt["params"],
+                               "batch_stats": ckpt["batch_stats"]})
+        checks, batches = {}, []
+
+        def on_step(task, state, batch):
+            step = int(state.step)
+            if step < 2:
+                batches.append({k: batch[k].cpu().numpy() for k in (
+                    "coordinates", "features", "mask", "labels")})
+            if step == 0:
+                got = weights_tree(state.model)
+                final = [k for k in got if "final" in k]
+                checks["first_step_weights"] = {
+                    "equal_to_checkpoint_but_final": all(
+                        np.array_equal(got[k], ckpt_leaves[k])
+                        for k in got if k not in final),
+                    "final_kept_the_model's": bool(final) and not all(
+                        np.array_equal(got[k], ckpt_leaves[k])
+                        for k in final)}
+            if step == SURFACE_STEPS:
+                last = checkpoints.load_checkpoint(
+                    os.path.join(save, "last.ckpt"))
+                opt = flatten(checkpoints.optimizer_state_to_optax(
+                    state.model, state.optimizer, step,
+                    state.schedule is not None))
+                want = flatten(last["opt_state"])
+                got = weights_tree(state.model)
+                wl = flatten({"params": last["params"],
+                              "batch_stats": last["batch_stats"]})
+                checks["resume"] = {
+                    "step": step,
+                    "weights_bit_equal": all(np.array_equal(got[k], wl[k])
+                                             for k in got),
+                    "adamw_state_bit_equal": opt.keys() == want.keys() and all(
+                        np.array_equal(opt[k], want[k]) for k in opt)}
+
+        stdout = io.StringIO()
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        cli.get_logger = recording_logger
+        with CliProbe("ClassificationTraining") as probe, \
+                contextlib.redirect_stdout(stdout):
+            probe.on_step = on_step
+            t0 = time.perf_counter()
+            gin.clear_config()
+            cli.main(args + ["--ginb", f"train.max_steps = {SURFACE_STEPS}"])
+            first_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            gin.clear_config()
+            cli.main(args + ["--ginb", f"train.max_steps = "
+                                       f"{SURFACE_RESUME_STEPS}", "--resume"])
+            resume_s = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        counts = kernels.launch_counts()
+        cli.get_logger = get_logger
+        task, state, _ = probe.last
+        gc.collect()
+        workers_left = len(multiprocessing.active_children())
+        run = os.path.join(save, f"b{CLS_BATCH}x1-MinkResNetBase")
+        tb = [lg for lg in made if type(lg).__name__ == "TensorBoardLogger"]
+        events = [f for f in os.listdir(run) if f.startswith("events.")]
+        with open(os.path.join(run, "metrics.csv")) as f:
+            rows = f.read().splitlines()
+        steps = [s for s, _ in probe.steps]
+        ms = [m for _, m in probe.steps]
+        line = {
+            "phase": where, "card": card, "entry":
+            "python -m nerf_downstream_tpu_torch.co3d_3d.train",
+            "configs": [f"co3d_3d/configs/{c}" for c in CLS_CONFIGS],
+            "bindings": list(SURFACE_BINDINGS),
+            "optimizer": type(state.optimizer).__name__,
+            "steps": steps, "ms": ms, "losses": probe.losses,
+            "val_pass_ms": probe.val_ms, "run_seconds": [first_s, resume_s],
+            "loggers": {
+                "tensorboard": ("events file written" if tb and all(
+                    lg.active for lg in tb) and events
+                    else "unavailable: warned and disabled"),
+                "csv_rows": len(rows)},
+            "worker_processes_left": workers_left,
+            "launches": counts, **checks}
+        ok = (np.isfinite(probe.losses).all() and len(probe.losses) > 0
+              and steps == list(range(SURFACE_RESUME_STEPS))
+              and line["optimizer"] == "AdamW"
+              and all(checks.get("first_step_weights", {"": False}).values())
+              and checks.get("resume", {}).get("step") == SURFACE_STEPS
+              and checks["resume"]["weights_bit_equal"]
+              and checks["resume"]["adamw_state_bit_equal"]
+              and workers_left == 0
+              and all(counts[k] > 0 for k in ENS_KERNELS))
+        if not ok:
+            raise PhaseError(f"{where}: {line}")
+
+        # the same stream on process and on thread workers
+        parse_cls_config(kept_cls, bindings)
+        nw = gin.query_parameter("train.train_num_workers")
+        host = {}
+        for mode in ("process", "thread"):
+            dm = DataModule(batch_size=gin.query_parameter("train.batch_size"),
+                            val_batch_size=8, train_num_workers=nw,
+                            capacity=kept_cls["capacity"], worker_mode=mode)
+            first, host[mode] = host_ms_per_batch(dm, SURFACE_HOST_BATCHES)
+            host[f"{mode}_first_two"] = first
+        same = all(np.array_equal(a[k], b[k])
+                   for a, b in zip(batches[:2], host.pop("thread_first_two"))
+                   for k in ("coordinates", "features", "mask"))
+        same_p = all(np.array_equal(a[k], b[k]) for a, b in zip(
+            batches[:2], host.pop("process_first_two"))
+            for k in ("coordinates", "features", "mask"))
+        gc.collect()
+        line["workers"] = nw
+        line["host_ms_per_batch"] = host
+        line["first_two_batches_equal_thread_workers"] = same and same_p
+        if not (same and same_p) or multiprocessing.active_children():
+            raise PhaseError(f"{where}: process and thread workers differ "
+                             f"or a worker outlived its stream: {line}")
+        return line, counts
+    finally:
+        cli.get_logger = get_logger
+        gin.clear_config()
+        shutil.rmtree(tmp, ignore_errors=True)
 
 
 # -- ModelNet40 classification on the row path -------------------------------
@@ -5908,6 +6580,24 @@ def main() -> int:
         emit(line)
         cls_k6 = k6_summary(line["row_path_and_512"]["row_gather_matmul"],
                             line["k6_per_step"])
+        phase = "ensemble"
+        t0 = time.perf_counter()
+        line, ens_launches, ens = phase_ensemble(card, kept["cli_cls"])
+        line["seconds"] = time.perf_counter() - t0
+        emit(line)
+        ens_kernels = line["kernels_per_step"]
+        ens_k6 = k6_summary(line["row_gather_matmul"], line["k6_per_step"])
+        phase = "optimizers"
+        t0 = time.perf_counter()
+        line, opt_launches = phase_optimizers(card, ens, kept["cli_cls"])
+        line["seconds"] = time.perf_counter() - t0
+        emit(line)
+        del ens
+        phase = "cli_surface"
+        t0 = time.perf_counter()
+        line, surface_launches = phase_cli_surface(card, kept["cli_cls"])
+        line["seconds"] = time.perf_counter() - t0
+        emit(line)
         phase = "cli_modelnet"
         t0 = time.perf_counter()
         line, mn_launches = phase_cli_modelnet(card)
@@ -5970,6 +6660,9 @@ def main() -> int:
         by_path = {"serve": launches[name], "train": train_launches[name],
                    "cli_train": cli_launches[name],
                    "cli_cls": cls_launches[name],
+                   "ensemble": ens_launches[name],
+                   "optimizers": opt_launches[name],
+                   "cli_surface": surface_launches[name],
                    "cli_modelnet": mn_launches[name],
                    "cli_paconv": pac_launches[name],
                    "row_route": row_launches[name],
@@ -6012,24 +6705,28 @@ def main() -> int:
                       "under jit)",
              bound_by="bytes", library_ms=None,
              shapes="one eval_64k forward (bf16)", **paths("window_starts"),
-             **ws, models_extra_f32_per_step=extra_windowed["window_starts"]),
+             **ws, models_extra_f32_per_step=extra_windowed["window_starts"],
+             ensemble_f32_per_step=ens_kernels["window_starts"]),
         dict(name="window_match", route="cuda",
              source=src + "window_match.cu", replaces=f"{tpu}:387",
              bound_by="bytes", library_ms=None,
              shapes="one eval_64k forward (bf16)",
              **paths("window_match"), **k1,
-             models_extra_f32_per_step=extra_windowed["window_match"]),
+             models_extra_f32_per_step=extra_windowed["window_match"],
+             ensemble_f32_per_step=ens_kernels["window_match"]),
         dict(name="window_gather_matmul", route="cuda",
              source=src + "window_gather_matmul.cu", replaces=f"{tpu}:131",
              library_ms=None, shapes="one eval_64k forward (bf16)",
              **paths("window_gather_matmul"), **k2,
              models_extra_f32_per_step=extra_windowed[
-                 "window_gather_matmul"]),
+                 "window_gather_matmul"],
+             ensemble_f32_per_step=ens_kernels["window_gather_matmul"]),
         dict(name="window_bwd", route="cuda", source=src + "window_bwd.cu",
              replaces=f"{tpu}:504", library_ms=None,
              shapes="one train_64k step (bf16)", **paths("window_bwd"),
              **k3, cli_semseg_dw_half_f32_per_step=semseg_k3dw,
-             models_extra_f32_per_step=extra_windowed["window_bwd"]),
+             models_extra_f32_per_step=extra_windowed["window_bwd"],
+             ensemble_f32_per_step=ens_kernels["window_bwd"]),
         dict(name="window_dw", route="cuda", source=src + "window_dw.cu",
              replaces=f"{tpu}:590", library_ms=None,
              shapes="one train_64k step (bf16)", **paths("window_dw"), **k4,
@@ -6046,7 +6743,8 @@ def main() -> int:
              library_ms=None, shapes="one eval_64k forward, ZAXIS (bf16 "
              "inputs, f32 output)", **paths("row_gather_matmul"), **k6,
              cli_cls_f32_per_step=cls_k6, cli_modelnet_f32_per_step=mn_k6,
-             models_extra_f32_per_step=extra_k6),
+             models_extra_f32_per_step=extra_k6,
+             ensemble_f32_per_step=ens_k6),
     ]
     for k in kernels:
         k["library_ms_null_because"] = no_library[k["name"]]

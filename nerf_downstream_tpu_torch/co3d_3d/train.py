@@ -33,9 +33,12 @@ nerf_downstream_tpu_torch.co3d_3d.calibrate`` pins the knobs offline.
 A fresh model is initialised from ``--seed`` with the reference's
 distributions (``train.modules.init_variables``). The parts the port lacks
 raise instead of falling back: ``--gpus`` above 1, ``parallel_mode``,
-``model_parallel`` and ``--dist_*`` (ROADMAP.md Queue 1 item 4), and
-the conv methods "block", "block_resident" and "window" (Queue 1 item
-3d).
+``model_parallel`` and ``--dist_*`` (ROADMAP.md Queue 1 item 4). Every
+optimizer of ``train/optim.py`` (``train.optimizer_name``), the csv,
+jsonl, tensorboard and wandb loggers (``train.loggers``),
+``train.transfer_self_supervised`` and process workers
+(``DataModule.worker_mode = "process"``) run through the same bindings
+as in the reference.
 """
 
 from __future__ import annotations

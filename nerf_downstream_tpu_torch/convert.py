@@ -1,5 +1,5 @@
 """Carry the 3D models' (Res16UNet, ResNet, FCNN, ResUNet2 and the point
-models) and the 2D models' weights between the
+models), the 2D models' and the fused ensemble's weights between the
 reference's flax variable trees and the port's ``state_dict``.
 
 The reference stores ``{"params": ..., "batch_stats": ...}`` as nested
@@ -37,6 +37,10 @@ ResUNet2 maps the same way but for its blocks' norms, which the
 reference names by class in creation order
 (``resunet_flax_path``); its top-level norms carry those names already.
 
+The fused ensemble (``models/ensemble.py``) maps its branches under
+``image`` and ``voxel`` as those families map (``ensemble_flax_path``),
+and its heads and scalar ``fusion_alpha`` by name.
+
 The 2D models (``models/image``: ``_ResNetBased`` and ``ViT``) carry the
 reference's module names, so their paths map one to one
 (``image_flax_path``): a ViT's ``blocks.<i>`` is ``block<i>`` and its
@@ -71,6 +75,8 @@ _NORM_LEAF = {
 _BLOCK_NORMS = ("norm1", "norm2", "norm3")
 
 
+# layouts whose 4-d leaves are 2D conv kernels (OIHW here, HWIO in flax)
+IMAGE_LAYOUTS = ("image", "ensemble")
 # the ViT's module names that differ from the flax modules'
 _IMAGE_NAMES = {"norm1": "LayerNorm_0", "norm2": "LayerNorm_1",
                 "attn": "MultiHeadDotProductAttention_0", "mlp": "MlpBlock_0",
@@ -155,11 +161,28 @@ def resunet_flax_path(key: str, norm: str = BN) -> tuple[str, ...]:
     return direct_flax_path(key)
 
 
+def ensemble_flax_path(key: str, bottleneck: bool = False,
+                       norm: str = BN) -> tuple[str, ...]:
+    """(collection, module..., leaf) of an ``Ensemble2D3D`` key: the image
+    branch under ``image`` as a 2D model's, the voxel branch under
+    ``voxel`` as a ResNet's, the heads and ``fusion_alpha`` as they are."""
+    branch, _, rest = key.partition(".")
+    if branch == "image":
+        coll, *p = image_flax_path(rest)
+        return (coll, "image", *p)
+    if branch == "voxel":
+        coll, *p = flax_path(rest, bottleneck, norm)
+        return (coll, "voxel", *p)
+    if branch in ("image_head", "head", "fusion_alpha"):
+        return ("params", *key.split("."))
+    raise KeyError(f"no flax counterpart for {key!r}")
+
+
 class FlaxLayout(NamedTuple):
     """How a model's ``state_dict`` keys map to the reference's trees: the
     path function of its family (``paths``, the model class's
-    ``flax_paths``: "image", "fcnn", "resunet", "point", or "sparse" for
-    Res16UNet and ResNet), the flax class of its 3D norms
+    ``flax_paths``: "image", "fcnn", "resunet", "point", "ensemble", or
+    "sparse" for Res16UNet and ResNet), the flax class of its 3D norms
     (``norm_name``) and whether its blocks are ``Bottleneck``s (whose
     shortcut norm is the fourth)."""
     paths: str = "sparse"
@@ -186,6 +209,9 @@ def _paths(layout: FlaxLayout):
     if layout.paths == "point":
         return lambda key: point_flax_path(key, layout.bottleneck,
                                            layout.norm)
+    if layout.paths == "ensemble":
+        return lambda key: ensemble_flax_path(key, layout.bottleneck,
+                                              layout.norm)
     if layout.paths != "sparse":
         raise ValueError(f"unknown flax layout {layout.paths!r}")
     return lambda key: flax_path(key, layout.bottleneck, layout.norm)
@@ -246,7 +272,7 @@ def flax_to_state_dict(model: torch.nn.Module,
     refs = model.state_dict()
     layout = flax_layout(model)
     path_of = _paths(layout)
-    image = layout.paths == "image"
+    image = layout.paths in IMAGE_LAYOUTS
     out = {}
     for key in keys:
         ref = refs[key]
@@ -280,7 +306,7 @@ def state_dict_to_flax(state: dict,
     ``BasicBlock``s)."""
     tree: dict = {}
     path_of = _paths(layout)
-    image = layout.paths == "image"
+    image = layout.paths in IMAGE_LAYOUTS
     for key, value in state.items():
         path = path_of(key)
         node = tree
@@ -298,7 +324,8 @@ def state_dict_to_flax(state: dict,
 
 def init_flax_variables(model: torch.nn.Module, seed: int) -> dict:
     """Random variables for ``model`` in the reference's tree layout, from
-    ``seed``: He-normal conv kernels (fan-in K * Cin), a dense head's
+    ``seed``: He-normal conv kernels (fan-in K * Cin, or kh * kw * Cin for
+    a 2D conv, drawn in flax's HWIO), a dense head's
     kernel normal over fan-in C, norm scale, bias and running statistics
     drawn near identity so every norm does work (PowerNorm's ``iters``
     0, its ``ema_gz`` small).
@@ -306,15 +333,20 @@ def init_flax_variables(model: torch.nn.Module, seed: int) -> dict:
     rng = np.random.default_rng(seed)
     tree: dict = {}
     state = model.state_dict()
-    path_of = _paths(flax_layout(model))
+    layout = flax_layout(model)
+    path_of = _paths(layout)
     for key, ref in state.items():
         path = path_of(key)
         shape = tuple(ref.shape)
         leaf = path[-1]
+        if layout.paths in IMAGE_LAYOUTS and len(shape) == 4:
+            shape = (shape[2], shape[3], shape[1], shape[0])  # HWIO
         if leaf.startswith("matrice"):  # PAConv's bank [Cin, m * Cout]
             arr = rng.normal(size=shape) * np.sqrt(2.0 / shape[0])
         elif leaf == "kernel" and len(shape) == 2:
             arr = rng.normal(size=shape) * np.sqrt(1.0 / shape[0])
+        elif leaf == "kernel" and len(shape) == 4:  # a 2D conv, HWIO
+            arr = rng.normal(size=shape) * np.sqrt(2.0 / np.prod(shape[:3]))
         elif leaf == "kernel":
             arr = rng.normal(size=shape) * np.sqrt(2.0 / (shape[0] * shape[1]))
         elif leaf == "scale":

@@ -5,12 +5,17 @@ Shard-partitioned batches (``shards > 1``) wait for the multi-GPU trainer
 (ROADMAP.md Queue 1 item 4) and raise.
 
 Differences by design:
-- workers are a thread pool prefetching ``__getitem__`` (numpy releases the
-  GIL in the hot ops), ``train_num_workers`` of them. With more than one,
-  batch ``i`` of an epoch draws its host transforms and subsampling from
-  its own generator, seeded from (the epoch's worker seed, ``i``), so what
-  a batch holds does not depend on which thread loads it when; with one,
-  the draws come from the module streams in order, as the reference's.
+- workers prefetch ``__getitem__``, ``train_num_workers`` of them:
+  threads (``worker_mode = "thread"``; numpy releases the GIL in the hot
+  ops) or a fork-based process pool (``"process"``, the reference's
+  DataLoader workers; threads where fork is unavailable). With more than
+  one, batch ``i`` of an epoch draws its host transforms and subsampling
+  from its own generator, seeded from (the epoch's worker seed, ``i``),
+  so what a batch holds depends neither on which worker loads it nor on
+  the worker kind; with one, the draws come from the module streams in
+  order, as the reference's. Process workers return numpy batches and
+  never touch the card (the parent may have initialised CUDA before it
+  forks); the caller moves batches to the device.
 - per-host sharding replaces DistributedSampler: each process takes
   ``files[process_index::process_count]``.
 - batches are padded to a static capacity; oversized batches are randomly
@@ -34,6 +39,11 @@ from nerf_downstream_tpu_torch.data.utils import (
     collate_mink,
     next_bucket,
 )
+
+
+# the prune batches' per-batch generators are seeded from (seed,
+# PRUNE_STREAM, i): apart from the val batches' (seed, i)
+PRUNE_STREAM = 1
 
 
 def _subsample_to_fit(samples: list[dict], capacity: int, rng) -> list[dict]:
@@ -60,23 +70,55 @@ def _subsample_to_fit(samples: list[dict], capacity: int, rng) -> list[dict]:
     return out
 
 
-class _Prefetcher:
-    """Background thread pool mapping dataset[i] ahead of consumption
-    (numpy releases the GIL in the hot ops; with more than one worker each
-    batch draws from its own generator, ``DataModule._seeded``). The
-    reference's fork-based process workers are not ported."""
+_PROC_FN = None
 
-    def __init__(self, fn, indices, num_workers: int, depth: int = 4):
+
+def _proc_init(fn):
+    """Fork-pool initializer: install the batch loader (each batch seeds
+    its own generator, so the workers need no streams of their own)."""
+    global _PROC_FN
+    _PROC_FN = fn
+
+
+def _proc_call(arg):
+    return _PROC_FN(arg)
+
+
+class _Prefetcher:
+    """Background workers mapping dataset[i] ahead of consumption, in
+    order: ``mode="thread"`` a thread pool, ``"process"`` a fork-based
+    process pool (threads where fork is unavailable). With more than one
+    worker each batch draws from its own generator
+    (``DataModule._seeded``)."""
+
+    def __init__(self, fn, indices, num_workers: int, depth: int = 4,
+                 mode: str = "thread"):
+        if mode not in ("thread", "process"):
+            raise ValueError(f"unknown worker_mode {mode!r}")
         self.fn = fn
         self.indices = list(indices)
         self.num_workers = max(1, num_workers)
         self.depth = depth
+        self.mode = mode
 
     def __iter__(self):
         if self.num_workers <= 1:
             for i in self.indices:
                 yield self.fn(i)
             return
+        if self.mode == "process":
+            import multiprocessing as mp
+
+            try:
+                ctx = mp.get_context("fork")
+            except ValueError:
+                logging.warning(
+                    "fork unavailable; process workers fall back to threads")
+            else:
+                with ctx.Pool(self.num_workers, initializer=_proc_init,
+                              initargs=(self.fn,)) as pool:
+                    yield from pool.imap(_proc_call, self.indices)
+                return
         from concurrent.futures import ThreadPoolExecutor
 
         with ThreadPoolExecutor(self.num_workers) as pool:
@@ -117,7 +159,11 @@ class DataModule:
         process_count: int = 1,
         dataset_cls=None,
         shards: int = 1,
+        worker_mode: str = "thread",
     ):
+        if worker_mode not in ("thread", "process"):
+            raise ValueError(f"unknown worker_mode {worker_mode!r}")
+        self.worker_mode = worker_mode
         self.batch_size = batch_size
         self.val_batch_size = val_batch_size
         self.train_num_workers = train_num_workers
@@ -137,7 +183,8 @@ class DataModule:
         # than one loader thread); fixed here, so that a copy with one
         # thread (the calibration's) draws as the run does
         self._seeded = {"train": train_num_workers > 1,
-                        "val": val_num_workers > 1}
+                        "val": val_num_workers > 1,
+                        "prune": val_num_workers > 1}
         self.process_index = process_index
         self.process_count = process_count
         self._dataset_cls = dataset_cls
@@ -213,7 +260,33 @@ class DataModule:
                 return self._loaded(ds, idx_group, cap, rng)
 
             yield from _Prefetcher(load, enumerate(batches),
-                                   self.train_num_workers)
+                                   self.train_num_workers,
+                                   mode=self.worker_mode)
+
+    def prune_batches(self, num_batches: int = 8,
+                      batch_size: Optional[int] = None) -> Iterator[dict]:
+        """Calibration batches for pruning (the reference's
+        ``prune_batches``): ``num_batches`` groups of ``batch_size``
+        (default the train batch size) sequential train samples, the train
+        collate and capacity (automatic when none is set), on
+        ``val_num_workers`` workers."""
+        ds = self.dataset("train")
+        bs = batch_size or self.batch_size
+        cap = self.capacity
+        if cap is None and self.collate_name == "collate_mink":
+            cap = self._auto_capacity(ds, bs)
+        groups = [list(range(i * bs, min((i + 1) * bs, len(ds))))
+                  for i in range(num_batches) if i * bs < len(ds)]
+        seeded = self._seeded["prune"]
+
+        def load(job):
+            i, idx_group = job
+            rng = (np.random.default_rng([self.seed, PRUNE_STREAM, i])
+                   if seeded else None)
+            return self._loaded(ds, idx_group, cap, rng)
+
+        return iter(_Prefetcher(load, enumerate(groups),
+                                self.val_num_workers, mode=self.worker_mode))
 
     def val_batches(self, phase: str = "val") -> Iterator[dict]:
         ds = self.dataset(phase)
@@ -235,4 +308,4 @@ class DataModule:
                                 pad_to_batch=self.val_batch_size)
 
         return iter(_Prefetcher(load, enumerate(batches),
-                                self.val_num_workers))
+                                self.val_num_workers, mode=self.worker_mode))

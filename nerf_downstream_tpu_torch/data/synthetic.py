@@ -6,8 +6,9 @@ the 3D training configs read (``write_scannet_tree``,
 ``write_co3d_tree``, ``write_scannet_ply_tree`` for the raw-mesh
 ``scannet_semseg.gin`` and ``write_modelnet40_tree`` for
 ``modelnet40_cls.gin``, over ``modelnet40_arrays``), SemanticKITTI's
-LiDAR scans (``write_kitti_tree``), and the frame trees the 2D configs
-read (``write_perfception_2d_tree``)."""
+LiDAR scans (``write_kitti_tree``), the frame trees the 2D configs
+read (``write_perfception_2d_tree``), and the fused ensemble's scenes
+with one frame each (``write_joint_tree``, ``write_co3d_frames``)."""
 
 from __future__ import annotations
 
@@ -199,6 +200,43 @@ def _smooth_frame(rng, size, cells: int = 6):
     arr = np.asarray(grid.resize((w, h), Image.BILINEAR), np.int16)
     arr = arr + rng.integers(-12, 13, arr.shape, dtype=np.int16)
     return Image.fromarray(np.clip(arr, 0, 255).astype(np.uint8))
+
+
+def write_co3d_frames(frames_root: str, rng, fdir: str,
+                      size=(256, 256)) -> str:
+    """One smooth random JPEG frame of ``size`` (w, h) per scene that the
+    file lists in ``fdir`` ({train,test}.txt) name, at
+    ``<frames_root>/<class>/<inst>/fgbg/image000.jpg`` (the frames
+    ``data.joint.JointCo3DDataset`` pairs with the scenes); returns
+    ``frames_root``."""
+    import os
+
+    seen = set()
+    for phase in ("train", "test"):
+        with open(os.path.join(fdir, f"{phase}.txt")) as f:
+            rows = [ln.split()[:2] for ln in f if ln.strip()]
+        for cls, inst in rows:
+            if (cls, inst) in seen:
+                continue
+            seen.add((cls, inst))
+            d = os.path.join(frames_root, cls, inst, "fgbg")
+            os.makedirs(d, exist_ok=True)
+            _smooth_frame(rng, size).save(os.path.join(d, "image000.jpg"))
+    return frames_root
+
+
+def write_joint_tree(root: str, rng, frame_size=(256, 256),
+                     **co3d) -> tuple[str, str, str]:
+    """A synthetic PeRFception-CO3D tree (``write_co3d_tree`` with
+    ``co3d``'s arguments) and one frame per scene under ``root/frames``
+    (``write_co3d_frames``): (data root, file-list directory, frames
+    root)."""
+    import os
+
+    data_root, fdir = write_co3d_tree(root, rng, **co3d)
+    frames = write_co3d_frames(os.path.join(root, "frames"), rng, fdir,
+                               frame_size)
+    return data_root, fdir, frames
 
 
 def write_perfception_2d_tree(root: str, rng, n_train: int = 4,

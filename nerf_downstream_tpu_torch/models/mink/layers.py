@@ -18,7 +18,9 @@ under "block_resident" a level enters dense 4^3 blocks at its first
 blockable conv (k3/s1 dense or ZAXIS, k2/s2, k1/s2) and stays there
 through norms, activations, adds and k2 poolings and transposes
 (``ops/block_resident.py``); under "block" each dense k3/s1 conv runs
-through blocks made for it (``ops/block_conv.block_conv3``); under
+through blocks made for it (``ops/block_conv.block_conv3``), its output
+NaN-poisoned under ``overflow_guard`` when the blocks overflow their cap
+(the reference drops the rows without a block silently); under
 "window" a stride-preserving conv with uniform (dx, dy) offset groups
 runs K2/K3 on plans from its row kernel map (``ctx.window_plan``), and
 strided convs and transposes keep the row path. A consumer of rows
@@ -328,6 +330,10 @@ class SparseConv(nn.Module):
         cd = self.compute_dtype
         layout = ctx.block_layout(sv.coords, sv.mask, sv.stride)
         out_f = block_conv3(layout, sv.feats.to(cd), self.kernel.to(cd))
+        if ctx.overflow_guard:
+            # the rows a full cap left out would read zeros: poison, as
+            # "block_resident" does (the reference drops them silently)
+            out_f = br.overflow_poison(out_f, layout)
         if self.bias is not None:
             out_f = out_f + self.bias
         return sv.replace(feats=out_f.to(cd))

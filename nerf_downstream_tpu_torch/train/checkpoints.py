@@ -18,14 +18,16 @@ Trees are nested dicts of numpy arrays in the reference's layout
 (``convert.state_dict_to_flax`` / ``convert.load_flax_variables`` carry
 them to and from a model). A training state (``save_training_state``,
 ``restore_into``) also carries ``global_step`` and the optimizer state in
-the layout of the reference's optax chain (``sgd_state_to_optax``,
-``sgd_state_from_optax``), so a checkpoint written by either package
-resumes in the other (PowerNorm's statistics ``running_phi``, ``iters``
-and ``ema_gz`` with them); the 2D models' states (``train/modules2d.py``:
-weights, BatchNorm statistics, the SGD momentum trace and the schedule's
-count) take the same path through ``convert.py``'s 2D layout. A port checkpoint may also hold
-``pruning_masks``: {"path/to/kernel": bool array}, folded into the
-weights on load by ``utils.prune.fold_pruning_masks``.
+the layout of the reference's optax chain of each of its nine
+optimizers (``optimizer_state_to_optax``, ``optimizer_state_from_optax``),
+so a checkpoint written by either package resumes in the other
+(PowerNorm's statistics ``running_phi``, ``iters`` and ``ema_gz`` with
+them); the 2D models' states (``train/modules2d.py``: weights, BatchNorm
+statistics, the SGD momentum trace and the schedule's count) take the
+same path through ``convert.py``'s 2D layout, and the fused ensemble's
+through its own. A port checkpoint may also hold ``pruning_masks``:
+{"path/to/kernel": bool array}, folded into the weights on load by
+``utils.prune.fold_pruning_masks``.
 """
 
 from __future__ import annotations
@@ -37,6 +39,7 @@ import numpy as np
 import torch
 
 from nerf_downstream_tpu_torch import convert
+from nerf_downstream_tpu_torch.train import optim
 
 _EXT_NDARRAY = 1
 _EXT_NPSCALAR = 3
@@ -274,58 +277,144 @@ def load_checkpoint(path: str) -> dict:
 # -- training states ---------------------------------------------------------
 
 
-def _sgd_hyper(optimizer) -> tuple[float, float, bool]:
-    if not isinstance(optimizer, torch.optim.SGD):
-        raise NotImplementedError(
-            f"optimizer state of {type(optimizer).__name__} has no optax "
-            "layout in the port (SGD only; ROADMAP.md Queue 1 item 1)")
-    g = optimizer.param_groups[0]
-    return float(g["weight_decay"]), float(g["momentum"]), bool(g["nesterov"])
+# Each optimizer's optax chain, element by element, as the reference
+# builds it (``nerf_downstream_tpu/train/optim.py``): "state" is the
+# transform's own (its ``leaves`` in the params tree's layout, and
+# ``count`` where it counts updates), "trace" a momentum trace ({} without
+# momentum), "sched" the lr schedule's update count ({} with a constant
+# lr) and "empty" a transform without state (optax.adadelta's own
+# add_decayed_weights, AdamW's decoupled decay, Rprop's sign flip). A
+# coupled weight decay wraps the chain as {"0": {}, "1": chain}.
+_CHAINS = {
+    torch.optim.SGD: ("trace", "sched"),
+    optim.Adam: ("state", "sched"),
+    optim.AdamW: ("state", "empty", "sched"),
+    optim.Adamax: ("state", "sched"),
+    optim.Adagrad: ("state", "sched"),
+    optim.Adadelta: ("empty", "state", "sched"),
+    optim.RMSprop: ("state", "sched", "trace"),
+    optim.Rprop: ("state", "empty"),
+}
 
 
-def _optax_chain(weight_decay: float, inner: dict) -> dict:
-    # optax.sgd = chain(trace or identity, scale_by_learning_rate); with
-    # decay the reference chains add_decayed_weights (no state) before it
-    return {"0": {}, "1": inner} if weight_decay else inner
+def _chain(optimizer) -> tuple[str, ...]:
+    kind = type(optimizer)
+    if kind not in _CHAINS:
+        raise ValueError(f"{kind.__name__} has no optax layout (the "
+                         f"optimizers of train/optim.py have)")
+    return _CHAINS[kind]
 
 
-def sgd_state_to_optax(model, optimizer, step: int,
-                       scheduled: bool) -> dict:
-    """The reference's optax state of ``optimizer`` (torch SGD): the
-    momentum trace (torch's ``momentum_buffer``, zeros before the first
-    step, as optax initialises it) in the params tree's layout, and the
-    schedule's update count (``step``) when the lr is ``scheduled``."""
-    wd, momentum, _ = _sgd_hyper(optimizer)
-    inner = {"0": {}, "1": {}}
-    if momentum:
-        bufs = {}
-        for name, p in model.named_parameters():
-            buf = optimizer.state.get(p, {}).get("momentum_buffer")
-            bufs[name] = torch.zeros_like(p) if buf is None else buf
-        inner["0"] = {"trace": convert.state_dict_to_flax(
-            bufs, convert.flax_layout(model))["params"]}
-    if scheduled:
-        inner["1"] = {"count": np.asarray(step, np.int32)}
-    return _optax_chain(wd, inner)
+def _momentum(optimizer) -> float:
+    return float(optimizer.param_groups[0].get("momentum", 0.0) or 0.0)
 
 
-def sgd_state_from_optax(raw: dict, model, optimizer) -> None:
-    """Load the reference's optax SGD state ``raw`` into ``optimizer``:
-    the momentum trace becomes each parameter's ``momentum_buffer``. The
-    schedule's count is the training state's step (``global_step``)."""
-    wd, momentum, _ = _sgd_hyper(optimizer)
-    inner = raw.get("1", {}) if wd else raw
-    trace = inner.get("0", {}).get("trace") if isinstance(inner, dict) \
-        else None
-    if momentum and not trace:
-        raise ValueError("checkpoint optimizer state has no momentum trace "
-                         "for an SGD with momentum")
-    if not momentum:
-        return
-    bufs = convert.flax_to_state_dict(model, trace)
-    for name, p in model.named_parameters():
-        optimizer.state[p]["momentum_buffer"] = bufs[name].to(
-            device=p.device, dtype=p.dtype).clone()
+def _leaf_state(optimizer, p, name: str) -> torch.Tensor:
+    """One parameter's state tensor ``name`` (optax's leaf name; SGD's
+    trace is torch's ``momentum_buffer``, zeros before the first step, as
+    optax initialises it)."""
+    if isinstance(optimizer, torch.optim.SGD):
+        buf = optimizer.state.get(p, {}).get("momentum_buffer")
+        return torch.zeros_like(p) if buf is None else buf
+    return optimizer.state_of(p)[name]
+
+
+def optimizer_state_to_optax(model, optimizer, step: int,
+                             scheduled: bool) -> dict:
+    """The reference's optax state of ``optimizer`` (an optimizer of
+    ``train/optim.py``): its per-parameter state in the params tree's
+    layout, its update count, the momentum trace where it has momentum,
+    and the schedule's count (``step``) when the lr is ``scheduled``."""
+    layout = convert.flax_layout(model)
+    named = list(model.named_parameters())
+
+    def tree(name):
+        return convert.state_dict_to_flax(
+            {n: _leaf_state(optimizer, p, name) for n, p in named},
+            layout)["params"]
+
+    entries = {}
+    for i, kind in enumerate(_chain(optimizer)):
+        entry = {}
+        if kind == "state":
+            entry = {name: tree(name) for name in optimizer.leaves}
+            if optimizer.counted:
+                count = optimizer.state_of(named[0][1])["count"]
+                entry["count"] = np.asarray(count, np.int32)
+        elif kind == "trace" and _momentum(optimizer):
+            entry = {"trace": tree("trace")}
+        elif kind == "sched" and scheduled:
+            entry = {"count": np.asarray(step, np.int32)}
+        entries[str(i)] = entry
+    group = optimizer.param_groups[0]
+    if group["weight_decay"] and not getattr(optimizer, "decoupled", False):
+        return {"0": {}, "1": entries}
+    return entries
+
+
+def optimizer_state_from_optax(raw: dict, model, optimizer) -> None:
+    """Load the reference's optax state ``raw`` into ``optimizer``: each
+    leaf tree becomes that state tensor of every parameter (SGD's trace
+    its ``momentum_buffer``), with the update count. The schedule's count
+    is the training state's step (``global_step``)."""
+    group = optimizer.param_groups[0]
+    if group["weight_decay"] and not getattr(optimizer, "decoupled", False):
+        raw = raw.get("1", {})
+    trees, count = {}, None
+    for i, kind in enumerate(_chain(optimizer)):
+        entry = raw.get(str(i), {}) if isinstance(raw, dict) else {}
+        if kind == "state":
+            missing = [n for n in optimizer.leaves if n not in entry]
+            if missing:
+                raise ValueError(f"checkpoint optimizer state has no "
+                                 f"{missing} for {type(optimizer).__name__}")
+            trees.update({n: entry[n] for n in optimizer.leaves})
+            if optimizer.counted:
+                count = int(np.asarray(entry["count"]))
+        elif kind == "trace" and _momentum(optimizer):
+            if not entry.get("trace"):
+                raise ValueError("checkpoint optimizer state has no momentum "
+                                 f"trace for a {type(optimizer).__name__} "
+                                 "with momentum")
+            trees["trace"] = entry["trace"]
+    named = list(model.named_parameters())
+    for name, tree in trees.items():
+        bufs = convert.flax_to_state_dict(model, tree)
+        for n, p in named:
+            t = bufs[n].to(device=p.device, dtype=p.dtype).clone()
+            if isinstance(optimizer, torch.optim.SGD):
+                optimizer.state[p]["momentum_buffer"] = t
+            else:
+                optimizer.state_of(p)[name] = t
+    if count is not None:
+        for _, p in named:
+            optimizer.state_of(p)["count"] = count
+
+
+def convert_self_supervised(raw_params: dict, raw_stats: dict,
+                            target_params: dict,
+                            target_stats: dict) -> tuple[dict, dict]:
+    """The reference's transfer of a self-supervised checkpoint's trees
+    onto a target's (``params``, ``batch_stats``, flax layout): every leaf
+    under a key that contains "final" or "predictor", every leaf the
+    checkpoint lacks and every leaf whose shape differs keeps the
+    target's; every other leaf is the checkpoint's."""
+
+    def merge(raw, target):
+        if not isinstance(target, dict):
+            if raw is None:
+                return target
+            raw_arr = np.asarray(raw)
+            return raw_arr if raw_arr.shape == np.shape(target) else target
+        out = {}
+        for k, v in target.items():
+            if "final" in k or "predictor" in k:
+                out[k] = v
+                continue
+            out[k] = merge(raw.get(k) if isinstance(raw, dict) else None, v)
+        return out
+
+    return merge(raw_params, target_params), merge(raw_stats, target_stats)
 
 
 def save_training_state(path: str, state, meta: dict | None = None) -> None:
@@ -336,8 +425,9 @@ def save_training_state(path: str, state, meta: dict | None = None) -> None:
                                       convert.flax_layout(state.model))
     save_checkpoint(
         path, tree.get("params", {}), tree.get("batch_stats", {}),
-        opt_state=sgd_state_to_optax(state.model, state.optimizer,
-                                     state.step, state.schedule is not None),
+        opt_state=optimizer_state_to_optax(
+            state.model, state.optimizer, state.step,
+            state.schedule is not None),
         global_step=state.step, meta=meta)
 
 
@@ -357,5 +447,6 @@ def restore_into(state, raw: dict, *, weights: bool = True,
         state.model.load_state_dict({k: v.to(dev) for k, v in sd.items()},
                                     strict=full)
     if optimizer and raw.get("opt_state"):
-        sgd_state_from_optax(raw["opt_state"], state.model, state.optimizer)
+        optimizer_state_from_optax(raw["opt_state"], state.model,
+                                   state.optimizer)
     return state

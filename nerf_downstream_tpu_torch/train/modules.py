@@ -1,6 +1,7 @@
 """Task losses, step metrics, the training and eval steps and the
 validation hooks (counterpart of ``nerf_downstream_tpu/train/modules.py``:
-``BaseTask``, ``SegmentationTraining`` and ``ClassificationTraining``).
+``BaseTask``, ``SegmentationTraining``, ``ClassificationTraining`` and
+``EnsembleClassificationTraining``).
 
 A training step is reproducible on the card and on the CPU: every
 accumulating scatter of the step adds in a fixed order (the escape path,
@@ -11,6 +12,7 @@ from the same state are bit-identical.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import logging
 import os
@@ -21,7 +23,7 @@ from torch.nn import functional as F
 
 from nerf_downstream_tpu_torch import config as cfg
 from nerf_downstream_tpu_torch.data import device_transforms as DT
-from nerf_downstream_tpu_torch.sparse.types import PointField
+from nerf_downstream_tpu_torch.models.interface import process_input
 from nerf_downstream_tpu_torch.train import metrics as M
 from nerf_downstream_tpu_torch.train.optim import get_optimizer, get_scheduler
 from nerf_downstream_tpu_torch.train.state import TrainState
@@ -39,10 +41,23 @@ def init_variables(model: torch.nn.Module, seed: int) -> torch.nn.Module:
     LeCun-normal (flax's default: a normal truncated at two standard
     deviations, of variance 1 / fan-in), biases 0, norm scale 1, bias 0,
     running mean 0 and variance 1 (flax's BatchNorm names them scale,
-    mean and var), PowerNorm's running_phi 1, iters 0 and ema_gz 0."""
+    mean and var), PowerNorm's running_phi 1, iters 0 and ema_gz 0. The
+    2D layers of ``models/image`` (the ensemble's image branch) draw
+    flax's own distributions through their ``reset_parameters``
+    (lecun-normal kernels, a residual branch's last BatchNorm scale at
+    0)."""
+    from nerf_downstream_tpu_torch.models.image import layers as L2
+
     gen = torch.Generator().manual_seed(int(seed))
+    drawn = set()
+    for mname, m in model.named_modules():
+        if isinstance(m, (L2.Conv2d, L2.Dense, L2.BatchNorm, L2.LayerNorm)):
+            m.reset_parameters(gen)
+            drawn.update(f"{mname}.{k}" for k in m.state_dict())
     with torch.no_grad():
         for name, t in model.state_dict(keep_vars=True).items():
+            if name in drawn:
+                continue
             leaf = name.rsplit(".", 1)[-1]
             if leaf == "kernel" and t.dim() == 2:
                 # flax's truncated normal, rescaled to variance 1 / fan-in
@@ -129,8 +144,10 @@ class BaseTask:
 
     ``checkpoint_path`` with ``load_weights`` / ``load_optimizers`` loads a
     checkpoint into the state ``create_state`` makes (the reference's
-    three load modes but ``transfer_self_supervised``, which is not
-    ported), its pruning masks folded into the weights, after
+    three load modes: with ``transfer_self_supervised`` the weights go
+    through ``checkpoints.convert_self_supervised``, which keeps the
+    model's own ``final``/``predictor`` leaves and those whose shape
+    differs), its pruning masks folded into the weights, after
     ``checkpoint_transform`` (a function of the loaded dict, such as the
     BN -> PN conversion of ``co3d_3d/eval.py``) where one is given. ``axis_name`` (data parallelism) is not ported and raises
     (ROADMAP.md Queue 1 item 4); ``use_sync_grad`` is moot on one device.
@@ -157,10 +174,6 @@ class BaseTask:
             raise NotImplementedError(
                 "data-parallel training (axis_name) is not ported "
                 "(ROADMAP.md Queue 1 item 4)")
-        if transfer_self_supervised:
-            raise NotImplementedError(
-                "transfer_self_supervised is not ported (ROADMAP.md Queue 1 "
-                "item 1)")
         if load_weights or load_optimizers:
             assert checkpoint_path is not None
         self.model = model
@@ -176,6 +189,7 @@ class BaseTask:
         self.reset_profiler_every_n_steps = reset_profiler_every_n_steps
         self.load_weights = load_weights
         self.load_optimizers = load_optimizers
+        self.transfer_self_supervised = transfer_self_supervised
         self.checkpoint_path = checkpoint_path
         self.checkpoint_transform = checkpoint_transform
         self.export_path = export_path
@@ -201,7 +215,12 @@ class BaseTask:
 
     def create_state(self) -> TrainState:
         """A fresh optimizer and schedule over the model, and the
-        configured checkpoint loaded into them."""
+        configured checkpoint loaded into them. Rprop with a schedule
+        raises, as the reference's does (optax's Rprop takes a constant
+        initial step size)."""
+        if self.optimizer_name == "Rprop" and self.schedule is not None:
+            raise TypeError("Rprop takes a constant lr (its initial step "
+                            "size); bind scheduler_name = \"none\"")
         opt = get_optimizer(self.optimizer_name, self.model.parameters(),
                             self.lr, self.weight_decay)
         state = TrainState(step=0, model=self.model, optimizer=opt,
@@ -222,6 +241,8 @@ class BaseTask:
         if folded:
             logging.info(f"folded pruning masks: {folded['folded']}")
         if self.load_weights:
+            if self.transfer_self_supervised:
+                ckpt = self._self_supervised(state, ckpt)
             checkpoints.restore_into(state, ckpt, weights=True)
             logging.info(f"Loaded model weights from {self.checkpoint_path}")
         if self.load_optimizers:
@@ -232,6 +253,20 @@ class BaseTask:
             logging.info(
                 f"Loaded optimizer parameters from {self.checkpoint_path}")
         return state
+
+    @staticmethod
+    def _self_supervised(state: TrainState, ckpt: dict) -> dict:
+        """``ckpt`` with its weights transferred onto the model's own
+        (``checkpoints.convert_self_supervised``)."""
+        from nerf_downstream_tpu_torch import convert
+        from nerf_downstream_tpu_torch.train import checkpoints
+
+        own = convert.state_dict_to_flax(state.model.state_dict(),
+                                         convert.flax_layout(state.model))
+        params, stats = checkpoints.convert_self_supervised(
+            ckpt["params"], ckpt["batch_stats"], own.get("params", {}),
+            own.get("batch_stats", {}))
+        return dict(ckpt, params=params, batch_stats=stats)
 
     def current_lr(self, step: int) -> float:
         if self.schedule is None:
@@ -260,9 +295,16 @@ class BaseTask:
 
     def model_input(self, batch: dict):
         """What the model takes from a batch: a ``PointField`` of the
-        batch's rows (a dense task overrides it)."""
-        return PointField(coords=batch["coordinates"],
-                          feats=batch["features"], mask=batch["mask"])
+        batch's rows (``models/interface.py::process_input``), or a tuple
+        of its positional inputs (a dense or joint task overrides it)."""
+        return process_input(batch)
+
+    def apply_model(self, model, batch: dict, **kw):
+        """The model's output on ``batch`` (its ``model_input``)."""
+        inputs = self.model_input(batch)
+        if isinstance(inputs, tuple):
+            return model(*inputs, **kw)
+        return model(inputs, **kw)
 
     def train_step(self, state: TrainState, batch: dict):
         """One update of ``state`` (in place, and returned) on a batch of
@@ -275,7 +317,7 @@ class BaseTask:
             gen = torch.Generator(device=batch["coordinates"].device)
             gen.manual_seed(DROPOUT_SEED + int(state.step))
             kw["generator"] = gen
-        logits = model(self.model_input(batch), **kw)
+        logits = self.apply_model(model, batch, **kw)
         loss, mets = self.loss_and_metrics(logits, batch)
         state.optimizer.zero_grad(set_to_none=True)
         loss.backward()
@@ -291,7 +333,7 @@ class BaseTask:
         eval mode on a batch of tensors on its device."""
         model = state.model.eval()
         with torch.no_grad():
-            logits = model(self.model_input(batch))
+            logits = self.apply_model(model, batch)
             loss, mets = self.loss_and_metrics(logits, batch)
         return logits, self._step_metrics(loss, mets)
 
@@ -474,22 +516,66 @@ class ClassificationTraining(BaseTask):
         }
 
 
+@cfg.configurable("EnsembleClassificationTraining")
+class EnsembleClassificationTraining(ClassificationTraining):
+    """Joint 2D+3D classification over ``models/ensemble.py::
+    Ensemble2D3D``: batches carry both ``images`` [B, H, W, 3] and the
+    rows of the scenes' voxels (``data/joint.py::collate_joint``); the
+    model takes ``(images, field)``. As in the reference, the step runs
+    no device augmentation. An f32 model's steps and evaluations run its
+    cuDNN convolutions and matrix products in real f32 (no TF32) with
+    deterministic algorithms, so that two steps from one state are
+    bit-identical."""
+
+    def model_input(self, batch: dict):
+        return batch["images"], process_input(batch)
+
+    def augment(self, batch: dict, step: int) -> dict:
+        return batch
+
+    def _exact(self):
+        if getattr(self.model, "compute_dtype", torch.float32) \
+                != torch.float32:
+            return contextlib.nullcontext()
+        return f32_deterministic()
+
+    def train_step(self, state: TrainState, batch: dict):
+        with self._exact():
+            return super().train_step(state, batch)
+
+    def eval_step(self, state: TrainState, batch: dict):
+        with self._exact():
+            return super().eval_step(state, batch)
+
+
+@contextlib.contextmanager
+def f32_deterministic():
+    """cuDNN convolutions with deterministic algorithms, and CUDA
+    convolutions and matrix products in real f32 (no TF32), inside the
+    block; the previous settings come back after it."""
+    saved = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        with torch.backends.cudnn.flags(enabled=True, benchmark=False,
+                                        deterministic=True,
+                                        allow_tf32=False):
+            yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = saved
+
+
 MODULES = {
     "SegmentationTraining": SegmentationTraining,
     "ClassificationTraining": ClassificationTraining,
+    "EnsembleClassificationTraining": EnsembleClassificationTraining,
 }
 
 
 def get_training_module(name: str):
     """The task class of ``name`` (the reference's table; the
-    ExceptionSafe variant is the standard one, as there). The ensemble
-    task is not ported (ROADMAP.md Queue 1 item 5)."""
+    ExceptionSafe variant is the standard one, as there)."""
     if name == "ExceptionSafeSegmentationTraining":
         name = "SegmentationTraining"
-    if name == "EnsembleClassificationTraining":
-        raise NotImplementedError(
-            f"training module {name!r} is not ported (ROADMAP.md Queue 1 "
-            "item 5)")
     if name not in MODULES:
         raise ValueError(f"unknown training module {name!r}")
     return MODULES[name]

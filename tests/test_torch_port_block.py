@@ -302,3 +302,41 @@ def test_block_overflow_poisons_as_reference(guard):
     assert np.isnan(trows).any() == guard
     if not guard:
         np.testing.assert_array_equal(trows, jrows)
+
+
+@pytest.mark.parametrize("cap,guard", [(40, True), (40, False),
+                                       (512, True)])
+def test_block_route_overflow_guard(cap, guard):
+    """A k3/s1 conv on the "block" route (``SparseConv``): at a block cap
+    that overflows the port poisons every row with NaN under
+    ``overflow_guard`` (a deliberate difference: the reference drops the
+    rows without a block silently, ROADMAP Queue 3); with the guard off,
+    and at a cap that fits, its output is the reference's bit for bit
+    (integer features and weights: every sum is exact in f32)."""
+    from nerf_downstream_tpu.models.mink.layers import SparseConv as JConv
+    from nerf_downstream_tpu_torch.models.mink.layers import SparseConv
+
+    coords, mask, _ = shells(7)
+    rng = np.random.default_rng(8)
+    feats = rng.integers(-3, 4, (CAP, C)).astype(np.float32)
+    jsv, tsv = both_levels(coords, mask, feats)
+    knobs = dict(method="block", block_caps=(cap,), overflow_guard=guard)
+    jc, tc = contexts(**knobs)
+    w = rng.integers(-2, 3, (27, C, 5)).astype(np.float32)
+    jconv = JConv(5, 3, 1)
+    ref = jax.jit(lambda sv: jconv.apply({"params": {"kernel": w}}, sv, jc))(
+        jsv)
+    conv = SparseConv(C, 5, 3, 1)
+    with torch.no_grad():
+        conv.kernel.copy_(torch.as_tensor(w))
+        out = conv(tsv, tc)
+    assert conv.route == "block"
+    layout = tc.block_layout(tsv.coords, tsv.mask, tsv.stride)
+    assert (int(layout.overflow) > 0) == (cap == 40)
+    want = np.asarray(ref.feats)
+    got = out.feats.numpy()
+    assert np.isfinite(want).all()
+    if cap == 40 and guard:
+        assert np.isnan(got).all()
+    else:
+        np.testing.assert_array_equal(got, want)

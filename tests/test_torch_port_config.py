@@ -156,8 +156,11 @@ def test_gin_surfaces_bind_the_port():
     assert model.num_batches == 8 and model.out_channel == 20
     opt = get_optimizer("SGD", model.parameters(), 0.1, 1e-4)
     assert opt.param_groups[0]["momentum"] == 0.9
-    with pytest.raises(NotImplementedError, match="not ported"):
-        get_optimizer("Adam", model.parameters(), 0.1)
+    tcfg.parse_config("Adam.b2 = 0.98\n")
+    adam = get_optimizer("Adam", model.parameters(), 0.1)
+    assert adam.param_groups[0]["b2"] == 0.98
+    with pytest.raises(ValueError, match="not recognized"):
+        get_optimizer("LARS", model.parameters(), 0.1)
 
 
 @pytest.mark.parametrize("decay,tile", [(0.5, 256), (0.3, 64), (0.9, 128)])
